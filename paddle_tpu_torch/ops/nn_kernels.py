@@ -1,0 +1,83 @@
+"""Plain PyTorch versions of the attention ops the serving path uses.
+
+Counterpart: `paddle_tpu/ops/nn_kernels.py` — `sdpa_k`, `paged_write_k`
+and `paged_attention_k`.  Layouts follow the JAX package: activations are
+(B, L, H, D) and the paged KV pool is [N, bs, Hkv, D].
+"""
+from __future__ import annotations
+
+import torch
+
+
+def sdpa(q, k, v, mask=None, is_causal=False, scale=None):
+    """Scaled dot-product attention on (B, L, H, D), as `sdpa_k`: scores
+    and softmax in float32, probabilities cast back to q's dtype before
+    P.V; causal masking is bottom-right aligned (`tril(ones, lk - lq)`);
+    `mask` is bool (True = keep) or additive; fewer kv heads are repeated
+    up to the q heads (GQA)."""
+    d = q.shape[-1]
+    if k.shape[2] != q.shape[2]:
+        rep = q.shape[2] // k.shape[2]
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    scores = torch.einsum("blhd,bmhd->bhlm", q, k) * scale
+    scores = scores.float()
+    if is_causal:
+        lq, lk = scores.shape[-2], scores.shape[-1]
+        keep = torch.ones(lq, lk, dtype=torch.bool,
+                          device=q.device).tril(lk - lq)
+        scores = scores.masked_fill(~keep, float("-inf"))
+    if mask is not None:
+        if mask.dtype == torch.bool:
+            scores = scores.masked_fill(~mask, float("-inf"))
+        else:
+            scores = scores + mask.to(scores.dtype)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhlm,bmhd->blhd", probs, v)
+
+
+def paged_write(pool, val, tables, pos, limit=None):
+    """Scatter `val` [b, s, H, D] into the pool [N, bs, H, D] IN PLACE at
+    row positions pos[b] .. pos[b] + s - 1, through each row's block table
+    (position p lands in block tables[b, p // bs], slot p % bs); returns
+    `pool`.  The JAX version returns a new array instead.
+
+    Positions at or past limit[b] are dropped, as `paged_write_k` drops
+    them with `mode="drop"`: PyTorch has no dropping scatter, so those
+    rows are removed before the `index_put_` (on CUDA that selection
+    waits for the card).  `limit=None` writes every position: the port's
+    engine feeds exact chunks and live rows only, so it has nothing to
+    drop and does not pay that wait."""
+    bs = pool.shape[1]
+    s = val.shape[1]
+    positions = (pos.long()[:, None]
+                 + torch.arange(s, device=pos.device)[None, :])    # [b, s]
+    col = (positions // bs).clamp(0, tables.shape[1] - 1)
+    blk = tables.long().gather(1, col)
+    off = positions % bs
+    val = val.to(pool.dtype)
+    if limit is not None:
+        keep = positions < limit.long()[:, None]
+        blk, off, val = blk[keep], off[keep], val[keep]
+    pool.index_put_((blk, off), val)
+    return pool
+
+
+def paged_attention(q, k_pool, v_pool, tables, pos, scale=None):
+    """Attention over the paged pool for any chunk length s, as
+    `paged_attention_k`: gather each row's blocks into a contiguous
+    [b, M * bs, Hkv, D] window and run the `sdpa` math under the mask
+    `cols <= pos + row` (query row i of a request at offset pos sees
+    absolute positions <= pos + i)."""
+    b, s = q.shape[0], q.shape[1]
+    bs = k_pool.shape[1]
+    m = tables.shape[1]
+    flat = tables.long().reshape(-1)
+    K = k_pool[flat].reshape((b, m * bs) + tuple(k_pool.shape[2:]))
+    V = v_pool[flat].reshape((b, m * bs) + tuple(v_pool.shape[2:]))
+    cols = torch.arange(m * bs, device=q.device)[None, None, :]
+    rows = (pos.long()[:, None, None]
+            + torch.arange(s, device=q.device)[None, :, None])
+    mask = (cols <= rows)[:, None, :, :]                 # [b, 1, s, M*bs]
+    return sdpa(q, K, V, mask=mask, scale=scale)

@@ -1,0 +1,145 @@
+"""Paged decode attention: the hand-written CUDA kernel, its wrapper and
+its plain PyTorch version.
+
+Counterpart: `paddle_tpu/ops/pallas/paged_attention.py` —
+`paged_decode_attention` and the Pallas TPU kernel `_decode_kernel`.  The
+kernel is `csrc/paged_attention.cu`; its source note says what bounds it
+and how it is laid out.
+
+Unlike the TPU kernel (D % 128 == 0 and bs % 8 == 0 only), the CUDA
+kernel takes any block size, D a multiple of 8 from 8 to 256, H a
+multiple of Hkv, and float32, bfloat16 or float16.
+
+`paged_decode_attention` runs the plain version only for tensors on the
+CPU.  On a CUDA tensor it launches the kernel or raises; it never falls
+back.  `paged_decode_attention.launches` counts the kernel's launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_lib = None
+
+
+def _kernel():
+    global _lib
+    if _lib is None:
+        lib = _build.load("paged_attention")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.paged_decode_attention.argtypes = [p, p, p, p, p, p,
+                                               i, i, i, i, i, i,
+                                               ctypes.c_float, i, i, p]
+        lib.paged_decode_attention.restype = i
+        lib.paged_attention_error_string.argtypes = [i]
+        lib.paged_attention_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _scale(scale, d):
+    return float(scale) if scale is not None else 1.0 / (d ** 0.5)
+
+
+def paged_decode_attention_plain(q, k_pool, v_pool, tables, lens,
+                                 scale=None):
+    """The kernel's math in plain PyTorch: gather each row's blocks, mask
+    columns at or past `lens`, float32 scores, softmax and P.V, cast to
+    the q dtype.  A row of length 0 gives 0, as the kernel does."""
+    B, _, H, D = q.shape
+    _, bs, Hkv, _ = k_pool.shape
+    M = tables.shape[1]
+    g = H // Hkv
+    idx = tables.long()
+    K = k_pool[idx].reshape(B, M * bs, Hkv, D).float()
+    V = v_pool[idx].reshape(B, M * bs, Hkv, D).float()
+    qf = q.reshape(B, Hkv, g, D).float()
+    s = torch.einsum("bkgd,blkd->bkgl", qf, K) * _scale(scale, D)
+    cols = torch.arange(M * bs, device=q.device)
+    visible = cols[None, :] < lens.to(q.device).long()[:, None]    # [B, L]
+    s = s.masked_fill(~visible[:, None, None, :], float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgl,blkd->bkgd", p, V)
+    o = o / torch.where(l == 0, torch.ones_like(l), l)
+    return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+def _check(q, k_pool, v_pool, tables, lens):
+    dev = q.device
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
+                    ("tables", tables), ("lens", lens)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"paged_decode_attention takes float32, bfloat16 "
+                        f"or float16, not {q.dtype}")
+    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise TypeError("q, k_pool and v_pool must share one dtype")
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"q must be [B, 1, H, D] (decode only), "
+                         f"got {tuple(q.shape)}")
+    B, _, H, D = q.shape
+    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+        raise ValueError("k_pool and v_pool must both be [N, bs, Hkv, D]")
+    _, bs, Hkv, Dk = k_pool.shape
+    if Dk != D:
+        raise ValueError(f"pool head_dim {Dk} != q head_dim {D}")
+    if Hkv < 1 or H % Hkv:
+        raise ValueError(f"H={H} is not a multiple of Hkv={Hkv}")
+    if D % 8 or not 8 <= D <= 256:
+        raise ValueError(f"the kernel takes head_dim a multiple of 8 in "
+                         f"[8, 256], got {D}")
+    if not 1 <= B <= 65535:
+        raise ValueError(f"batch {B} outside [1, 65535]")
+    if tables.dtype != torch.int32 or tables.dim() != 2 \
+            or tables.shape[0] != B or tables.shape[1] < 1:
+        raise ValueError("tables must be int32 [B, M] with M >= 1")
+    if lens.dtype != torch.int32 or tuple(lens.shape) != (B,):
+        raise ValueError("lens must be int32 [B]")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                    ("tables", tables), ("lens", lens)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def paged_decode_attention(q, k_pool, v_pool, tables, lens, scale=None):
+    """One-token paged attention.  q: [B, 1, H, D]; pools [N, bs, Hkv, D];
+    tables: [B, M] int32 block ids; lens: [B] int32 visible context length
+    including the token just written.  Returns [B, 1, H, D] in q's dtype.
+    CPU tensors take the plain version; CUDA tensors the kernel."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pool, v_pool, tables, lens,
+                                            scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention runs on cuda or cpu, "
+                         f"not {q.device.type}")
+    _check(q, k_pool, v_pool, tables, lens)
+    B, _, H, D = q.shape
+    _, bs, Hkv, _ = k_pool.shape
+    out = torch.empty_like(q)
+    lib = _kernel()
+    rc = lib.paged_decode_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
+        B, H, Hkv, D, bs, tables.shape[1], _scale(scale, D),
+        _DTYPE_CODES[q.dtype], q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc:
+        raise RuntimeError(
+            f"paged_decode_attention kernel failed: "
+            f"{lib.paged_attention_error_string(rc).decode()} (code {rc})")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0

@@ -1,0 +1,174 @@
+"""GPT model family, for serving.
+
+Counterpart: `paddle_tpu/text/gpt.py`.  Same presets, same module tree and
+parameter names (`gpt.wte.weight`, `gpt.h.0.attn.qkv_proj.weight`, ...),
+so `weights.load_paddle_tpu_state` carries a JAX model's weights across
+name for name.  One layout differs: the port uses `torch.nn.Linear`,
+whose weight is [out, in] where the JAX package keeps [in, out].
+
+Ported here: the no-cache branch of `GPTAttention` and the block-paged
+branch the serving engine drives.  Tensor parallelism, MoE, recompute,
+ring attention and the concat / preallocated decode caches are later
+slices of the port (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .. import ops
+from ..device import generator as make_generator
+from ..device import resolve_device
+from .decode import _update_paged_cache
+
+
+class GPTConfig:
+    PRESETS = {
+        "gpt3-125M": dict(hidden_size=768, num_layers=12, num_heads=12),
+        "gpt3-350M": dict(hidden_size=1024, num_layers=24, num_heads=16),
+        "gpt3-760M": dict(hidden_size=1536, num_layers=24, num_heads=16),
+        "gpt3-1.3B": dict(hidden_size=2048, num_layers=24, num_heads=16),
+        "gpt3-2.7B": dict(hidden_size=2560, num_layers=32, num_heads=32),
+        "gpt3-6.7B": dict(hidden_size=4096, num_layers=32, num_heads=32),
+        "gpt3-13B": dict(hidden_size=5120, num_layers=40, num_heads=40),
+    }
+
+    def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
+                 num_heads=12, intermediate_size=None,
+                 max_position_embeddings=2048, hidden_dropout=0.1,
+                 attention_dropout=0.1, initializer_range=0.02):
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.intermediate_size = intermediate_size or 4 * hidden_size
+        self.max_position_embeddings = max_position_embeddings
+        self.hidden_dropout = hidden_dropout
+        self.attention_dropout = attention_dropout
+        self.initializer_range = initializer_range
+
+    @classmethod
+    def from_preset(cls, name, **kw):
+        return cls(**{**cls.PRESETS[name], **kw})
+
+
+class GPTAttention(nn.Module):
+    def __init__(self, cfg, device=None, dtype=None):
+        super().__init__()
+        self.num_heads = cfg.num_heads
+        self.head_dim = cfg.hidden_size // cfg.num_heads
+        kw = dict(device=device, dtype=dtype)
+        self.qkv_proj = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size, **kw)
+        self.out_proj = nn.Linear(cfg.hidden_size, cfg.hidden_size, **kw)
+        self.dropout_p = cfg.attention_dropout
+
+    def forward(self, x, cache=None):
+        b, s, h = x.shape
+        # [b, s, 3, H, D] then unbind the 3: the JAX package's qkv layout
+        qkv = self.qkv_proj(x).view(b, s, 3, self.num_heads, self.head_dim)
+        q, k, v = qkv.unbind(2)
+        if cache is not None:
+            # block-paged pool (serving engine): write this chunk's k/v
+            # through the block table, then attend the whole context
+            kp, vp = _update_paged_cache(cache, k, v)
+            out = ops.paged_attention(q, kp, vp, cache["table"],
+                                      cache["pos"])
+        else:
+            if self.training and self.dropout_p > 0:
+                raise NotImplementedError(
+                    "attention dropout comes with the training slice of the "
+                    "port; use eval() or attention_dropout=0.0")
+            out = ops.sdpa(q, k, v, is_causal=True)
+        return self.out_proj(out.reshape(b, s, h))
+
+
+class GPTMLP(nn.Module):
+    def __init__(self, cfg, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.fc_in = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
+        self.fc_out = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
+
+    def forward(self, x):
+        return self.fc_out(F.gelu(self.fc_in(x), approximate="tanh"))
+
+
+class GPTBlock(nn.Module):
+    def __init__(self, cfg, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.ln_1 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, **kw)
+        self.attn = GPTAttention(cfg, **kw)
+        self.ln_2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, **kw)
+        self.mlp = GPTMLP(cfg, **kw)
+        self.dropout = nn.Dropout(cfg.hidden_dropout)
+
+    def forward(self, x, cache=None):
+        x = x + self.dropout(self.attn(self.ln_1(x), cache=cache))
+        return x + self.dropout(self.mlp(self.ln_2(x)))
+
+
+class GPTModel(nn.Module):
+    def __init__(self, cfg, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(device=device, dtype=dtype)
+        self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
+        self.wpe = nn.Embedding(cfg.max_position_embeddings,
+                                cfg.hidden_size, **kw)
+        self.drop = nn.Dropout(cfg.hidden_dropout)
+        self.h = nn.ModuleList([GPTBlock(cfg, **kw)
+                                for _ in range(cfg.num_layers)])
+        self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=1e-5, **kw)
+
+    def forward(self, input_ids, position_ids=None, caches=None):
+        """Final hidden states [b, s, hidden].  With `caches` (one paged
+        cache dict per layer) row r's tokens sit at positions
+        pos[r] .. pos[r] + s - 1."""
+        b, s = input_ids.shape
+        if position_ids is None:
+            ar = torch.arange(s, device=input_ids.device)
+            if caches is not None:
+                position_ids = caches[0]["pos"].long()[:, None] + ar[None, :]
+            else:
+                position_ids = ar[None, :]
+        x = self.drop(self.wte(input_ids) + self.wpe(position_ids))
+        for i, block in enumerate(self.h):
+            x = block(x, cache=None if caches is None else caches[i])
+        return self.ln_f(x)
+
+
+class GPTForCausalLM(nn.Module):
+    """The LM head ties the embedding weight: logits = x @ wte.T.
+
+    Built on `device` (the CUDA device unless told otherwise; raises when
+    there is none) in `dtype`, with weights drawn like the JAX package's:
+    Normal(0, initializer_range) for every Linear weight and embedding,
+    zero biases, unit LayerNorm scales.  `generator` (a torch.Generator on
+    `device`) makes the draw reproducible; by default one seeded with 0."""
+
+    def __init__(self, cfg, device=None, dtype=torch.float32,
+                 generator=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.gpt = GPTModel(cfg, device=device, dtype=dtype)
+        self.reset_parameters(generator if generator is not None
+                              else make_generator(0, device))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator):
+        std = self.cfg.initializer_range
+        for mod in self.modules():
+            if isinstance(mod, (nn.Linear, nn.Embedding)):
+                mod.weight.normal_(0.0, std, generator=generator)
+                if getattr(mod, "bias", None) is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+
+    def forward(self, input_ids, position_ids=None, caches=None):
+        x = self.gpt(input_ids, position_ids, caches)
+        return F.linear(x, self.gpt.wte.weight)

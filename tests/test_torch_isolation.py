@@ -1,0 +1,85 @@
+"""The port stands alone: no JAX, no JAX package, no silent CPU runs.
+
+An AST scan shows that no module of `paddle_tpu_torch/`, and not
+`chip_smoke.py`, imports `jax`, `paddle_tpu` or `paddle`; a fresh
+interpreter importing the whole port loads none of them; and the port's
+entry points raise, rather than run on the CPU, when no device is named
+and there is no CUDA device.
+"""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import paddle_tpu_torch
+from paddle_tpu_torch.device import generator, resolve_device
+from paddle_tpu_torch.serving import BlockPool
+from paddle_tpu_torch.text import GPTConfig, GPTForCausalLM
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = {"jax", "jaxlib", "paddle_tpu", "paddle"}
+
+
+def _port_files():
+    root = os.path.join(REPO, "paddle_tpu_torch")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(root):
+        files += [os.path.join(dirpath, n) for n in names
+                  if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_port_module_imports_jax_or_the_jax_package():
+    files = _port_files()
+    assert len(files) > 10
+    bad = {os.path.relpath(p, REPO): sorted(set(_imported_roots(p))
+                                            & FORBIDDEN)
+           for p in files}
+    assert {k: v for k, v in bad.items() if v} == {}
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
+            "paddle_tpu_torch.text, paddle_tpu_torch.weights, "
+            "paddle_tpu_torch.ops, paddle_tpu_torch.observability\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{sorted(FORBIDDEN)!r})\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                   check=True, timeout=120)
+
+
+def test_entry_points_raise_without_a_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = GPTConfig(vocab_size=16, hidden_size=8, num_layers=1, num_heads=2,
+                    max_position_embeddings=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GPTForCausalLM(cfg)
+    with pytest.raises(RuntimeError):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        generator(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BlockPool(num_layers=1, num_blocks=4, block_size=4, num_kv_heads=2,
+                  head_dim=8)
+    # naming the CPU is the way to run there
+    assert next(GPTForCausalLM(cfg, device="cpu").parameters()).device \
+        == torch.device("cpu")
+    assert BlockPool(1, 4, 4, 2, 8, device="cpu").k[0].device \
+        == torch.device("cpu")
+    assert paddle_tpu_torch.resolve_device("cpu") == torch.device("cpu")
