@@ -7,20 +7,40 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
 `build/kernels/`, then:
 
-1. build      — times the nvcc build (one nvcc per source, in parallel);
-2. kernels    — holds each kernel against its plain PyTorch version on the
-                card at the serving path's shapes, with stated tolerances;
-3. serve      — GPT-3 1.3B (full width, 24 layers, bf16, random weights
-                from a seed) served by LLMEngine: 16 requests, 32 greedy
-                tokens each; every request must finish, the pool must be
-                leak-free, and the paged kernel must have launched once
-                per layer per decode step; then a profile of a few
-                steady decode steps (device time by kernel);
-4. e2e        — the same width at 2 layers in float32: the engine's tokens
-                are checked against a dense teacher-forced forward of the
-                same weights on the CPU;
-5. timings    — kernel, plain version, library yardstick and the memory
-                bound at the phase-3 decode shapes.
+1. build         — times the nvcc build (one nvcc per source, in
+                   parallel);
+2. kernels       — holds the paged decode kernel against its plain PyTorch
+                   version on the card at the serving path's shapes, with
+                   stated tolerances;
+3. flash_kernels — holds the flash-attention forward (o, lse) and backward
+                   (dq, dk, dv, given the same lse and delta) kernels
+                   against their plain versions: the training shape in
+                   bf16, fp16 and fp32, non-causal, Lq < Lk, ragged
+                   lengths, GQA, masks, a window, D 64, Lq 1, a fully
+                   masked row;
+4. serve         — GPT-3 1.3B (full width, 24 layers, bf16, random weights
+                   from a seed) served by LLMEngine: 16 requests, 32 greedy
+                   tokens each; every request must finish, the pool must be
+                   leak-free, and the paged kernel must have launched once
+                   per layer per decode step; then a profile of a few
+                   steady decode steps (device time by kernel);
+5. e2e           — the same width at 2 layers in float32: the engine's
+                   tokens are checked against a dense teacher-forced
+                   forward of the same weights on the CPU;
+6. train         — GPT-3 1.3B trained as bench.py::run_gpt trains it: seq
+                   1024, batch 4, AMP O2 bf16 without master weights,
+                   Adafactor(1e-4), TrainStep; 3 warm-up and 10 timed
+                   steps (tokens/s, step p50/p99, MFU, peak memory, the
+                   loss series); each flash kernel must have launched 24
+                   times a step and sdpa must have taken its plain path no
+                   time; then a profile of 2 steps;
+7. train_e2e     — the same width at 2 layers in float32, AdamW, 3 steps:
+                   the port on the card (through the kernels) against the
+                   port on the CPU (through the plain versions), same
+                   weights and batch: loss series and final parameters;
+8. timings       — paged kernel, plain version, library yardstick and the
+                   memory bound at the phase-4 decode shapes;
+9. flash_timings — the same for each flash kernel at the training shape.
 
 Each phase prints one JSON line.  Then one {"kernels": [...]} line, the
 card's name and power limit from nvidia-smi, and last
@@ -44,6 +64,21 @@ BF16_FLOPS = 989e12
 # float16 output; a few float32 roundings otherwise)
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1.6e-2, 1e-3),
        torch.float16: (2e-3, 1e-4)}
+
+# flash kernels vs plain (the same as tests/test_torch_flash_kernel.py).
+# Forward o, (rtol, atol): both versions round p to the working type
+# before P.V but against another running maximum (the kernel's per 64-key
+# tile, the plain version's per row), and o rounds once: 2 units in the
+# last place of bf16 / fp16 at the scale of the unit-normal v.  lse is
+# float32 in every dtype: (1e-5, 1e-5).  Backward dq, dk, dv: the kernels
+# round p and dS to bf16 / fp16 before the tensor-core products where the
+# plain version keeps float32, and dS cancels, so the error is taken
+# against the largest element: max |kernel - plain| / max |plain|.
+FLASH_FWD_TOL = {torch.float32: (1e-5, 1e-5),
+                 torch.bfloat16: (1.6e-2, 1.6e-2),
+                 torch.float16: (2e-3, 2e-3)}
+FLASH_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2,
+                 torch.float16: 4e-3}
 
 
 def emit(rec):
@@ -191,7 +226,6 @@ def phase_profile(eng, prompts, step_p50_s, steps=4):
     `step_p50_s`, the unprofiled decode step p50 of the serve phase; the
     share against the profiled wall is printed beside it.  The requests
     are cancelled after."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     reqs = [eng.add_request(p, max_new_tokens=40) for p in prompts]
     while any(r.state == "waiting" or r.needs_prefill for r in reqs):
@@ -208,18 +242,12 @@ def phase_profile(eng, prompts, step_p50_s, steps=4):
     for r in reqs:
         eng.cancel(r)
     assert eng.pool.check_leaks() == ([], [])
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    by_name, busy, edge = {}, 0.0, float("-inf")
-    for start, end, name in spans:
-        by_name[name] = by_name.get(name, 0.0) + (end - start)
-        busy += max(0.0, end - max(start, edge))     # union of intervals
-        edge = max(edge, end)
+    spans, by_name, busy = device_time(prof)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     paged = sum(us for name, us in by_name.items() if "paged_decode" in name)
     busy_ms = busy / steps / 1e3
     emit({"phase": "profile", "decode_steps": steps, "rows": len(reqs),
-          "device_events": len(spans),
+          "device_events": spans,
           "profiled_wall_ms_per_step": wall_us / steps / 1e3,
           "unprofiled_step_p50_ms": step_p50_s * 1e3,
           "device_busy_ms_per_step": busy_ms,
@@ -228,6 +256,20 @@ def phase_profile(eng, prompts, step_p50_s, steps=4):
           "paged_kernel_ms_per_step": paged / steps / 1e3,
           "top_device_ms_per_step": [[name[:90], us / steps / 1e3]
                                      for name, us in top]})
+
+
+def device_time(prof):
+    """(device events, {kernel name: us}, busy us) of a torch.profiler
+    run; busy is the union of the device intervals."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    by_name, busy, edge = {}, 0.0, float("-inf")
+    for start, end, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (end - start)
+        busy += max(0.0, end - max(start, edge))     # union of intervals
+        edge = max(edge, end)
+    return len(spans), by_name, busy
 
 
 def phase_e2e():
@@ -334,17 +376,423 @@ def phase_timings(launches, lens):
           "library_ms": library_ms, "bytes": bytes_moved, "flops": flops,
           "bound_ms": max(bytes_ms, ops_ms),
           "achieved_bytes_per_s": bytes_moved / (kernel_ms * 1e-3)})
-    return {"name": "paged_decode_attention", "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/paged_attention.cu",
-            "replaces": "paddle_tpu/ops/pallas/paged_attention.py:41",
-            "launches": launches, "max_abs_err": err,
-            "tol": {"rtol": rtol, "atol": atol, "dtype": "bfloat16"},
-            "ms": kernel_ms, "plain_ms": plain_ms,
+    return kernel_record(
+        "paged_decode_attention", "paddle_tpu_torch/csrc/paged_attention.cu",
+        "paddle_tpu/ops/pallas/paged_attention.py:41", launches, err, err,
+        {"rtol": rtol, "atol": atol, "dtype": "bfloat16"}, kernel_ms,
+        plain_ms, bytes_ms, ops_ms, library_ms,
+        "torch SDPA on K/V pre-gathered to contiguous [B, H, Lmax, D] with "
+        "a boolean length mask")
+
+
+def kernel_record(name, source, replaces, launches, max_abs_err, max_err,
+                  tol, kernel_ms, plain_ms, bytes_ms, ops_ms, library_ms,
+                  library):
+    """One entry of the {"kernels": [...]} line; every entry has these
+    keys.  `max_err` is the error in the measure `tol` is stated in, and
+    `max_abs_err` the largest absolute difference; `ms` and `kernel_ms`
+    are both the kernel's time (the chip check reads `ms`)."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_err": max_err, "max_abs_err": max_abs_err, "tol": tol,
+            "kernel_ms": kernel_ms, "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": library_ms,
-            "library": "torch SDPA on K/V pre-gathered to contiguous "
-                       "[B, H, Lmax, D] with a boolean length mask"}
+            "library_ms": library_ms, "library": library}
+
+# ------------------------------------------------------------ flash kernels
+FLASH_SHAPE = dict(B=4, L=1024, H=16, D=128)     # GPT-3 1.3B, seq 1024
+FLASH_CASES = [
+    # name, B, Lq, Lk, H, Hkv, D, causal, window, mask kind, dtype
+    ("train_bf16", 4, 1024, 1024, 16, 16, 128, True, 0, None,
+     torch.bfloat16),
+    ("train_fp16", 4, 1024, 1024, 16, 16, 128, True, 0, None, torch.float16),
+    ("train_fp32", 4, 1024, 1024, 16, 16, 128, True, 0, None, torch.float32),
+    ("non_causal_bf16", 4, 1024, 1024, 16, 16, 128, False, 0, None,
+     torch.bfloat16),
+    ("lq512_lk1024_causal_bf16", 2, 512, 1024, 16, 16, 128, True, 0, None,
+     torch.bfloat16),
+    ("ragged_1000_bf16", 2, 1000, 1000, 16, 16, 128, True, 0, None,
+     torch.bfloat16),
+    ("ragged_37_bf16", 4, 37, 37, 16, 16, 128, True, 0, None,
+     torch.bfloat16),
+    ("gqa_h16_hkv4_bf16", 2, 1024, 1024, 16, 4, 128, True, 0, None,
+     torch.bfloat16),
+    ("bool_full_mask_bf16", 2, 256, 256, 16, 16, 128, False, 0, "bool_full",
+     torch.bfloat16),
+    ("additive_row_batch1_bf16", 4, 512, 512, 16, 16, 128, True, 0,
+     "additive_row1", torch.bfloat16),
+    ("window_256_bf16", 2, 1024, 1024, 16, 16, 128, True, 256, None,
+     torch.bfloat16),
+    ("d64_bf16", 4, 1024, 1024, 16, 16, 64, True, 0, None, torch.bfloat16),
+    ("lq1_masked_bf16", 8, 1, 1024, 16, 16, 128, False, 0, "key_padding",
+     torch.bfloat16),
+    ("fully_masked_row_fp32", 2, 128, 128, 16, 16, 128, False, 0,
+     "dead_rows", torch.float32),
+]
+
+
+def flash_inputs(B, Lq, Lk, H, Hkv, D, kind, dtype, seed):
+    """Unit-normal q, k, v, dO on the card and the case's mask."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    q, k, v, do = rnd(B, Lq, H, D), rnd(B, Lk, Hkv, D), rnd(B, Lk, Hkv, D), \
+        rnd(B, Lq, H, D)
+    mask = None
+    if kind == "bool_full":                 # (B, H, Lq, Lk)
+        mask = torch.rand(B, H, Lq, Lk, generator=g, device="cuda") < 0.9
+    elif kind == "additive_row1":           # (1, 1, 1, Lk): batch broadcast
+        mask = torch.randn(1, 1, 1, Lk, generator=g, device="cuda")
+    elif kind == "key_padding":             # (B, 1, 1, Lk)
+        lens = torch.randint(1, Lk + 1, (B,), generator=g, device="cuda")
+        mask = (torch.arange(Lk, device="cuda")[None, :]
+                < lens[:, None])[:, None, None, :]
+    elif kind == "dead_rows":               # (B, Lq, Lk), rows 3, 77 empty
+        mask = torch.rand(B, Lq, Lk, generator=g, device="cuda") < 0.7
+        mask[:, 3] = False
+        mask[1, 77] = False
+    return q, k, v, do, mask
+
+
+def flash_errors(fa, q, k, v, do, mask, causal, window):
+    """Each kernel against its plain version on the same inputs:
+    {"fwd": (max abs, max err), "dkv": ..., "dq": ...} and whether each is
+    within its tolerance.  The backward kernels get the plain forward's
+    lse and delta."""
+    dtype = q.dtype
+    kw = dict(is_causal=causal, window=window)
+    o, lse = fa.flash_fwd_cuda(q, k, v, mask, **kw)
+    ref_o, ref_lse = fa.flash_fwd_plain(q, k, v, mask, **kw)
+    delta = fa._delta(do, ref_o)
+    dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, ref_lse, delta, mask, **kw)
+    dq = fa.flash_bwd_dq_cuda(q, k, v, do, ref_lse, delta, mask, **kw)
+    torch.cuda.synchronize()
+    ref_dq, ref_dk, ref_dv = fa.flash_bwd_plain(q, k, v, do, ref_lse, delta,
+                                                mask, **kw)
+    rtol, atol = FLASH_FWD_TOL[dtype]
+    do_ = (o.float() - ref_o.float()).abs()
+    fwd_ok = bool((do_ <= atol + rtol * ref_o.float().abs()).all())
+    finite = torch.isfinite(ref_lse)
+    lse_ok = bool(torch.equal(finite, torch.isfinite(lse))) and bool(
+        ((lse - ref_lse).abs()[finite]
+         <= 1e-5 + 1e-5 * ref_lse.abs()[finite]).all())
+    out = {"fwd": (float(do_.max()), float(do_.max()), fwd_ok and lse_ok),
+           "lse_max_abs_err": float((lse - ref_lse).abs()[finite].max())}
+    for name, pairs in (("dkv", ((dk, ref_dk), (dv, ref_dv))),
+                        ("dq", ((dq, ref_dq),))):
+        abs_err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in pairs)
+        rel = max(float((a.float() - b.float()).abs().max()
+                        / b.float().abs().max().clamp(min=1e-30))
+                  for a, b in pairs)
+        out[name] = (abs_err, rel, rel <= FLASH_BWD_TOL[dtype])
+    return out
+
+
+def phase_flash_kernels():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False    # full float32 plain
+    torch.backends.cudnn.allow_tf32 = False
+    results = []
+    for i, (name, B, Lq, Lk, H, Hkv, D, causal, window, kind,
+            dtype) in enumerate(FLASH_CASES):
+        q, k, v, do, mask = flash_inputs(B, Lq, Lk, H, Hkv, D, kind, dtype,
+                                         seed=200 + i)
+        err = flash_errors(fa, q, k, v, do, mask, causal, window)
+        results.append({
+            "case": name, "dtype": str(dtype).split(".")[1],
+            "shape": [B, Lq, Lk, H, Hkv, D], "causal": causal,
+            "window": window, "mask": kind,
+            "fwd_max_abs_err": err["fwd"][0],
+            "lse_max_abs_err": err["lse_max_abs_err"],
+            "dkv_max_abs_err": err["dkv"][0], "dkv_max_err": err["dkv"][1],
+            "dq_max_abs_err": err["dq"][0], "dq_max_err": err["dq"][1],
+            "ok": all(err[n][2] for n in ("fwd", "dkv", "dq"))})
+        del q, k, v, do, mask
+    emit({"phase": "flash_kernels", "kernels": ["flash_fwd", "flash_dkv",
+                                                "flash_dq"],
+          "fwd_tol": {str(d).split(".")[1]: t
+                      for d, t in FLASH_FWD_TOL.items()},
+          "bwd_tol": {str(d).split(".")[1]: t
+                      for d, t in FLASH_BWD_TOL.items()},
+          "cases": results})
+    failed = [r["case"] for r in results if not r["ok"]]
+    assert not failed, f"flash kernels disagree with plain: {failed}"
+    torch.cuda.empty_cache()
+
+
+# -------------------------------------------------------------- training
+def train_flops(n_params, cfg, batch, seq):
+    """Model flops of one training step: 6 * N * tokens for the weights
+    plus causal attention, 6 * layers * seq * hidden * tokens (the
+    non-causal 12 * layers * seq * hidden per token, halved)."""
+    tokens = batch * seq
+    return (6 * n_params * tokens
+            + 6 * cfg.num_layers * seq * cfg.hidden_size * tokens)
+
+
+def phase_train(steps=10, warmup=3, batch=4, seq=1024):
+    from paddle_tpu_torch import amp, ops
+    from paddle_tpu_torch.jit import train_step
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import Adafactor
+    from paddle_tpu_torch.text import GPTConfig, GPTForCausalLM, gpt_loss_fn
+
+    cfg = GPTConfig.from_preset("gpt3-1.3B", vocab_size=50304,
+                                max_position_embeddings=seq,
+                                hidden_dropout=0.0, attention_dropout=0.0)
+    model = GPTForCausalLM(
+        cfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    opt = Adafactor(learning_rate=1e-4, parameters=model.parameters())
+    model, opt = amp.decorate(models=model, optimizers=opt,
+                              dtype="bfloat16", master_weight=False)
+    step = train_step(model, gpt_loss_fn, opt)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
+                        device="cuda")
+    labels = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
+                           device="cuda")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention.launches_fwd = 0
+    fa.flash_attention.launches_dkv = 0
+    fa.flash_attention.launches_dq = 0
+    ops.sdpa.plain_calls = 0
+    losses, times = [], []
+    for _ in range(warmup + steps):
+        t0 = time.perf_counter()
+        losses.append(step(ids, labels).item())     # waits for the card
+        times.append(time.perf_counter() - t0)
+    launches = (fa.flash_attention.launches_fwd,
+                fa.flash_attention.launches_dkv,
+                fa.flash_attention.launches_dq)
+    plain_calls = ops.sdpa.plain_calls
+
+    timed = np.array(times[warmup:])
+    n_params = sum(p.numel() for p in model.parameters())
+    flops = train_flops(n_params, cfg, batch, seq)
+    p50 = float(np.percentile(timed, 50))
+    emit({"phase": "train", "model": "gpt3-1.3B", "layers": cfg.num_layers,
+          "seq": seq, "batch": batch, "dtype": "bfloat16",
+          "amp": "O2, master_weight=False", "optimizer": "Adafactor(1e-4)",
+          "n_params": n_params, "warmup_steps": warmup, "timed_steps": steps,
+          "tokens_per_s": steps * batch * seq / float(timed.sum()),
+          "step_p50_ms": p50 * 1e3,
+          "step_p99_ms": float(np.percentile(timed, 99)) * 1e3,
+          "step_ms": [t * 1e3 for t in times],
+          "flops_per_step": flops,
+          "mfu": flops / float(timed.mean()) / BF16_FLOPS,
+          "mfu_peak_flops": BF16_FLOPS,
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "losses": losses,
+          "flash_launches": {"fwd": launches[0], "dkv": launches[1],
+                             "dq": launches[2]},
+          "sdpa_plain_calls": plain_calls})
+    assert all(np.isfinite(losses)), f"nonfinite loss in {losses}"
+    assert abs(losses[0] - np.log(cfg.vocab_size)) < 1.0, \
+        f"first loss {losses[0]} is not near ln(V) = {np.log(cfg.vocab_size)}"
+    want = cfg.num_layers * (warmup + steps)
+    assert launches == (want,) * 3, \
+        f"flash launches {launches}, want {want} each"
+    assert plain_calls == 0, f"sdpa took its plain path {plain_calls} times"
+    phase_train_profile(step, ids, labels, p50)
+    del step, opt, model
+    torch.cuda.empty_cache()
+    return launches[0]
+
+
+GEMM_TAGS = ("nvjet", "gemm", "cutlass", "xmma")   # cuBLAS kernel names
+
+
+def phase_train_profile(step, ids, labels, step_p50_s, steps=2):
+    """Where a training step's time goes: `steps` steps under
+    torch.profiler; the busy share is taken against the unprofiled step
+    p50 (the profiler's own host cost stretches the wall time).  Device
+    time is also split by class: cuBLAS GEMMs, the flash kernels, and
+    everything else (optimizer, LayerNorm, GELU, loss, casts, copies)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(ids, labels)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events, by_name, busy = device_time(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    flash = {k: sum(us for name, us in by_name.items()
+                    if f"flash_{k}_kernel" in name) / steps / 1e3
+             for k in ("fwd", "dkv", "dq")}
+    busy_ms = busy / steps / 1e3
+    gemm = sum(us for name, us in by_name.items()
+               if any(tag in name.lower() for tag in GEMM_TAGS))
+    classes = {"gemm": gemm / steps / 1e3, "flash": sum(flash.values()),
+               "other": (sum(by_name.values()) - gemm) / steps / 1e3
+               - sum(flash.values())}
+    emit({"phase": "train_profile", "steps": steps, "device_events": events,
+          "profiled_wall_ms_per_step": wall_us / steps / 1e3,
+          "unprofiled_step_p50_ms": step_p50_s * 1e3,
+          "device_busy_ms_per_step": busy_ms,
+          "device_busy_share": busy_ms / (step_p50_s * 1e3),
+          "device_busy_share_of_profiled_wall": busy / wall_us,
+          "flash_kernel_ms_per_step": flash,
+          "flash_share_of_busy": sum(flash.values()) / busy_ms,
+          "kernel_class_ms_per_step": classes,
+          "top_device_ms_per_step": [[name[:90], us / steps / 1e3]
+                                     for name, us in top]})
+
+
+def phase_train_e2e(steps=3, batch=2, seq=128):
+    """The port's training step on the card against the same on the CPU:
+    2 layers at full width in float32, AdamW, the same weights and batch.
+    The card runs the flash kernels, the CPU the plain versions."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.jit import train_step
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text import GPTConfig, GPTForCausalLM, gpt_loss_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GPTConfig.from_preset("gpt3-1.3B", num_layers=2,
+                                max_position_embeddings=seq,
+                                hidden_dropout=0.0, attention_dropout=0.0)
+    card = GPTForCausalLM(
+        cfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(2))
+    cpu = GPTForCausalLM(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    init = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    rng = np.random.default_rng(2)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)))
+
+    def train(model, dev):
+        step = train_step(model, gpt_loss_fn,
+                          AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                parameters=model.parameters()))
+        return [step(ids.to(dev), labels.to(dev)).item()
+                for _ in range(steps)]
+
+    before = fa.flash_attention.launches_fwd
+    plain_before = ops.sdpa.plain_calls
+    card_losses = train(card, "cuda")
+    assert fa.flash_attention.launches_fwd - before == steps * 2
+    assert ops.sdpa.plain_calls == plain_before
+    t0 = time.perf_counter()
+    cpu_losses = train(cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses,
+                                                       cpu_losses))
+    # the parameters' distance, relative to how far the updates moved them
+    num = den = 0.0
+    card_params = dict(card.named_parameters())
+    for n, p in cpu.named_parameters():
+        num += float((card_params[n].detach().cpu() - p.detach())
+                     .double().square().sum())
+        den += float((p.detach() - init[n]).double().square().sum())
+    param_err = (num / den) ** 0.5
+    emit({"phase": "train_e2e", "model": "gpt3-1.3B width, 2 layers",
+          "dtype": "float32", "optimizer": "AdamW(1e-4, wd 0.01)",
+          "batch": batch, "seq": seq, "steps": steps,
+          "card_losses": card_losses, "cpu_losses": cpu_losses,
+          "loss_max_rel_err": loss_err, "loss_tol": 1e-5,
+          "param_rel_err": param_err, "param_tol": 1e-3,
+          "cpu_seconds": cpu_s})
+    assert loss_err <= 1e-5, f"card and CPU losses differ by {loss_err}"
+    assert param_err <= 1e-3, f"card and CPU parameters differ: {param_err}"
+    del card, cpu
+    torch.cuda.empty_cache()
+
+
+def phase_flash_timings(launches):
+    """Each flash kernel at the training shape (bf16, causal): its time
+    with the L2 flushed, its plain version's, PyTorch's fused attention as
+    the yardstick, and the least time the card could take."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    B, L, H, D = (FLASH_SHAPE[k] for k in ("B", "L", "H", "D"))
+    dtype = torch.bfloat16
+    q, k, v, do, _ = flash_inputs(B, L, L, H, H, D, None, dtype, seed=9)
+    err = flash_errors(fa, q, k, v, do, None, True, 0)
+    assert all(err[n][2] for n in ("fwd", "dkv", "dq")), err
+    o, lse = fa.flash_fwd_cuda(q, k, v, is_causal=True)
+    delta = fa._delta(do, o)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    kw = dict(is_causal=True)
+    fwd_ms = cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, **kw), flush)
+    dkv_ms = cuda_ms(lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                   **kw), flush)
+    dq_ms = cuda_ms(lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta,
+                                                 **kw), flush)
+    plain_fwd_ms = cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, **kw), flush,
+                           iters=10)
+    plain_bwd_ms = cuda_ms(lambda: fa.flash_bwd_plain(q, k, v, do, lse,
+                                                      delta, **kw), flush,
+                           iters=10)
+    # yardstick: torch's fused attention on [B, H, L, D], forward alone
+    # and its backward (dq, dk, dv together) through autograd
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    doh = do.transpose(1, 2).contiguous()
+    with torch.no_grad():
+        lib_fwd_ms = cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=True), flush)
+    out = sdpa(qh, kh, vh, is_causal=True)
+    lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, (qh, kh, vh), doh, retain_graph=True), flush)
+
+    esize = 2
+    tensor = B * L * H * D * esize                   # one bf16 operand
+    rows = B * H * L * 4                             # one float32 lse row
+    visible = B * H * L * (L + 1) // 2               # causal (q, k) pairs
+    product = 2 * visible * D                        # one product's flops
+    costs = {  # kernel: (bytes read once + written once, flops)
+        "fwd": (3 * tensor + tensor + rows, 2 * product),
+        "dkv": (4 * tensor + 2 * rows + 2 * tensor, 4 * product),
+        "dq": (4 * tensor + 2 * rows + tensor, 3 * product),
+    }
+    times = {"fwd": (fwd_ms, plain_fwd_ms, lib_fwd_ms),
+             "dkv": (dkv_ms, plain_bwd_ms, lib_bwd_ms),
+             "dq": (dq_ms, plain_bwd_ms, lib_bwd_ms)}
+    rec = {"phase": "flash_timings", "shape": dict(FLASH_SHAPE, dtype="bf16",
+                                                   causal=True),
+           "dkv_plus_dq_ms": dkv_ms + dq_ms}
+    entries = []
+    for kname, line, lib in (
+            ("fwd", 84, "torch SDPA forward, is_causal, on [B, H, L, D]"),
+            ("dkv", 262,
+             "torch SDPA backward (dq, dk and dv together), is_causal"),
+            ("dq", 312,
+             "torch SDPA backward (dq, dk and dv together), is_causal")):
+        nbytes, flops = costs[kname]
+        kernel_ms, plain_ms, library_ms = times[kname]
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / BF16_FLOPS * 1e3
+        rec[kname] = {"kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bytes": nbytes,
+                      "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                      "achieved_tflops": flops / (kernel_ms * 1e-3) / 1e12}
+        abs_err, max_err, _ = err[kname]
+        tol = ({"rtol": FLASH_FWD_TOL[dtype][0],
+                "atol": FLASH_FWD_TOL[dtype][1], "dtype": "bfloat16"}
+               if kname == "fwd" else
+               {"max_err_over_max_abs": FLASH_BWD_TOL[dtype],
+                "dtype": "bfloat16"})
+        entries.append(kernel_record(
+            f"flash_attention_{kname}", "paddle_tpu_torch/csrc/"
+            "flash_attention.cu", f"paddle_tpu/ops/pallas/flash_attention."
+            f"py:{line}", launches, abs_err, max_err, tol, kernel_ms,
+            plain_ms, bytes_ms, ops_ms, library_ms, lib))
+    rec["plain_note"] = ("dkv and dq share one plain backward (dq, dk and "
+                         "dv together)")
+    emit(rec)
+    return entries
 
 
 def main():
@@ -354,10 +802,14 @@ def main():
         return 1
     phase_build()
     phase_kernels()
+    phase_flash_kernels()
     launches, lens = phase_serve()
     phase_e2e()
-    kernel = phase_timings(launches, lens)
-    emit({"kernels": [kernel]})
+    train_launches = phase_train()
+    phase_train_e2e()
+    paged = phase_timings(launches, lens)
+    flash = phase_flash_timings(train_launches)
+    emit({"kernels": [paged] + flash})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -4,9 +4,14 @@ The JAX package `paddle_tpu` stays the reference; this package keeps its
 layouts and parameter names so weights carry across name for name
 (`weights.load_paddle_tpu_state`).  It imports torch and numpy only.
 
-This slice holds the GPT serving path: the model (`text`), the paged KV
-pool, scheduler and continuous-batching engine (`serving`), and the
-paged decode attention kernel written in CUDA for sm_90a (`ops`).
+It holds the GPT serving path: the model (`text`), the paged KV pool,
+scheduler and continuous-batching engine (`serving`), and the paged
+decode attention kernel written in CUDA for sm_90a (`ops`); and the GPT
+training step: the flash-attention forward and backward kernels in CUDA
+(`ops.flash_attention`), dropout, attention and cross entropy
+(`nn.functional`), gradient clipping (`nn.clip`), recompute
+(`distributed`), AMP O2 (`amp`), Adam, AdamW and Adafactor
+(`optimizer`), and `TrainStep` (`jit`).
 """
 from .device import generator, resolve_device, seed
 

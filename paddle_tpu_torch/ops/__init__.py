@@ -8,16 +8,25 @@ Counterpart: `paddle_tpu/ops/pallas/__init__.py`, which overrides the
   (s > 1) run the plain gather path, as the JAX package sends them to its
   XLA gather path: that split by s is the reference's own design.  CPU
   tensors run the plain version.
-* `sdpa` — plain on the CPU.  Its kernel is the flash-attention slice of
-  the port (ROADMAP.md, queue B, B1-B3), not yet written, so on CUDA it
-  raises rather than put the plain version on a main path.
+* `sdpa` — on CUDA, a call inside the flash gate (`flash_attention.
+  supports`, and no mask that needs a gradient, and no window without
+  causal) runs the flash-attention kernels, which launch or raise, as
+  `sdpa_with_flash` (`:44-55`) sends such calls to Pallas.  A CUDA call
+  outside the gate runs the plain version, as the JAX package sends it to
+  XLA, and adds 1 to `sdpa.plain_calls`.  CPU tensors run the plain
+  version.
 * `paged_write` — plain on every device, as in the JAX package (no
   Pallas kernel there either).
+
+The kernel module of `sdpa` is `ops/flash_attention.py` (the module, not
+re-exported here under that name, so that the attribute stays the
+module).
 """
 from __future__ import annotations
 
 import torch
 
+from . import flash_attention as _flash
 from . import nn_kernels
 from .nn_kernels import paged_write
 from .paged_decode import paged_decode_attention
@@ -37,11 +46,21 @@ def paged_attention(q, k_pool, v_pool, tables, pos, scale=None):
                                       scale=scale)
 
 
-def sdpa(q, k, v, mask=None, is_causal=False, scale=None):
+def sdpa(q, k, v, mask=None, is_causal=False, scale=None,
+         sliding_window=None, _mask_needs_grad=False):
+    """Scaled dot-product attention on (B, L, H, D); see the module note
+    for the route.  `_mask_needs_grad` (a trained additive mask) forces
+    the plain version, which differentiates through `scores + mask`."""
     if q.device.type == "cuda":
-        raise NotImplementedError(
-            "sdpa on CUDA needs the flash-attention kernel, which the port "
-            "has not written yet (ROADMAP.md, queue B: B1-B3, the training "
-            "slice); the plain version does not stand in for it on the card")
+        if not _mask_needs_grad and (not sliding_window or is_causal) and \
+                _flash.supports(q.shape, k.shape, mask, q.dtype,
+                                v_shape=v.shape, is_causal=is_causal):
+            return _flash.flash_attention(q, k, v, mask=mask,
+                                          is_causal=is_causal, scale=scale,
+                                          window=sliding_window)
+        sdpa.plain_calls += 1
     return nn_kernels.sdpa(q, k, v, mask=mask, is_causal=is_causal,
-                           scale=scale)
+                           scale=scale, sliding_window=sliding_window)
+
+
+sdpa.plain_calls = 0

@@ -1,0 +1,486 @@
+"""Flash attention: three hand-written CUDA kernels (forward, dK/dV, dQ),
+their wrappers, their plain PyTorch versions, and the autograd Function
+that joins them.
+
+Counterpart: `paddle_tpu/ops/pallas/flash_attention.py` — the Pallas TPU
+kernels `_fwd_kernel` (`:84`), `_dkv_kernel` (`:262`) and `_dq_kernel`
+(`:312`), the custom VJP `_flash_core` (`:455-481`), the entries
+`flash_attention` (`:507`), `flash_block_fwd` / `flash_block_bwd`
+(`:590-636`) and the gate `supports` (`:639-682`).  The kernels are
+`csrc/flash_attention.cu`; its source note says what bounds them and how
+they are laid out.
+
+Layout is (B, L, H, D), GQA reads kv head h // (H // Hkv) without a
+repeat, causal masking is bottom-right aligned over the real lengths
+(`off = Lk - Lq`), a sliding window (with causal) keeps cols in
+(r + off - window, r + off], and masks become additive float32 with their
+batch, head and row broadcasts kept as strides of 0.  A row that sees
+nothing gives o = 0 and lse = -inf (XLA's softmax gives NaN there).
+
+Tensors on the CPU take the plain versions; tensors on a CUDA device
+launch the kernels or raise — there is no fallback.  The kernels take D a
+multiple of 8 from 8 to 128 (the TPU kernel pads any D to 128 lanes);
+`supports()` is the JAX gate narrowed to that.
+`flash_attention.launches_fwd`, `.launches_dkv` and `.launches_dq` count
+the kernels' launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_MASK_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_NEG_INF = float("-inf")
+_MAX_D = 128
+
+
+class _Params(ctypes.Structure):
+    """`FlashParams` of csrc/flash_attention.cu, field for field."""
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in (
+            "q", "k", "v", "dout", "lse", "delta", "mask", "out", "lse_out",
+            "dq", "dk", "dv")]
+        + [(f"{t}_{s}", ctypes.c_int64)
+           for t in ("q", "k", "v", "o", "do", "dq", "dk", "dv")
+           for s in ("sb", "sl", "sh")]
+        + [(n, ctypes.c_int64) for n in ("m_sb", "m_sh", "m_sr")]
+        + [(n, ctypes.c_int) for n in (
+            "B", "H", "Hkv", "Lq", "Lk", "D", "causal", "window")]
+        + [("scale", ctypes.c_float)])
+
+
+_lib = None
+
+
+def _kernel():
+    global _lib
+    if _lib is None:
+        lib = _build.load("flash_attention")
+        for fn in (lib.flash_attention_fwd, lib.flash_attention_bwd_dkv,
+                   lib.flash_attention_bwd_dq):
+            fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int,
+                           ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.flash_attention_params_size.restype = ctypes.c_int
+        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        size = lib.flash_attention_params_size()
+        if size != ctypes.sizeof(_Params):
+            raise RuntimeError(f"FlashParams is {size} bytes in the library "
+                               f"and {ctypes.sizeof(_Params)} in ctypes")
+        _lib = lib
+    return _lib
+
+
+# ---------------------------------------------------------------- helpers
+def _scale(scale, d):
+    return float(scale) if scale is not None else 1.0 / (d ** 0.5)
+
+
+def _window(window, is_causal):
+    window = int(window or 0)
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if window and not is_causal:
+        raise ValueError("window requires is_causal=True")
+    return window
+
+
+def _normalize_mask(mask):
+    """-> additive float32 mask of 4 dims (mb, mh, mlq, Lk), contiguous,
+    or None: a 2-dim mask is (Lq, Lk), a 3-dim one (B, Lq, Lk); bool True
+    keeps.  As `_normalize_mask` (`:485-504`), the batch, head and row
+    broadcasts stay size 1 (the kernels read them through strides of 0).
+    Idempotent."""
+    if mask is None:
+        return None
+    m = mask
+    if m.dim() == 2:
+        m = m[None, None]
+    elif m.dim() == 3:
+        m = m[:, None]
+    if m.dtype == torch.bool:
+        m = torch.zeros(m.shape, dtype=torch.float32,
+                        device=m.device).masked_fill_(~m, _NEG_INF)
+    return m.float().contiguous()
+
+
+def _keep(lq, lk, causal, window, device):
+    """[Lq, Lk] bool of what causal / window leave visible, or None."""
+    if not causal:
+        return None
+    off = lk - lq
+    rows = torch.arange(lq, device=device)[:, None]
+    cols = torch.arange(lk, device=device)[None, :]
+    keep = rows + off >= cols
+    if window:
+        keep &= cols > rows + off - window
+    return keep
+
+
+def _scores(q, k, m4, causal, scale, window):
+    """float32 scores [B, Hkv, g, Lq, Lk], masked to -inf, plus the mask."""
+    B, Lq, H, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    qf = q.float().permute(0, 2, 1, 3).reshape(B, Hkv, H // Hkv, Lq, D)
+    kf = k.float().permute(0, 2, 1, 3)
+    s = torch.einsum("bkgqd,bkcd->bkgqc", qf, kf) * scale
+    keep = _keep(Lq, Lk, causal, window, q.device)
+    if keep is not None:
+        s = s.masked_fill(~keep, _NEG_INF)
+    if m4 is not None:
+        s = s + m4.expand(B, H, Lq, Lk).reshape(B, Hkv, H // Hkv, Lq, Lk)
+    return s, qf, kf
+
+
+# --------------------------------------------------------- plain versions
+def flash_fwd_plain(q, k, v, mask=None, is_causal=False, scale=None,
+                    window=None):
+    """The forward kernel's math in plain PyTorch -> (o (B, Lq, H, D) in
+    q's dtype, lse (B, H, Lq) float32).  Scores and softmax in float32; p
+    is cast to v's dtype before P.V, as `_fwd_kernel` does (`:135`), and
+    P.V sums in float32."""
+    B, Lq, H, D = q.shape
+    window = _window(window, is_causal)
+    s, _, _ = _scores(q, k, _normalize_mask(mask), is_causal,
+                      _scale(scale, D), window)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - torch.where(m == _NEG_INF, torch.zeros_like(m), m))
+    l = p.sum(dim=-1, keepdim=True)
+    l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    vf = v.float().permute(0, 2, 1, 3)
+    o = torch.einsum("bkgqc,bkcd->bkgqd", p.to(v.dtype).float(), vf) / l_safe
+    o = o.reshape(B, H, Lq, D).transpose(1, 2).to(q.dtype)
+    lse = (m + torch.log(l_safe)).reshape(B, H, Lq)
+    return o, lse
+
+
+def flash_bwd_plain(q, k, v, do, lse, delta, mask=None, is_causal=False,
+                    scale=None, window=None):
+    """The backward kernels' math in plain PyTorch -> (dq, dk, dv) in the
+    input dtypes, given the forward's lse (B, H, Lq) and delta =
+    rowsum(dO * O) (B, H, Lq), both float32.  p = exp(s - lse) with lse
+    taken as 0 where it is not finite (`_bwd_p`, `:258-259`); every product
+    in float32, as `_dkv_kernel` / `_dq_kernel` take them
+    (`:291-304`, `:340-351`)."""
+    B, Lq, H, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    window = _window(window, is_causal)
+    scale = _scale(scale, D)
+    s, qf, kf = _scores(q, k, _normalize_mask(mask), is_causal, scale,
+                        window)
+    lse5 = lse.float().reshape(B, Hkv, g, Lq, 1)
+    lse5 = torch.where(torch.isfinite(lse5), lse5, torch.zeros_like(lse5))
+    p = torch.exp(s - lse5)
+    dof = do.float().permute(0, 2, 1, 3).reshape(B, Hkv, g, Lq, D)
+    vf = v.float().permute(0, 2, 1, 3)
+    dv = torch.einsum("bkgqc,bkgqd->bkcd", p, dof)
+    dp = torch.einsum("bkgqd,bkcd->bkgqc", dof, vf)
+    ds = p * (dp - delta.float().reshape(B, Hkv, g, Lq, 1))
+    dk = torch.einsum("bkgqc,bkgqd->bkcd", ds, qf) * scale
+    dq = torch.einsum("bkgqc,bkcd->bkgqd", ds, kf) * scale
+    dq = dq.reshape(B, H, Lq, D).transpose(1, 2).to(q.dtype)
+    return dq, dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
+
+
+# ------------------------------------------------------- kernel wrappers
+def _operand(x):
+    """x (B, L, H, D) as the kernels read it: last dimension contiguous,
+    data and every row 16-byte aligned; otherwise a contiguous copy.
+    Returns (tensor, (batch, row, head) strides in elements)."""
+    vec = 16 // x.element_size()
+    st = [0 if x.shape[i] == 1 else x.stride(i) for i in range(3)]
+    if x.stride(3) != 1 or x.data_ptr() % 16 or any(s % vec for s in st):
+        x = x.contiguous()
+        st = [0 if x.shape[i] == 1 else x.stride(i) for i in range(3)]
+    return x, st
+
+
+def _check(q, k, v, m4, extra=()):
+    dev = q.device
+    for name, t in (("k", k), ("v", v)) + tuple(extra):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"flash attention takes float32, bfloat16 or "
+                        f"float16, not {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k and v must share one dtype")
+    if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape):
+        raise ValueError("q must be (B, Lq, H, D); k and v one (B, Lk, Hkv, "
+                         "D) shape")
+    B, Lq, H, D = q.shape
+    Bk, Lk, Hkv, Dk = k.shape
+    if Bk != B or Dk != D:
+        raise ValueError(f"k {tuple(k.shape)} does not fit q "
+                         f"{tuple(q.shape)}")
+    if Hkv < 1 or H % Hkv:
+        raise ValueError(f"H={H} is not a multiple of Hkv={Hkv}")
+    if D % 8 or not 8 <= D <= _MAX_D:
+        raise ValueError(f"the kernels take head_dim a multiple of 8 in "
+                         f"[8, {_MAX_D}], got {D}")
+    if not (1 <= B <= 65535 and 1 <= H <= 65535 and Lq >= 1 and Lk >= 1):
+        raise ValueError(f"shape {tuple(q.shape)} / {tuple(k.shape)} "
+                         f"outside the launch grid")
+    if m4 is not None:
+        if m4.device != dev:
+            raise ValueError(f"mask is on {m4.device}, q on {dev}")
+        mb, mh, mlq, mlk = m4.shape
+        if mb not in (1, B) or mh not in (1, H) or mlq not in (1, Lq) \
+                or mlk != Lk:
+            raise ValueError(f"mask {tuple(m4.shape)} does not broadcast "
+                             f"to ({B}, {H}, {Lq}, {Lk})")
+
+
+def _params(q, k, v, m4, causal, scale, window):
+    B, Lq, H, D = q.shape
+    p = _Params()
+    p.B, p.H, p.Hkv, p.Lq, p.Lk, p.D = B, H, k.shape[2], Lq, k.shape[1], D
+    p.causal, p.window, p.scale = int(bool(causal)), int(window), float(scale)
+    if m4 is not None:
+        mb, mh, mlq, mlk = m4.shape
+        p.mask = m4.data_ptr()
+        p.m_sb = 0 if mb == 1 else mh * mlq * mlk
+        p.m_sh = 0 if mh == 1 else mlq * mlk
+        p.m_sr = 0 if mlq == 1 else mlk
+    return p
+
+
+def _set(p, name, x, strides):
+    setattr(p, {"o": "out", "do": "dout"}.get(name, name), x.data_ptr())
+    for s, v in zip(("sb", "sl", "sh"), strides):
+        setattr(p, f"{name}_{s}", v)
+
+
+def _launch(fn, p, q):
+    lib = _kernel()
+    rc = getattr(lib, fn)(ctypes.byref(p), _DTYPE_CODES[q.dtype],
+                          q.device.index or 0,
+                          torch.cuda.current_stream(q.device).cuda_stream)
+    if rc:
+        raise RuntimeError(
+            f"{fn} kernel failed: "
+            f"{lib.flash_attention_error_string(rc).decode()} (code {rc})")
+
+
+def flash_fwd_cuda(q, k, v, mask=None, is_causal=False, scale=None,
+                   window=None):
+    """Launch the forward kernel -> (o (B, Lq, H, D), lse (B, H, Lq)
+    float32).  CUDA tensors only; raises on what the kernel does not
+    take."""
+    window = _window(window, is_causal)
+    m4 = _normalize_mask(mask)
+    _check(q, k, v, m4)
+    B, Lq, H, D = q.shape
+    p = _params(q, k, v, m4, is_causal, _scale(scale, D), window)
+    q, sq = _operand(q)
+    k, sk = _operand(k)
+    v, sv = _operand(v)
+    o = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+    for name, x, st in (("q", q, sq), ("k", k, sk), ("v", v, sv),
+                        ("o", o, _operand(o)[1])):
+        _set(p, name, x, st)
+    p.lse_out = lse.data_ptr()
+    _launch("flash_attention_fwd", p, q)
+    flash_attention.launches_fwd += 1
+    return o, lse
+
+
+def _bwd_params(q, k, v, do, lse, delta, mask, is_causal, scale, window):
+    """Checked launch parameters of a backward kernel, and the tensors
+    they point into (kept alive by the caller until the launch)."""
+    window = _window(window, is_causal)
+    m4 = _normalize_mask(mask)
+    _check(q, k, v, m4, (("do", do), ("lse", lse), ("delta", delta)))
+    B, Lq, H, D = q.shape
+    if tuple(do.shape) != tuple(q.shape):
+        raise ValueError(f"do {tuple(do.shape)} != q {tuple(q.shape)}")
+    lse = lse.float().contiguous()
+    delta = delta.float().contiguous()
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != (B, H, Lq):
+            raise ValueError(f"{name} must be (B, H, Lq) = "
+                             f"{(B, H, Lq)}, got {tuple(t.shape)}")
+    p = _params(q, k, v, m4, is_causal, _scale(scale, D), window)
+    q, sq = _operand(q)
+    k, sk = _operand(k)
+    v, sv = _operand(v)
+    do, sdo = _operand(do.to(q.dtype))
+    for name, x, st in (("q", q, sq), ("k", k, sk), ("v", v, sv),
+                        ("do", do, sdo)):
+        _set(p, name, x, st)
+    p.lse, p.delta = lse.data_ptr(), delta.data_ptr()
+    return p, (q, k, v, do, lse, delta, m4)
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, mask=None, is_causal=False,
+                       scale=None, window=None):
+    """Launch the dK/dV kernel -> (dk, dv), given lse and delta (B, H, Lq)
+    float32.  CUDA tensors only."""
+    p, held = _bwd_params(q, k, v, do, lse, delta, mask, is_causal, scale,
+                          window)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _set(p, "dk", dk, _operand(dk)[1])
+    _set(p, "dv", dv, _operand(dv)[1])
+    _launch("flash_attention_bwd_dkv", p, held[0])
+    flash_attention.launches_dkv += 1
+    return dk, dv
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, mask=None, is_causal=False,
+                      scale=None, window=None):
+    """Launch the dQ kernel -> dq, given lse and delta (B, H, Lq) float32.
+    CUDA tensors only."""
+    p, held = _bwd_params(q, k, v, do, lse, delta, mask, is_causal, scale,
+                          window)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _set(p, "dq", dq, _operand(dq)[1])
+    _launch("flash_attention_bwd_dq", p, held[0])
+    flash_attention.launches_dq += 1
+    return dq
+
+
+def flash_bwd_cuda(q, k, v, do, lse, delta, mask=None, is_causal=False,
+                   scale=None, window=None):
+    """Launch the dK/dV kernel, then the dQ kernel -> (dq, dk, dv), given
+    lse and delta (B, H, Lq) float32.  CUDA tensors only."""
+    m4 = _normalize_mask(mask)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, m4, is_causal,
+                                scale, window)
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, m4, is_causal, scale,
+                           window)
+    return dq, dk, dv
+
+
+def _forward(q, k, v, m4, causal, scale, window):
+    if q.device.type == "cpu":
+        return flash_fwd_plain(q, k, v, m4, causal, scale, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cuda or cpu, not "
+                         f"{q.device.type}")
+    return flash_fwd_cuda(q, k, v, m4, causal, scale, window)
+
+
+def _delta(do, o):
+    """rowsum(dO * O) in float32, (B, H, Lq) like lse (`:365-366`)."""
+    return (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def _backward(q, k, v, o, lse, do, m4, causal, scale, window):
+    delta = _delta(do, o)
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, do, lse, delta, m4, causal, scale,
+                               window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cuda or cpu, not "
+                         f"{q.device.type}")
+    return flash_bwd_cuda(q, k, v, do, lse, delta, m4, causal, scale, window)
+
+
+class _FlashCore(torch.autograd.Function):
+    """In place of `_flash_core`: the forward kernel, then on backward
+    delta in plain torch ops and the dK/dV and dQ kernels.  Masks are
+    inputs, not trained parameters: their gradient is None (callers with a
+    mask that needs one take the plain path, as `ops.sdpa` routes them)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, m4, causal, scale, window):
+        o, lse = _forward(q, k, v, m4, causal, scale, window)
+        ctx.save_for_backward(q, k, v, m4, o, lse)
+        ctx.args = (causal, scale, window)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, m4, o, lse = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, o, lse, do, m4, *ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, mask=None, is_causal=False, scale=None,
+                    window=None):
+    """Flash attention on (B, L, H, D) -> (B, Lq, H, D) in q's dtype, with
+    gradients for q, k and v.  `mask` is bool (True keeps) or additive, of
+    shape (Lq, Lk), (B, Lq, Lk) or (B|1, H|1, Lq|1, Lk).  `window`
+    (sliding window, needs is_causal) keeps cols in (r + off - window,
+    r + off]; a negative window raises ValueError (the JAX entry does not
+    check it)."""
+    window = _window(window, is_causal)
+    D = q.shape[-1]
+    return _FlashCore.apply(q, k, v, _normalize_mask(mask), bool(is_causal),
+                            _scale(scale, D), window)
+
+
+flash_attention.launches_fwd = 0
+flash_attention.launches_dkv = 0
+flash_attention.launches_dq = 0
+
+
+def flash_block_fwd(q, k, v, is_causal, scale=None):
+    """One attention block on (B, L, H, D) shards -> (o (B, Lq, H, D) in
+    the input dtype, lse (B, H, Lq) float32); no autograd (ring attention
+    composes these and writes its own backward)."""
+    with torch.no_grad():
+        return _forward(q, k, v, None, bool(is_causal),
+                        _scale(scale, q.shape[-1]), 0)
+
+
+def flash_block_bwd(q, k, v, o, lse, do, is_causal, scale=None):
+    """Partial gradients of one block given the GLOBAL (o, lse) and do:
+    with the global lse, p = exp(s - lse) is the globally normalised block,
+    so partials from several blocks simply sum.  Returns (dq, dk, dv) in
+    the input dtypes."""
+    with torch.no_grad():
+        return _backward(q, k, v, o, lse, do.to(q.dtype), None,
+                         bool(is_causal), _scale(scale, q.shape[-1]), 0)
+
+
+def supports(q_shape, k_shape, mask, dtype, v_shape=None, is_causal=False):
+    """The JAX gate (`:639-682`, without its TPU-build check), narrowed to
+    the kernels' head dims (a multiple of 8 from 8 to 128).  Anything else
+    takes the plain `sdpa`."""
+    if len(q_shape) != 4 or len(k_shape) != 4:
+        return False
+    if dtype not in _DTYPE_CODES:
+        return False
+    B, Lq, H, D = q_shape
+    Lk = k_shape[1]
+    Hkv = k_shape[2]
+    if Hkv == 0 or H % Hkv:
+        return False
+    if is_causal and Lq > Lk:   # fully-masked rows: plain gives NaN,
+        return False            # the kernel 0 — keep numerics equal
+    if k_shape[3] != D:
+        return False
+    if v_shape is not None and tuple(v_shape) != tuple(k_shape):
+        return False
+    if D % 8 or not 8 <= D <= _MAX_D:
+        return False
+    if mask is not None:
+        ms = getattr(mask, "shape", None)
+        md = getattr(mask, "dtype", None)
+        if ms is None or len(ms) not in (2, 3, 4):
+            return False
+        if md != torch.bool and md not in _MASK_DTYPES:
+            return False
+        if len(ms) == 2:
+            ms = (1, 1) + tuple(ms)
+        elif len(ms) == 3:
+            ms = (ms[0], 1, ms[1], ms[2])
+        mb, mh, mlq, mlk = ms
+        if mb not in (1, B) or mh not in (1, H):
+            return False
+        if mlq not in (1, Lq) or mlk != Lk:
+            return False
+        if is_causal and mlq == 1 and Lq != Lk:
+            return False
+    if Lq < 1 or Lk < 1:
+        return False
+    return True

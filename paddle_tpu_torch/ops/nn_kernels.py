@@ -9,10 +9,13 @@ from __future__ import annotations
 import torch
 
 
-def sdpa(q, k, v, mask=None, is_causal=False, scale=None):
+def sdpa(q, k, v, mask=None, is_causal=False, scale=None,
+         sliding_window=None):
     """Scaled dot-product attention on (B, L, H, D), as `sdpa_k`: scores
     and softmax in float32, probabilities cast back to q's dtype before
-    P.V; causal masking is bottom-right aligned (`tril(ones, lk - lq)`);
+    P.V; causal masking is bottom-right aligned (`tril(ones, lk - lq)`),
+    and with `sliding_window` banded to cols in (r + off - W, r + off]
+    (`triu(ones, lk - lq - W + 1)`; the band applies with causal only);
     `mask` is bool (True = keep) or additive; fewer kv heads are repeated
     up to the q heads (GQA)."""
     d = q.shape[-1]
@@ -25,8 +28,10 @@ def sdpa(q, k, v, mask=None, is_causal=False, scale=None):
     scores = scores.float()
     if is_causal:
         lq, lk = scores.shape[-2], scores.shape[-1]
-        keep = torch.ones(lq, lk, dtype=torch.bool,
-                          device=q.device).tril(lk - lq)
+        ones = torch.ones(lq, lk, dtype=torch.bool, device=q.device)
+        keep = ones.tril(lk - lq)
+        if sliding_window:
+            keep &= ones.triu(lk - lq - int(sliding_window) + 1)
         scores = scores.masked_fill(~keep, float("-inf"))
     if mask is not None:
         if mask.dtype == torch.bool:

@@ -1,0 +1,5 @@
+"""Optimizers of the port (counterpart: `paddle_tpu/optimizer`)."""
+from .optimizer import Optimizer
+from .optimizers import Adafactor, Adam, AdamW
+
+__all__ = ["Adafactor", "Adam", "AdamW", "Optimizer"]

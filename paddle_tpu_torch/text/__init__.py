@@ -1,7 +1,8 @@
 """Language models of the port (counterpart: `paddle_tpu/text`)."""
 from .generation import BucketPolicy, filter_logits
 from .gpt import (GPTAttention, GPTBlock, GPTConfig, GPTForCausalLM, GPTMLP,
-                  GPTModel)
+                  GPTModel, GPTPretrainingCriterion, gpt_loss_fn)
 
 __all__ = ["BucketPolicy", "GPTAttention", "GPTBlock", "GPTConfig",
-           "GPTForCausalLM", "GPTMLP", "GPTModel", "filter_logits"]
+           "GPTForCausalLM", "GPTMLP", "GPTModel", "GPTPretrainingCriterion",
+           "filter_logits", "gpt_loss_fn"]

@@ -1,4 +1,4 @@
-"""GPT model family, for serving.
+"""GPT model family, for serving and training.
 
 Counterpart: `paddle_tpu/text/gpt.py`.  Same presets, same module tree and
 parameter names (`gpt.wte.weight`, `gpt.h.0.attn.qkv_proj.weight`, ...),
@@ -6,10 +6,18 @@ so `weights.load_paddle_tpu_state` carries a JAX model's weights across
 name for name.  One layout differs: the port uses `torch.nn.Linear`,
 whose weight is [out, in] where the JAX package keeps [in, out].
 
-Ported here: the no-cache branch of `GPTAttention` and the block-paged
-branch the serving engine drives.  Tensor parallelism, MoE, recompute,
-ring attention and the concat / preallocated decode caches are later
-slices of the port (ROADMAP.md).
+Ported here: the no-cache branch of `GPTAttention` (training and dense
+inference, through the flash kernels on the card), the block-paged branch
+the serving engine drives, recompute of the blocks in training
+(`use_recompute`, `:248-258`), train-mode dropout, the pretraining
+criterion (`:327-333`) and `gpt_loss_fn` (`:336-347`, dense only: MoE's
+aux loss comes with the MoE slice).  Tensor parallelism, MoE, ring
+attention and the concat / preallocated decode caches are later slices of
+the port (ROADMAP.md).
+
+Dropout draws from explicit generators: `set_dropout_generator` gives
+one `torch.Generator` to every dropout of the model (None: the device's
+default generator).
 """
 from __future__ import annotations
 
@@ -20,6 +28,9 @@ from torch import nn
 from .. import ops
 from ..device import generator as make_generator
 from ..device import resolve_device
+from ..distributed.recompute import recompute
+from ..nn import Dropout
+from ..nn import functional as PF
 from .decode import _update_paged_cache
 
 
@@ -37,7 +48,8 @@ class GPTConfig:
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_heads=12, intermediate_size=None,
                  max_position_embeddings=2048, hidden_dropout=0.1,
-                 attention_dropout=0.1, initializer_range=0.02):
+                 attention_dropout=0.1, initializer_range=0.02,
+                 use_recompute=False):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -47,6 +59,7 @@ class GPTConfig:
         self.hidden_dropout = hidden_dropout
         self.attention_dropout = attention_dropout
         self.initializer_range = initializer_range
+        self.use_recompute = use_recompute
 
     @classmethod
     def from_preset(cls, name, **kw):
@@ -62,6 +75,7 @@ class GPTAttention(nn.Module):
         self.qkv_proj = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size, **kw)
         self.out_proj = nn.Linear(cfg.hidden_size, cfg.hidden_size, **kw)
         self.dropout_p = cfg.attention_dropout
+        self.generator = None       # attention dropout's generator
 
     def forward(self, x, cache=None):
         b, s, h = x.shape
@@ -75,11 +89,11 @@ class GPTAttention(nn.Module):
             out = ops.paged_attention(q, kp, vp, cache["table"],
                                       cache["pos"])
         else:
-            if self.training and self.dropout_p > 0:
-                raise NotImplementedError(
-                    "attention dropout comes with the training slice of the "
-                    "port; use eval() or attention_dropout=0.0")
-            out = ops.sdpa(q, k, v, is_causal=True)
+            # dropout on the attention output in training, as the JAX
+            # package applies it
+            out = PF.scaled_dot_product_attention(
+                q, k, v, is_causal=True, dropout_p=self.dropout_p,
+                training=self.training, generator=self.generator)
         return self.out_proj(out.reshape(b, s, h))
 
 
@@ -102,7 +116,7 @@ class GPTBlock(nn.Module):
         self.attn = GPTAttention(cfg, **kw)
         self.ln_2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, **kw)
         self.mlp = GPTMLP(cfg, **kw)
-        self.dropout = nn.Dropout(cfg.hidden_dropout)
+        self.dropout = Dropout(cfg.hidden_dropout)
 
     def forward(self, x, cache=None):
         x = x + self.dropout(self.attn(self.ln_1(x), cache=cache))
@@ -117,7 +131,7 @@ class GPTModel(nn.Module):
         self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
         self.wpe = nn.Embedding(cfg.max_position_embeddings,
                                 cfg.hidden_size, **kw)
-        self.drop = nn.Dropout(cfg.hidden_dropout)
+        self.drop = Dropout(cfg.hidden_dropout)
         self.h = nn.ModuleList([GPTBlock(cfg, **kw)
                                 for _ in range(cfg.num_layers)])
         self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=1e-5, **kw)
@@ -135,7 +149,10 @@ class GPTModel(nn.Module):
                 position_ids = ar[None, :]
         x = self.drop(self.wte(input_ids) + self.wpe(position_ids))
         for i, block in enumerate(self.h):
-            x = block(x, cache=None if caches is None else caches[i])
+            if self.cfg.use_recompute and self.training and caches is None:
+                x = recompute(block, x)
+            else:
+                x = block(x, cache=None if caches is None else caches[i])
         return self.ln_f(x)
 
 
@@ -169,6 +186,32 @@ class GPTForCausalLM(nn.Module):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
 
+    def set_dropout_generator(self, generator):
+        """Draw every dropout mask of the model (hidden and attention) from
+        `generator`, a torch.Generator on the model's device."""
+        for mod in self.modules():
+            if isinstance(mod, (Dropout, GPTAttention)):
+                mod.generator = generator
+        return self
+
     def forward(self, input_ids, position_ids=None, caches=None):
         x = self.gpt(input_ids, position_ids, caches)
         return F.linear(x, self.gpt.wte.weight)
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Token-mean cross entropy; with `loss_mask`, the mean over the
+    masked-in tokens (at least 1)."""
+
+    def forward(self, logits, labels, loss_mask=None):
+        loss = PF.cross_entropy(logits, labels, reduction="none")
+        if loss_mask is not None:
+            m = loss_mask.to(loss.dtype)
+            return (loss * m).sum() / m.sum().clamp(min=1.0)
+        return loss.mean()
+
+
+def gpt_loss_fn(model, input_ids, labels):
+    """The pretraining loss TrainStep drives: cross entropy of the logits
+    against `labels` (float32, mean over the labels that are not -100)."""
+    return PF.cross_entropy(model(input_ids), labels, reduction="mean")

@@ -6,6 +6,9 @@ that a `paddle_tpu` model's `state_dict()` gives (each value through
 architecture, name for name.  The JAX package keeps a Linear weight as
 [in, out] (`paddle_tpu/nn/common.py::Linear`); `torch.nn.Linear` keeps
 [out, in], so those weights are transposed on the way.
+
+`load_paddle_tpu_optimizer_state(optimizer, model, state)` does the same
+for the JAX optimizer's per-parameter slots.
 """
 from __future__ import annotations
 
@@ -36,3 +39,55 @@ def load_paddle_tpu_state(model, arrays):
                              f"fit {tuple(dst.shape)}")
         dst.copy_(torch.from_numpy(np.array(src)))   # a writable copy
     return model
+
+
+# slots with a Linear weight's own shape, transposed on the way (Adam's
+# moments, the master copy, Adafactor's first moment)
+_FULL_SLOTS = {"moment1", "moment2", "master", "m"}
+
+
+@torch.no_grad()
+def load_paddle_tpu_optimizer_state(optimizer, model, state):
+    """Carry a JAX optimizer's per-parameter slots into the port's
+    `optimizer`, whose parameters are `model`'s.
+
+    `state` maps each parameter name of the model to its `{slot: array}`
+    (the JAX TrainStep's `_opt_state` zipped with `named_parameters()`);
+    an optional "step" sets the step counter.  For a Linear weight
+    ([in, out] there, [out, in] here) the full-shape slots are transposed
+    and Adafactor's factored `vr` / `vc` are swapped (see
+    `optimizer.Adafactor`).  Raises KeyError
+    on a missing or unexpected parameter or slot name and ValueError on a
+    shape mismatch.  Returns optimizer."""
+    linear = {f"{name}.weight" for name, mod in model.named_modules()
+              if isinstance(mod, nn.Linear)}
+    names = {id(p): n for n, p in model.named_parameters()}
+    if optimizer._state is None:
+        optimizer.init_state()
+    nested = {k: v for k, v in state.items() if k != "step"}
+    ours = {names[id(p)]: slots for p, slots in
+            zip(optimizer._parameters, optimizer._state) if slots}
+    missing = sorted(set(ours) - set(nested))
+    unexpected = sorted(set(nested) - set(ours))
+    if missing or unexpected:
+        raise KeyError(f"optimizer state names differ: missing {missing}, "
+                       f"unexpected {unexpected}")
+    for name, slots in ours.items():
+        src = dict(nested[name])
+        if set(src) != set(slots):
+            raise KeyError(f"{name}: slots {sorted(src)} do not match "
+                           f"{sorted(slots)}")
+        if name in linear:
+            if "vr" in src:
+                src["vr"], src["vc"] = src["vc"], src["vr"]
+            for s in _FULL_SLOTS & set(src):
+                src[s] = np.asarray(src[s]).T
+        for s, dst in slots.items():
+            arr = np.asarray(src[s])
+            if tuple(arr.shape) != tuple(dst.shape):
+                raise ValueError(f"{name}/{s}: shape {tuple(arr.shape)} "
+                                 f"does not fit {tuple(dst.shape)}")
+            dst.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+    if "step" in state:
+        optimizer._step_count = int(state["step"])
+    return optimizer

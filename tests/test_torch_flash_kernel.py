@@ -1,0 +1,268 @@
+"""The port's flash attention: plain versions, wrappers and CUDA kernels.
+
+This file imports torch and numpy only, so it also runs on the machine
+with the card, which has no JAX.  There, run it without the JAX test
+setup of tests/conftest.py:
+
+    python -m pytest --noconftest tests/test_torch_flash_kernel.py
+
+On the CPU the `cuda` tests skip; the rest hold the plain versions (what
+the wrappers run for CPU tensors) against float64 dense attention and its
+autograd gradients.  The parity of this op with the JAX package is in
+tests/test_torch_flash_attention.py.
+"""
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.ops import flash_attention as fa
+
+# name: (B, Lq, Lk, H, Hkv, D, causal, window, mask kind)
+CASES = {
+    "causal": (2, 128, 128, 2, 2, 64, True, 0, None),
+    "full": (1, 96, 96, 4, 4, 32, False, 0, None),
+    "cross_length_causal": (1, 64, 128, 2, 2, 64, True, 0, None),
+    "gqa_causal": (2, 80, 80, 8, 2, 64, True, 0, None),
+    "gqa_full": (1, 70, 70, 6, 3, 32, False, 0, None),
+    "bool_padding": (2, 128, 128, 2, 2, 64, False, 0, "bool_padding"),
+    "additive_full": (2, 100, 100, 2, 2, 64, False, 0, "additive_full"),
+    "bool_full_bh": (2, 64, 64, 2, 2, 32, True, 0, "bool_full_bh"),
+    "additive_row_batch1": (3, 50, 50, 2, 2, 64, True, 0, "additive_row1"),
+    "ragged_100": (1, 100, 100, 2, 2, 64, True, 0, None),
+    "ragged_257": (2, 257, 257, 2, 2, 32, False, 0, None),
+    "ragged_7": (1, 7, 7, 2, 2, 64, True, 0, None),
+    "decode_masked": (2, 1, 128, 4, 4, 64, False, 0, "bool_padding"),
+    "window_40": (1, 200, 200, 2, 2, 64, True, 40, None),
+    "window_cross": (1, 64, 150, 2, 1, 32, True, 33, None),
+    "masked_row": (2, 40, 40, 2, 2, 64, False, 0, "dead_row"),
+    "d8": (1, 33, 33, 2, 2, 8, True, 0, None),
+    "d72": (1, 65, 65, 2, 1, 72, True, 0, None),
+    "d128": (1, 130, 130, 2, 2, 128, True, 0, None),
+}
+
+
+def make_mask(kind, B, Lq, Lk, H, rng):
+    if kind is None:
+        return None
+    if kind == "bool_padding":          # (B, 1, 1, Lk) key padding
+        lens = rng.integers(1, Lk + 1, size=B)
+        m = np.arange(Lk)[None, :] < lens[:, None]
+        return torch.from_numpy(m)[:, None, None, :]
+    if kind == "additive_full":         # (B, 1, Lq, Lk)
+        return torch.from_numpy(np.where(rng.random((B, 1, Lq, Lk)) < 0.8,
+                                         0.0, -1e9).astype(np.float32))
+    if kind == "bool_full_bh":          # (B, H, Lq, Lk)
+        return torch.from_numpy(rng.random((B, H, Lq, Lk)) < 0.9)
+    if kind == "additive_row1":         # (1, 1, 1, Lk): batch broadcast
+        return torch.from_numpy(
+            rng.standard_normal((1, 1, 1, Lk)).astype(np.float32))
+    if kind == "dead_row":              # (B, Lq, Lk) with fully-masked rows
+        m = rng.random((B, Lq, Lk)) < 0.7
+        m[:, 3] = False
+        m[1, 17] = False
+        return torch.from_numpy(m)
+    raise ValueError(kind)
+
+
+def make_inputs(name, dtype=torch.float32, device="cpu", seed=0):
+    B, Lq, Lk, H, Hkv, D, causal, window, kind = CASES[name]
+    rng = np.random.default_rng(seed)
+
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device=device, dtype=dtype)
+
+    q, k, v = t((B, Lq, H, D)), t((B, Lk, Hkv, D)), t((B, Lk, Hkv, D))
+    do = t((B, Lq, H, D))
+    mask = make_mask(kind, B, Lq, Lk, H, rng)
+    if mask is not None:
+        mask = mask.to(device)
+    return q, k, v, do, mask, dict(is_causal=causal, window=window)
+
+
+def dense64(q, k, v, mask, is_causal, window):
+    """float64 dense attention (repeat for GQA); rows that see nothing
+    give 0.  Returns (o, lse)."""
+    q, k, v = (x.double() for x in (q, k, v))
+    B, Lq, H, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    k = k.repeat_interleave(H // Hkv, dim=2)
+    v = v.repeat_interleave(H // Hkv, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / D ** 0.5
+    if is_causal:
+        r = torch.arange(Lq)[:, None] + Lk - Lq
+        c = torch.arange(Lk)[None, :]
+        keep = r >= c
+        if window:
+            keep &= c > r - window
+        s = s.masked_fill(~keep, float("-inf"))
+    if mask is not None:
+        m = mask if mask.dim() == 4 else mask[:, None]
+        s = s.masked_fill(~m, float("-inf")) if m.dtype == torch.bool \
+            else s + m.double()
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - torch.where(torch.isfinite(lse), lse,
+                                  torch.zeros_like(lse))[..., None])
+    return torch.einsum("bhqk,bkhd->bqhd", p, v), lse
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_forward_matches_float64(name):
+    q, k, v, _, mask, kw = make_inputs(name)
+    o, lse = fa.flash_fwd_plain(q, k, v, mask, **kw)
+    ref, ref_lse = dense64(q, k, v, mask, **kw)
+    # float32 math against float64: a few float32 roundings
+    torch.testing.assert_close(o.double(), ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse.double(), ref_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_backward_matches_float64_autograd(name):
+    q, k, v, do, mask, kw = make_inputs(name, seed=1)
+    o, lse = fa.flash_fwd_plain(q, k, v, mask, **kw)
+    delta = fa._delta(do, o)
+    grads = fa.flash_bwd_plain(q, k, v, do, lse, delta, mask, **kw)
+    leaves = [x.double().requires_grad_() for x in (q, k, v)]
+    ref, _ = dense64(*leaves, mask, **kw)
+    refs = torch.autograd.grad(ref, leaves, do.double())
+    for got, want in zip(grads, refs):
+        torch.testing.assert_close(got.double(), want, rtol=1e-4, atol=1e-5)
+
+
+def test_wrapper_on_cpu_runs_the_plain_version():
+    q, k, v, do, mask, kw = make_inputs("gqa_causal")
+    before = (fa.flash_attention.launches_fwd,
+              fa.flash_attention.launches_dkv,
+              fa.flash_attention.launches_dq)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*leaves, mask, **kw)
+    out.backward(do)
+    o, lse = fa.flash_fwd_plain(q, k, v, mask, **kw)
+    assert torch.equal(out.detach(), o)
+    grads = fa.flash_bwd_plain(q, k, v, do, lse, fa._delta(do, o), mask,
+                               **kw)
+    for leaf, want in zip(leaves, grads):
+        assert torch.equal(leaf.grad, want)
+    assert (fa.flash_attention.launches_fwd, fa.flash_attention.launches_dkv,
+            fa.flash_attention.launches_dq) == before   # no kernel ran
+
+
+@pytest.mark.parametrize("bad", ["head_dim_big", "head_dim_odd", "gqa",
+                                 "dtype", "mixed_dtype", "mask_shape",
+                                 "lk_mismatch"])
+def test_check_rejects_what_the_kernels_do_not_take(bad):
+    q, k, v, _, mask, _ = make_inputs("causal")
+    if bad == "head_dim_big":
+        q, k, v = (torch.cat([x, x, x], dim=-1) for x in (q, k, v))
+    elif bad == "head_dim_odd":
+        q, k, v = q[..., :12], k[..., :12], v[..., :12]
+    elif bad == "gqa":
+        k, v = torch.cat([k, k[:, :, :1]], 2), torch.cat([v, v[:, :, :1]], 2)
+    elif bad == "dtype":
+        q, k, v = q.double(), k.double(), v.double()
+    elif bad == "mixed_dtype":
+        k = k.half()
+    elif bad == "mask_shape":
+        mask = torch.zeros(2, 2, 3, 128)
+    elif bad == "lk_mismatch":
+        v = v[:, :100]
+    with pytest.raises((ValueError, TypeError)):
+        fa._check(q, k, v, fa._normalize_mask(mask))
+
+
+def test_window_must_be_causal_and_not_negative():
+    q, k, v, _, _, _ = make_inputs("causal")
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, v, window=-1, is_causal=True)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, v, window=16, is_causal=False)
+
+
+# ------------------------------------------------------------ on the card
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False   # full float32 plain
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+# kernel vs plain on the card.  Forward: both accumulate in float32 in
+# another order; both round p to the working type before P.V, but against
+# another running maximum (the kernel's per tile, the plain version's per
+# row), and o rounds once: 2 units in the last place of bfloat16 / float16
+# at the scale of the unit-normal v, relative and absolute (a few float32
+# roundings in float32).  lse stays float32 whatever the input type.
+# Backward: the kernels round p and dS to bfloat16 / float16 before the
+# tensor-core products where the plain version keeps float32, and dS
+# cancels, so the error is taken against the largest gradient element:
+# max |kernel - plain| <= tol * max |plain|.
+FWD_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+           torch.bfloat16: dict(rtol=1.6e-2, atol=1.6e-2),
+           torch.float16: dict(rtol=2e-3, atol=2e-3)}
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 4e-3}
+
+
+def bwd_error(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_kernels_match_plain_on_card(card, name, dtype):
+    q, k, v, do, mask, kw = make_inputs(name, dtype=dtype, device=card)
+    before = fa.flash_attention.launches_fwd
+    o, lse = fa.flash_fwd_cuda(q, k, v, mask, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches_fwd == before + 1
+    ref_o, ref_lse = fa.flash_fwd_plain(q, k, v, mask, **kw)
+    torch.testing.assert_close(o.float(), ref_o.float(), **FWD_TOL[dtype])
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+
+    delta = fa._delta(do, ref_o)
+    got = fa.flash_bwd_cuda(q, k, v, do, ref_lse, delta, mask, **kw)
+    torch.cuda.synchronize()
+    want = fa.flash_bwd_plain(q, k, v, do, ref_lse, delta, mask, **kw)
+    for nm, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert bwd_error(a, b) <= BWD_TOL[dtype], (nm, bwd_error(a, b))
+
+
+@pytest.mark.cuda
+def test_autograd_on_card_launches_each_kernel_once(card):
+    q, k, v, do, _, _ = make_inputs("gqa_causal", dtype=torch.bfloat16,
+                                    device=card)
+    counts = (fa.flash_attention.launches_fwd,
+              fa.flash_attention.launches_dkv,
+              fa.flash_attention.launches_dq)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    fa.flash_attention(*leaves, is_causal=True).backward(do)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches_fwd, fa.flash_attention.launches_dkv,
+            fa.flash_attention.launches_dq) == tuple(c + 1 for c in counts)
+
+
+@pytest.mark.cuda
+def test_strided_qkv_views_match_contiguous(card):
+    """q, k, v as the views unbind gives of a fused (b, s, 3, H, D)
+    projection: read through their strides, no copy."""
+    rng = np.random.default_rng(3)
+    qkv = torch.from_numpy(rng.standard_normal((2, 77, 3, 4, 64)).astype(
+        np.float32)).to(card, torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    o, lse = fa.flash_fwd_cuda(q, k, v, is_causal=True)
+    o2, lse2 = fa.flash_fwd_cuda(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), is_causal=True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+def test_kernel_raises_on_unsupported_shape(card):
+    q, k, v, _, _, _ = make_inputs("causal", device=card)
+    q, k, v = (torch.cat([x, x, x], dim=-1) for x in (q, k, v))   # D 192
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, v, is_causal=True)

@@ -2,9 +2,9 @@
 
 An AST scan shows that no module of `paddle_tpu_torch/`, and not
 `chip_smoke.py`, imports `jax`, `paddle_tpu` or `paddle`; a fresh
-interpreter importing the whole port loads none of them; and the port's
-entry points raise, rather than run on the CPU, when no device is named
-and there is no CUDA device.
+interpreter importing the whole port (the training modules included)
+loads none of them; and the port's entry points raise, rather than run on
+the CPU, when no device is named and there is no CUDA device.
 """
 import ast
 import os
@@ -16,8 +16,11 @@ import torch
 
 import paddle_tpu_torch
 from paddle_tpu_torch.device import generator, resolve_device
+from paddle_tpu_torch.jit import train_step
+from paddle_tpu_torch.ops.flash_attention import flash_attention
+from paddle_tpu_torch.optimizer import Adafactor
 from paddle_tpu_torch.serving import BlockPool
-from paddle_tpu_torch.text import GPTConfig, GPTForCausalLM
+from paddle_tpu_torch.text import GPTConfig, GPTForCausalLM, gpt_loss_fn
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "paddle_tpu", "paddle"}
@@ -55,7 +58,11 @@ def test_no_port_module_imports_jax_or_the_jax_package():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
             "paddle_tpu_torch.text, paddle_tpu_torch.weights, "
-            "paddle_tpu_torch.ops, paddle_tpu_torch.observability\n"
+            "paddle_tpu_torch.ops, paddle_tpu_torch.observability, "
+            "paddle_tpu_torch.ops.flash_attention, paddle_tpu_torch.nn, "
+            "paddle_tpu_torch.nn.functional, paddle_tpu_torch.nn.clip, "
+            "paddle_tpu_torch.amp, paddle_tpu_torch.optimizer, "
+            "paddle_tpu_torch.jit, paddle_tpu_torch.distributed\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "assert not bad, bad\n")
@@ -83,3 +90,26 @@ def test_entry_points_raise_without_a_device(monkeypatch):
     assert BlockPool(1, 4, 4, 2, 8, device="cpu").k[0].device \
         == torch.device("cpu")
     assert paddle_tpu_torch.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_training_entry_points_stay_on_the_named_device(monkeypatch):
+    """The training model raises without a card unless the CPU is named;
+    flash attention runs on CPU or CUDA tensors and raises on any other
+    device; the optimizer's slots, the train step's loss and its grads
+    stay on the parameters' device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = GPTConfig(vocab_size=16, hidden_size=8, num_layers=1, num_heads=2,
+                    max_position_embeddings=8, use_recompute=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GPTForCausalLM(cfg)
+    q = torch.empty(1, 4, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_attention(q, q, q, is_causal=True)
+    model = GPTForCausalLM(cfg, device="cpu")
+    opt = Adafactor(parameters=model.parameters())
+    step = train_step(model, gpt_loss_fn, opt)
+    ids = torch.zeros(1, 8, dtype=torch.long)
+    loss = step(ids, ids)
+    assert loss.device == torch.device("cpu")
+    assert {t.device for slots in opt._state for t in slots.values()} == \
+        {torch.device("cpu")}

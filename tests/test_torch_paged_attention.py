@@ -155,7 +155,24 @@ def test_sdpa_matches_jax(kind):
     np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-6)
 
 
-def test_sdpa_on_cuda_raises_and_names_the_flash_slice():
-    q = types.SimpleNamespace(device=torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_sdpa_on_cuda_raises_and_names_the_flash_slice(monkeypatch):
+    """On CUDA, sdpa inside the flash gate goes to the flash kernels, and a
+    kernel that fails raises through sdpa (no fallback, no plain call
+    counted); outside the gate (here D = 12) it runs the plain version
+    and counts the call."""
+    def fail(*args, **kw):
+        raise RuntimeError("flash_attention_fwd kernel failed")
+
+    monkeypatch.setattr(tops._flash, "flash_attention", fail)
+    monkeypatch.setattr(tops.nn_kernels, "sdpa", lambda *a, **kw: "plain")
+    cuda = torch.device("cuda")
+    q = types.SimpleNamespace(device=cuda, shape=(1, 4, 2, 8),
+                              dtype=torch.bfloat16)
+    before = tops.sdpa.plain_calls
+    with pytest.raises(RuntimeError, match="flash_attention"):
         tops.sdpa(q, q, q, is_causal=True)
+    assert tops.sdpa.plain_calls == before
+    odd = types.SimpleNamespace(device=cuda, shape=(1, 4, 2, 12),
+                                dtype=torch.bfloat16)
+    assert tops.sdpa(odd, odd, odd, is_causal=True) == "plain"
+    assert tops.sdpa.plain_calls == before + 1
