@@ -8,7 +8,8 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
 `build/kernels/`, then:
 
 1. build         — times the nvcc build (one nvcc per source, in
-                   parallel);
+                   parallel) and prints ptxas's registers, shared memory
+                   and spills for each sm90 flash kernel;
 2. kernels       — holds the paged decode kernel against its plain PyTorch
                    version on the card at the serving path's shapes, with
                    stated tolerances;
@@ -17,7 +18,10 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    against their plain versions: the training shape in
                    bf16, fp16 and fp32, non-causal, Lq < Lk, ragged
                    lengths, GQA, masks, a window, D 64, Lq 1, a fully
-                   masked row;
+                   masked row, the strided q/k/v views of a fused qkv;
+                   every case through the route, asserting which family
+                   launched (sm90 forward and dQ for bf16 / fp16 without
+                   a mask), and each sm90 case through sm80 as well;
 4. serve         — GPT-3 1.3B (full width, 24 layers, bf16, random weights
                    from a seed) served by LLMEngine: 16 requests, 32 greedy
                    tokens each; every request must finish, the pool must be
@@ -32,15 +36,19 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    Adafactor(1e-4), TrainStep; 3 warm-up and 10 timed
                    steps (tokens/s, step p50/p99, MFU, peak memory, the
                    loss series); each flash kernel must have launched 24
-                   times a step and sdpa must have taken its plain path no
-                   time; then a profile of 2 steps;
+                   times a step, the forward and dQ on the sm90 kernels,
+                   and sdpa must have taken its plain path no time; then
+                   a profile of 2 steps;
 7. train_e2e     — the same width at 2 layers in float32, AdamW, 3 steps:
                    the port on the card (through the kernels) against the
                    port on the CPU (through the plain versions), same
-                   weights and batch: loss series and final parameters;
+                   weights and batch: loss series and final parameters
+                   (float32 runs the sm80 kernels);
 8. timings       — paged kernel, plain version, library yardstick and the
                    memory bound at the phase-4 decode shapes;
-9. flash_timings — the same for each flash kernel at the training shape.
+9. flash_timings — the same for each flash kernel at the training shape,
+                   the sm80 and sm90 forward and dQ in turns on the same
+                   inputs (sm80, sm90, sm90, sm80).
 
 Each phase prints one JSON line.  Then one {"kernels": [...]} line, the
 card's name and power limit from nvidia-smi, and last
@@ -116,21 +124,59 @@ def compare(pd, args, dtype):
     return float(diff.max()), not bool(bad.any())
 
 
+def ptxas_kernels(log):
+    """{kernel entry: {registers, spill_store_bytes, spill_load_bytes,
+    static_smem_bytes}} from nvcc's -Xptxas -v output."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            out[name] = {"spill_store_bytes": 0, "spill_load_bytes": 0,
+                         "static_smem_bytes": 0}
+        elif name is None:
+            continue
+        elif "bytes spill stores" in line:
+            words = line.replace(",", " ").split()
+            out[name]["spill_store_bytes"] = int(
+                words[words.index("spill") - 2])
+            out[name]["spill_load_bytes"] = int(words[-4])
+        elif "Used " in line and "registers" in line:
+            out[name]["registers"] = int(line.split("Used ")[1].split()[0])
+            smem = [w for w in line.split(",") if "bytes smem" in w]
+            if smem:
+                out[name]["static_smem_bytes"] = int(smem[0].split()[0])
+    return out
+
+
+SM90_KERNEL_NAMES = {   # (mangled kernel, dtype, D) -> short name
+    (kern, dt, d): f"{short}_{dts}_d{d}"
+    for kern, short in (("flash_fwd_sm90_kernel", "fwd"),
+                        ("flash_dq_sm90_kernel", "dq"))
+    for dt, dts in (("13__nv_bfloat16", "bf16"), ("6__half", "fp16"))
+    for d in (64, 128)}
+
+
 def phase_build():
     from paddle_tpu_torch.ops import _build
     t0 = time.perf_counter()
     logs = _build.build()
     secs = time.perf_counter() - t0
-    regs = [int(line.split("Used ")[1].split()[0])
-            for log in logs.values() for line in log.splitlines()
-            if "registers" in line and "Used " in line]
-    spills = sum(int(line.split("bytes spill stores")[0].split(",")[-1])
-                 for log in logs.values() for line in log.splitlines()
-                 if "bytes spill stores" in line)
+    kernels = {name: k for log in logs.values()
+               for name, k in ptxas_kernels(log).items()}
+    regs = [k["registers"] for k in kernels.values() if "registers" in k]
+    spills = sum(k["spill_store_bytes"] for k in kernels.values())
+    sm90 = {}
+    for name, k in kernels.items():
+        for (kern, dt, d), short in SM90_KERNEL_NAMES.items():
+            if kern in name and dt in name and f"Li{d}E" in name:
+                sm90[short] = k
     emit({"phase": "build", "seconds": secs, "sources": _build.sources(),
           "compiled": sorted(logs), "kernels_compiled": len(regs),
           "max_registers": max(regs, default=None),
-          "spill_store_bytes": spills})
+          "spill_store_bytes": spills, "sm90_kernels": sm90})
+    if logs:
+        assert len(sm90) == len(SM90_KERNEL_NAMES), \
+            f"ptxas reported {sorted(sm90)} of the sm90 kernels"
 
 
 def phase_kernels():
@@ -312,15 +358,23 @@ def phase_e2e():
         f"an engine token sits {worst} below the CPU maximum logit"
 
 
+# cycles the card spins between the L2 flush and the start event (about
+# a millisecond): the host issues fn's launches meanwhile, so the events
+# time the device's work and not the wrapper's Python and ctypes time
+LAUNCH_COVER_CYCLES = 2_000_000
+
+
 def cuda_ms(fn, flush, iters=50):
     """Mean device time of fn() over `iters` launches, CUDA events around
     each launch; the L2 cache is overwritten before every launch, as a
-    decode step finds each layer's K/V cold."""
+    decode step finds each layer's K/V cold, and the card is kept busy
+    while the host issues the launch (`LAUNCH_COVER_CYCLES`)."""
     for _ in range(3):
         fn()
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(LAUNCH_COVER_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -429,11 +483,33 @@ FLASH_CASES = [
      torch.bfloat16),
     ("fully_masked_row_fp32", 2, 128, 128, 16, 16, 128, False, 0,
      "dead_rows", torch.float32),
+    # the rest of the sm90 cases in float16, and those only sm90 adds
+    ("non_causal_fp16", 4, 1024, 1024, 16, 16, 128, False, 0, None,
+     torch.float16),
+    ("lq512_lk1024_causal_fp16", 2, 512, 1024, 16, 16, 128, True, 0, None,
+     torch.float16),
+    ("ragged_1000_fp16", 2, 1000, 1000, 16, 16, 128, True, 0, None,
+     torch.float16),
+    ("ragged_37_fp16", 4, 37, 37, 16, 16, 128, True, 0, None,
+     torch.float16),
+    ("gqa_h16_hkv4_fp16", 2, 1024, 1024, 16, 4, 128, True, 0, None,
+     torch.float16),
+    ("window_256_fp16", 2, 1024, 1024, 16, 16, 128, True, 256, None,
+     torch.float16),
+    ("d64_fp16", 4, 1024, 1024, 16, 16, 64, True, 0, None, torch.float16),
+    ("lq1_bf16", 8, 1, 1024, 16, 16, 128, False, 0, None, torch.bfloat16),
+    ("lq1_fp16", 8, 1, 1024, 16, 16, 128, False, 0, None, torch.float16),
+    ("fused_qkv_views_bf16", 4, 1024, 1024, 16, 16, 128, True, 0,
+     "fused_qkv", torch.bfloat16),
+    ("fused_qkv_views_fp16", 4, 1024, 1024, 16, 16, 128, True, 0,
+     "fused_qkv", torch.float16),
 ]
 
 
 def flash_inputs(B, Lq, Lk, H, Hkv, D, kind, dtype, seed):
-    """Unit-normal q, k, v, dO on the card and the case's mask."""
+    """Unit-normal q, k, v, dO on the card and the case's mask; for
+    "fused_qkv", q, k and v are the strided views of one (B, L, 3, H, D)
+    tensor, as the GPT attention's qkv projection gives them."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rnd(*shape):
@@ -442,6 +518,8 @@ def flash_inputs(B, Lq, Lk, H, Hkv, D, kind, dtype, seed):
     q, k, v, do = rnd(B, Lq, H, D), rnd(B, Lk, Hkv, D), rnd(B, Lk, Hkv, D), \
         rnd(B, Lq, H, D)
     mask = None
+    if kind == "fused_qkv":
+        q, k, v = rnd(B, Lq, 3, H, D).unbind(2)
     if kind == "bool_full":                 # (B, H, Lq, Lk)
         mask = torch.rand(B, H, Lq, Lk, generator=g, device="cuda") < 0.9
     elif kind == "additive_row1":           # (1, 1, 1, Lk): batch broadcast
@@ -457,42 +535,77 @@ def flash_inputs(B, Lq, Lk, H, Hkv, D, kind, dtype, seed):
     return q, k, v, do, mask
 
 
-def flash_errors(fa, q, k, v, do, mask, causal, window):
-    """Each kernel against its plain version on the same inputs:
-    {"fwd": (max abs, max err), "dkv": ..., "dq": ...} and whether each is
-    within its tolerance.  The backward kernels get the plain forward's
-    lse and delta."""
+def flash_counts(fa):
+    f = fa.flash_attention
+    return {"fwd": f.launches_fwd, "dkv": f.launches_dkv,
+            "dq": f.launches_dq, "fwd_sm90": f.launches_fwd_sm90,
+            "dq_sm90": f.launches_dq_sm90}
+
+
+def reset_flash_counts(fa):
+    for name in flash_counts(fa):
+        setattr(fa.flash_attention, f"launches_{name}", 0)
+
+
+def bwd_error(pairs):
+    """(max abs, max abs / max |plain|) over (kernel, plain) pairs."""
+    abs_err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in pairs)
+    rel = max(float((a.float() - b.float()).abs().max()
+                    / b.float().abs().max().clamp(min=1e-30))
+              for a, b in pairs)
+    return abs_err, rel
+
+
+def flash_errors(fa, q, k, v, do, mask, causal, window, families=(None,)):
+    """Each kernel against its plain version on the same inputs: for each
+    family (None: the route's; "sm80" / "sm90" forced) {"fwd": (max abs,
+    max err, ok), "dq": ..., "lse_max_abs_err": x, "launched": family},
+    plus "dkv" (sm80 only).  The backward kernels get the plain forward's
+    lse and delta; "launched" is the family the launch counters saw."""
     dtype = q.dtype
     kw = dict(is_causal=causal, window=window)
-    o, lse = fa.flash_fwd_cuda(q, k, v, mask, **kw)
     ref_o, ref_lse = fa.flash_fwd_plain(q, k, v, mask, **kw)
     delta = fa._delta(do, ref_o)
-    dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, ref_lse, delta, mask, **kw)
-    dq = fa.flash_bwd_dq_cuda(q, k, v, do, ref_lse, delta, mask, **kw)
-    torch.cuda.synchronize()
     ref_dq, ref_dk, ref_dv = fa.flash_bwd_plain(q, k, v, do, ref_lse, delta,
                                                 mask, **kw)
+    dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, ref_lse, delta, mask, **kw)
+    torch.cuda.synchronize()
+    abs_err, rel = bwd_error(((dk, ref_dk), (dv, ref_dv)))
+    out = {"dkv": (abs_err, rel, rel <= FLASH_BWD_TOL[dtype])}
     rtol, atol = FLASH_FWD_TOL[dtype]
-    do_ = (o.float() - ref_o.float()).abs()
-    fwd_ok = bool((do_ <= atol + rtol * ref_o.float().abs()).all())
     finite = torch.isfinite(ref_lse)
-    lse_ok = bool(torch.equal(finite, torch.isfinite(lse))) and bool(
-        ((lse - ref_lse).abs()[finite]
-         <= 1e-5 + 1e-5 * ref_lse.abs()[finite]).all())
-    out = {"fwd": (float(do_.max()), float(do_.max()), fwd_ok and lse_ok),
-           "lse_max_abs_err": float((lse - ref_lse).abs()[finite].max())}
-    for name, pairs in (("dkv", ((dk, ref_dk), (dv, ref_dv))),
-                        ("dq", ((dq, ref_dq),))):
-        abs_err = max(float((a.float() - b.float()).abs().max())
-                      for a, b in pairs)
-        rel = max(float((a.float() - b.float()).abs().max()
-                        / b.float().abs().max().clamp(min=1e-30))
-                  for a, b in pairs)
-        out[name] = (abs_err, rel, rel <= FLASH_BWD_TOL[dtype])
+    for fam in families:
+        before = flash_counts(fa)
+        o, lse = fa.flash_fwd_cuda(q, k, v, mask, **kw, _impl=fam)
+        dq = fa.flash_bwd_dq_cuda(q, k, v, do, ref_lse, delta, mask, **kw,
+                                  _impl=fam)
+        torch.cuda.synchronize()
+        after = flash_counts(fa)
+        sm90 = (after["fwd_sm90"] - before["fwd_sm90"],
+                after["dq_sm90"] - before["dq_sm90"])
+        assert after["fwd"] - before["fwd"] == 1
+        assert after["dq"] - before["dq"] == 1
+        assert sm90 in ((0, 0), (1, 1)), sm90
+        do_ = (o.float() - ref_o.float()).abs()
+        fwd_ok = bool((do_ <= atol + rtol * ref_o.float().abs()).all())
+        lse_ok = bool(torch.equal(finite, torch.isfinite(lse))) and bool(
+            ((lse - ref_lse).abs()[finite]
+             <= 1e-5 + 1e-5 * ref_lse.abs()[finite]).all())
+        abs_err, rel = bwd_error(((dq, ref_dq),))
+        out[fam] = {
+            "fwd": (float(do_.max()), float(do_.max()), fwd_ok and lse_ok),
+            "lse_max_abs_err": float((lse - ref_lse).abs()[finite].max()),
+            "dq": (abs_err, rel, rel <= FLASH_BWD_TOL[dtype]),
+            "launched": "sm90" if sm90 == (1, 1) else "sm80"}
     return out
 
 
 def phase_flash_kernels():
+    """Every case through the route, asserting which family launched (the
+    sm90 forward and dQ for bf16 / fp16, D 64 or 128 and no mask; sm80
+    for the rest); each case the route sends to sm90 runs through the
+    sm80 kernels too (`_impl="sm80"`)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     torch.backends.cuda.matmul.allow_tf32 = False    # full float32 plain
     torch.backends.cudnn.allow_tf32 = False
@@ -501,19 +614,31 @@ def phase_flash_kernels():
             dtype) in enumerate(FLASH_CASES):
         q, k, v, do, mask = flash_inputs(B, Lq, Lk, H, Hkv, D, kind, dtype,
                                          seed=200 + i)
-        err = flash_errors(fa, q, k, v, do, mask, causal, window)
-        results.append({
-            "case": name, "dtype": str(dtype).split(".")[1],
-            "shape": [B, Lq, Lk, H, Hkv, D], "causal": causal,
-            "window": window, "mask": kind,
-            "fwd_max_abs_err": err["fwd"][0],
-            "lse_max_abs_err": err["lse_max_abs_err"],
-            "dkv_max_abs_err": err["dkv"][0], "dkv_max_err": err["dkv"][1],
-            "dq_max_abs_err": err["dq"][0], "dq_max_err": err["dq"][1],
-            "ok": all(err[n][2] for n in ("fwd", "dkv", "dq"))})
+        route = fa._sm90_route(q, k, v, fa._normalize_mask(mask), dtype)
+        want = "sm80" if mask is not None or dtype == torch.float32 else \
+            "sm90"
+        assert route == want, f"{name}: routed to {route}, want {want}"
+        fams = (None, "sm80") if route == "sm90" else (None,)
+        err = flash_errors(fa, q, k, v, do, mask, causal, window, fams)
+        rec = {"case": name, "dtype": str(dtype).split(".")[1],
+               "shape": [B, Lq, Lk, H, Hkv, D], "causal": causal,
+               "window": window, "mask": kind, "route": route,
+               "dkv_max_abs_err": err["dkv"][0],
+               "dkv_max_err": err["dkv"][1], "ok": err["dkv"][2]}
+        for fam in fams:
+            e = err[fam]
+            assert e["launched"] == (fam or route), (name, fam, e)
+            tag = fam or route
+            rec.update({f"{tag}_fwd_max_abs_err": e["fwd"][0],
+                        f"{tag}_lse_max_abs_err": e["lse_max_abs_err"],
+                        f"{tag}_dq_max_abs_err": e["dq"][0],
+                        f"{tag}_dq_max_err": e["dq"][1]})
+            rec["ok"] = rec["ok"] and e["fwd"][2] and e["dq"][2]
+        results.append(rec)
         del q, k, v, do, mask
-    emit({"phase": "flash_kernels", "kernels": ["flash_fwd", "flash_dkv",
-                                                "flash_dq"],
+    emit({"phase": "flash_kernels",
+          "kernels": ["flash_fwd", "flash_dkv", "flash_dq",
+                      "flash_fwd_sm90", "flash_dq_sm90"],
           "fwd_tol": {str(d).split(".")[1]: t
                       for d, t in FLASH_FWD_TOL.items()},
           "bwd_tol": {str(d).split(".")[1]: t
@@ -559,18 +684,15 @@ def phase_train(steps=10, warmup=3, batch=4, seq=1024):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention.launches_fwd = 0
-    fa.flash_attention.launches_dkv = 0
-    fa.flash_attention.launches_dq = 0
+    reset_flash_counts(fa)
     ops.sdpa.plain_calls = 0
     losses, times = [], []
     for _ in range(warmup + steps):
         t0 = time.perf_counter()
         losses.append(step(ids, labels).item())     # waits for the card
         times.append(time.perf_counter() - t0)
-    launches = (fa.flash_attention.launches_fwd,
-                fa.flash_attention.launches_dkv,
-                fa.flash_attention.launches_dq)
+    counts = flash_counts(fa)
+    launches = (counts["fwd"], counts["dkv"], counts["dq"])
     plain_calls = ops.sdpa.plain_calls
 
     timed = np.array(times[warmup:])
@@ -590,20 +712,20 @@ def phase_train(steps=10, warmup=3, batch=4, seq=1024):
           "mfu_peak_flops": BF16_FLOPS,
           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
           "losses": losses,
-          "flash_launches": {"fwd": launches[0], "dkv": launches[1],
-                             "dq": launches[2]},
-          "sdpa_plain_calls": plain_calls})
+          "flash_launches": counts, "sdpa_plain_calls": plain_calls})
     assert all(np.isfinite(losses)), f"nonfinite loss in {losses}"
     assert abs(losses[0] - np.log(cfg.vocab_size)) < 1.0, \
         f"first loss {losses[0]} is not near ln(V) = {np.log(cfg.vocab_size)}"
     want = cfg.num_layers * (warmup + steps)
     assert launches == (want,) * 3, \
         f"flash launches {launches}, want {want} each"
+    assert counts["fwd_sm90"] == counts["dq_sm90"] == want, \
+        f"sm90 launches {counts}, want {want} of the forward and of dQ"
     assert plain_calls == 0, f"sdpa took its plain path {plain_calls} times"
     phase_train_profile(step, ids, labels, p50)
     del step, opt, model
     torch.cuda.empty_cache()
-    return launches[0]
+    return counts
 
 
 GEMM_TAGS = ("nvjet", "gemm", "cutlass", "xmma")   # cuBLAS kernel names
@@ -628,7 +750,7 @@ def phase_train_profile(step, ids, labels, step_p50_s, steps=2):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     flash = {k: sum(us for name, us in by_name.items()
                     if f"flash_{k}_kernel" in name) / steps / 1e3
-             for k in ("fwd", "dkv", "dq")}
+             for k in ("fwd", "fwd_sm90", "dkv", "dq", "dq_sm90")}
     busy_ms = busy / steps / 1e3
     gemm = sum(us for name, us in by_name.items()
                if any(tag in name.lower() for tag in GEMM_TAGS))
@@ -680,11 +802,14 @@ def phase_train_e2e(steps=3, batch=2, seq=128):
         return [step(ids.to(dev), labels.to(dev)).item()
                 for _ in range(steps)]
 
-    before = fa.flash_attention.launches_fwd
-    plain_before = ops.sdpa.plain_calls
+    reset_flash_counts(fa)
+    ops.sdpa.plain_calls = 0
     card_losses = train(card, "cuda")
-    assert fa.flash_attention.launches_fwd - before == steps * 2
-    assert ops.sdpa.plain_calls == plain_before
+    counts = flash_counts(fa)
+    # float32: the sm80 kernels, 2 layers a step
+    assert counts == {"fwd": steps * 2, "dkv": steps * 2, "dq": steps * 2,
+                      "fwd_sm90": 0, "dq_sm90": 0}, counts
+    assert ops.sdpa.plain_calls == 0
     t0 = time.perf_counter()
     cpu_losses = train(cpu, "cpu")
     cpu_s = time.perf_counter() - t0
@@ -704,32 +829,49 @@ def phase_train_e2e(steps=3, batch=2, seq=128):
           "card_losses": card_losses, "cpu_losses": cpu_losses,
           "loss_max_rel_err": loss_err, "loss_tol": 1e-5,
           "param_rel_err": param_err, "param_tol": 1e-3,
-          "cpu_seconds": cpu_s})
+          "cpu_seconds": cpu_s, "flash_launches": counts})
     assert loss_err <= 1e-5, f"card and CPU losses differ by {loss_err}"
     assert param_err <= 1e-3, f"card and CPU parameters differ: {param_err}"
     del card, cpu
     torch.cuda.empty_cache()
+    return counts
 
 
-def phase_flash_timings(launches):
+def phase_flash_timings(train, train_e2e):
     """Each flash kernel at the training shape (bf16, causal): its time
     with the L2 flushed, its plain version's, PyTorch's fused attention as
-    the yardstick, and the least time the card could take."""
+    the yardstick, and the least time the card could take.  The sm80 and
+    sm90 forward (and dQ) are timed on the same inputs in turns: sm80,
+    sm90, sm90, sm80.  `train` and `train_e2e` are the launch counts of
+    those phases; each kernel's `launches` is their sum."""
     from paddle_tpu_torch.ops import flash_attention as fa
     B, L, H, D = (FLASH_SHAPE[k] for k in ("B", "L", "H", "D"))
     dtype = torch.bfloat16
     q, k, v, do, _ = flash_inputs(B, L, L, H, H, D, None, dtype, seed=9)
-    err = flash_errors(fa, q, k, v, do, None, True, 0)
-    assert all(err[n][2] for n in ("fwd", "dkv", "dq")), err
+    err = flash_errors(fa, q, k, v, do, None, True, 0, ("sm80", "sm90"))
+    assert err["dkv"][2] and all(err[f][n][2] for f in ("sm80", "sm90")
+                                 for n in ("fwd", "dq")), err
     o, lse = fa.flash_fwd_cuda(q, k, v, is_causal=True)
     delta = fa._delta(do, o)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     kw = dict(is_causal=True)
-    fwd_ms = cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, **kw), flush)
-    dkv_ms = cuda_ms(lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
-                                                   **kw), flush)
-    dq_ms = cuda_ms(lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta,
-                                                 **kw), flush)
+
+    def fwd(impl):
+        return lambda: fa.flash_fwd_cuda(q, k, v, **kw, _impl=impl)
+
+    def dq(impl):
+        return lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw,
+                                            _impl=impl)
+
+    turns = {}
+    for name, fn in (("fwd", fwd), ("dq", dq)):
+        turns[name] = [(impl, cuda_ms(fn(impl), flush, iters=25))
+                       for impl in ("sm80", "sm90", "sm90", "sm80")]
+    ms = {f"{name}{'' if impl == 'sm80' else '_sm90'}":
+          sum(t for i, t in turns[name] if i == impl) / 2
+          for name in ("fwd", "dq") for impl in ("sm80", "sm90")}
+    ms["dkv"] = cuda_ms(lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                      **kw), flush)
     plain_fwd_ms = cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, **kw), flush,
                            iters=10)
     plain_bwd_ms = cuda_ms(lambda: fa.flash_bwd_plain(q, k, v, do, lse,
@@ -757,38 +899,50 @@ def phase_flash_timings(launches):
         "dkv": (4 * tensor + 2 * rows + 2 * tensor, 4 * product),
         "dq": (4 * tensor + 2 * rows + tensor, 3 * product),
     }
-    times = {"fwd": (fwd_ms, plain_fwd_ms, lib_fwd_ms),
-             "dkv": (dkv_ms, plain_bwd_ms, lib_bwd_ms),
-             "dq": (dq_ms, plain_bwd_ms, lib_bwd_ms)}
     rec = {"phase": "flash_timings", "shape": dict(FLASH_SHAPE, dtype="bf16",
                                                    causal=True),
-           "dkv_plus_dq_ms": dkv_ms + dq_ms}
+           "turns_ms": turns,
+           "sm90_speedup": {n: ms[n] / ms[f"{n}_sm90"] for n in ("fwd", "dq")},
+           "dkv_plus_dq_ms": ms["dkv"] + ms["dq_sm90"]}
+    lib_bwd = "torch SDPA backward (dq, dk and dv together), is_causal"
     entries = []
-    for kname, line, lib in (
-            ("fwd", 84, "torch SDPA forward, is_causal, on [B, H, L, D]"),
-            ("dkv", 262,
-             "torch SDPA backward (dq, dk and dv together), is_causal"),
-            ("dq", 312,
-             "torch SDPA backward (dq, dk and dv together), is_causal")):
-        nbytes, flops = costs[kname]
-        kernel_ms, plain_ms, library_ms = times[kname]
+    for kname, base, source, line, lib in (
+            ("fwd", "fwd", "flash_attention.cu", 84,
+             "torch SDPA forward, is_causal, on [B, H, L, D]"),
+            ("dkv", "dkv", "flash_attention.cu", 262, lib_bwd),
+            ("dq", "dq", "flash_attention.cu", 312, lib_bwd),
+            ("fwd_sm90", "fwd", "flash_attention_sm90.cu", 84,
+             "torch SDPA forward, is_causal, on [B, H, L, D]"),
+            ("dq_sm90", "dq", "flash_attention_sm90.cu", 312, lib_bwd)):
+        nbytes, flops = costs[base]
+        kernel_ms = ms[kname]
+        plain_ms = plain_fwd_ms if base == "fwd" else plain_bwd_ms
+        library_ms = lib_fwd_ms if base == "fwd" else lib_bwd_ms
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / BF16_FLOPS * 1e3
         rec[kname] = {"kernel_ms": kernel_ms, "plain_ms": plain_ms,
                       "library_ms": library_ms, "bytes": nbytes,
                       "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
                       "achieved_tflops": flops / (kernel_ms * 1e-3) / 1e12}
-        abs_err, max_err, _ = err[kname]
+        e = err["dkv"] if base == "dkv" else \
+            err["sm90" if kname.endswith("_sm90") else "sm80"][base]
         tol = ({"rtol": FLASH_FWD_TOL[dtype][0],
                 "atol": FLASH_FWD_TOL[dtype][1], "dtype": "bfloat16"}
-               if kname == "fwd" else
+               if base == "fwd" else
                {"max_err_over_max_abs": FLASH_BWD_TOL[dtype],
                 "dtype": "bfloat16"})
-        entries.append(kernel_record(
-            f"flash_attention_{kname}", "paddle_tpu_torch/csrc/"
-            "flash_attention.cu", f"paddle_tpu/ops/pallas/flash_attention."
-            f"py:{line}", launches, abs_err, max_err, tol, kernel_ms,
-            plain_ms, bytes_ms, ops_ms, library_ms, lib))
+        if kname.endswith("_sm90") or base == "dkv":
+            n = train[kname] + train_e2e[kname]
+        else:   # sm80 launches: all launches less the sm90 ones
+            n = sum(c[base] - c[f"{base}_sm90"] for c in (train, train_e2e))
+        record = kernel_record(
+            f"flash_attention_{kname}", f"paddle_tpu_torch/csrc/{source}",
+            f"paddle_tpu/ops/pallas/flash_attention.py:{line}", n, e[0],
+            e[1], tol, kernel_ms, plain_ms, bytes_ms, ops_ms, library_ms,
+            lib)
+        record["launches_path"] = "train (bf16) + train_e2e (fp32)"
+        entries.append(record)
+        assert n > 0, f"{kname} launched no time on the training paths"
     rec["plain_note"] = ("dkv and dq share one plain backward (dq, dk and "
                          "dv together)")
     emit(rec)
@@ -805,10 +959,10 @@ def main():
     phase_flash_kernels()
     launches, lens = phase_serve()
     phase_e2e()
-    train_launches = phase_train()
-    phase_train_e2e()
+    train = phase_train()
+    train_e2e = phase_train_e2e()
     paged = phase_timings(launches, lens)
-    flash = phase_flash_timings(train_launches)
+    flash = phase_flash_timings(train, train_e2e)
     emit({"kernels": [paged] + flash})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -30,8 +30,9 @@
 // (~0.020 ms at 3.35 TB/s); dK/dV (4 products) and dQ (3 products) are
 // bound by operations (~0.035 and ~0.026 ms at 989 TFLOP/s).
 //
-// Design (simple and right first; a wgmma/TMA/warp-specialised design is
-// later work):
+// Design (simple and right first; flash_attention_sm90.cu holds the
+// TMA/wgmma/warp-specialised forward and dQ for bf16 / fp16 at D 64 and
+// 128, and the wrapper routes only the rest here):
 //  * one block of 4 warps per (64-row tile, head, batch); each warp owns 16
 //    rows of the block's tile.  A loop inside the block over the other
 //    operand's tiles replaces the TPU's sequential grid axis and its VMEM
@@ -58,34 +59,7 @@
 #include <math.h>
 #include <stdint.h>
 
-// Mirrored field for field by ctypes in paddle_tpu_torch/ops/flash_attention.py
-struct FlashParams {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;     // backward: dO
-  const float* lse;     // backward input, [B, H, Lq]
-  const float* delta;   // backward input, [B, H, Lq]
-  const float* mask;    // additive float32, or null
-  void* out;            // forward: o
-  float* lse_out;       // forward: lse, [B, H, Lq]
-  void* dq;
-  void* dk;
-  void* dv;
-  // element strides (batch, row, head); the last dimension is contiguous
-  int64_t q_sb, q_sl, q_sh;
-  int64_t k_sb, k_sl, k_sh;
-  int64_t v_sb, v_sl, v_sh;
-  int64_t o_sb, o_sl, o_sh;
-  int64_t do_sb, do_sl, do_sh;
-  int64_t dq_sb, dq_sl, dq_sh;
-  int64_t dk_sb, dk_sl, dk_sh;
-  int64_t dv_sb, dv_sl, dv_sh;
-  int64_t m_sb, m_sh, m_sr;
-  int B, H, Hkv, Lq, Lk, D;
-  int causal, window;   // window 0: none
-  float scale;
-};
+#include "flash_params.cuh"
 
 namespace {
 

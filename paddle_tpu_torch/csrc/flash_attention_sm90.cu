@@ -1,0 +1,999 @@
+// Flash attention for Hopper (sm_90a): the forward and the dQ kernel of
+// the backward, redesigned around TMA, wgmma and warp specialisation, on
+// (B, L, H, D) tensors in bfloat16 or float16 with D 64 or 128.
+//
+// Replaces, for the shapes it takes, the Pallas TPU kernels of
+// paddle_tpu/ops/pallas/flash_attention.py
+//   _fwd_kernel (:84, via _fwd :183)  -> flash_fwd_sm90_kernel
+//   _dq_kernel  (:312, via _bwd :358) -> flash_dq_sm90_kernel
+// with the semantics of flash_attention.cu (bottom-right causal, a sliding
+// window with causal, GQA, ragged lengths; a row that sees nothing gives
+// o = 0 and lse = -inf; the backward takes lse, with lse taken as 0 where
+// it is not finite, and delta = rowsum(dO * O) from the caller).
+//
+// Bound, at the GPT training shape (B 4, L 1024, H 16, D 128, causal,
+// bf16): the forward moves ~67 MB for ~17 GFLOP and is bound by bytes
+// (0.0201 ms at 3.35 TB/s); dQ does three products (~26 GFLOP) and is
+// bound by operations (0.0261 ms at 989 TFLOP/s).
+//
+// Design: both kernels are q-stationary and share one mainloop.
+//  * A block owns 128 query rows of one (batch, head): two consumer
+//    warpgroups of 64 rows each and a producer warpgroup whose one thread
+//    only issues TMA loads; setmaxnreg moves registers from the producer
+//    (24) to the consumers (240).
+//  * Q (and dO for dQ) are loaded once.  K and V tiles of BC keys stream
+//    through a ring of STAGES stages with full / empty mbarriers, so the
+//    producer runs ahead of the products.  The forward takes BC 128 in 2
+//    stages (fewer, wider wgmmas; S and O are 64 floats a thread each;
+//    161 KB of shared memory at D 128); dQ takes BC 64 in 3 stages, since
+//    S, dP and the dQ accumulator live together (32 + 32 + 64 floats).
+//  * Tensor maps are rank 4 (D, H, L, B) with byte strides, built on the
+//    host in the C entry, so the q/k/v views of a fused qkv projection
+//    need no copy; rows past Lq or Lk come back zero-filled from TMA.
+//  * Every tile is two boxes of 64 columns (128 bytes, the widest a
+//    128-byte swizzle takes) at D 128, one at D 64; the wgmma descriptors
+//    step across them.
+//  * Forward: S = Q K^T is wgmma with A and B in shared memory (K-major).
+//    The online softmax runs in registers in float32 with exp2 and
+//    scale * log2(e) folded into one multiply; p is rounded to the input
+//    dtype in registers and becomes the register A operand of O += P V,
+//    whose B operand is the V tile as loaded ([keys, D], MN-major, through
+//    wgmma's transpose-B immediate).
+//  * dQ: S = Q K^T and dP = dO V^T from shared memory; P = exp2(S c -
+//    lse log2(e)) and dS = P (dP - delta) in registers; dS, rounded to the
+//    input dtype, is the register A operand of dQ += dS K with K MN-major
+//    from the stage already in shared memory; the scale is applied once,
+//    in the epilogue.  These are the roundings of the flash_attention.cu
+//    kernels.
+//  * Key tiles wholly visible to a warpgroup run with no per-element
+//    test; the edge tiles (causal diagonal, the window's left edge, the
+//    ragged Lk tail) test each element.  Causal and window are runtime
+//    arguments, tested once per tile.
+//  * The grid is (H, B, q tiles) with the q tiles in reverse order, so
+//    the longest causal blocks start first and short ones fill the tail.
+//    cudaFuncSetAttribute runs once per kernel and device.
+//
+// Not taken (the wrapper routes these to flash_attention.cu before any
+// launch): an additive or bool mask, float32, D other than 64 or 128, and
+// operands whose base or (batch, row, head) strides are not 16-byte
+// aligned.  The C entries return cudaErrorInvalidValue for them.
+#include <cuda.h>
+#include <cudaTypedefs.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <atomic>
+
+#include "flash_params.cuh"
+
+namespace {
+
+constexpr int BR = 128;        // query rows per block
+constexpr int THREADS = 384;   // consumer warpgroups 0 and 1, producer 2
+constexpr int BOX = 64;        // columns of one TMA box (128 bytes)
+constexpr int CONSUMER_WARPS = 8;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// ---------------------------------------------------------------- wgmma
+// d (m64 x N, float32, the accumulator layout: with warp w, g = lane / 4,
+// t = lane % 4, d[4j + e] is row 16w + g + 8 (e / 2), column 8j + 2t +
+// e % 2) += A (m64 x k16) * B (k16 x N).  ss: A and B from shared memory,
+// both K-major; `acc` 0 overwrites d.  rs: A from registers (the
+// m64k16 A fragment, pairs of 16-bit values), B from shared memory,
+// MN-major.
+template <typename T, int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<__nv_bfloat16, 64> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da,
+                                            uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<__nv_bfloat16, 128> {
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da,
+                                            uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<__half, 64> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da,
+                                            uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<__half, 128> {
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da,
+                                            uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(1));
+  }
+};
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads of an accumulator above the wait
+// of the wgmma that writes it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// descriptor of a 128-byte-swizzled wgmma operand in shared memory: start
+// address, leading and stride byte offsets, layout type 1 (128B swizzle)
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// A tile of R rows x D columns lies in shared memory as D / 64 blocks of
+// R rows x 128 bytes (block j at tile + j R 128), each as TMA's 128-byte
+// swizzle writes it.  K-major: the k16 slice kk over the columns, rows
+// from r0 on; 8-row groups 1024 bytes apart.
+template <int R>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
+  return make_desc(tile + (kk >> 2) * R * 128 + r0 * 128 + (kk & 3) * 32,
+                   16, 1024);
+}
+
+// MN-major (the columns are the N dimension): the k16 slice kk over the
+// rows; 8-row groups 1024 bytes apart, 64-column blocks R 128 apart
+template <int R>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return make_desc(tile + kk * 16 * 128, R * 128, 1024);
+}
+
+// -------------------------------------------------- barriers, TMA, misc
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// wait until the barrier's phase with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// one box of a rank-4 (D, H, L, B) tensor map into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(head), "r"(row),
+      "r"(batch), "r"(bar)
+      : "memory");
+}
+
+// a tile of `rows` rows x D columns: D / 64 boxes
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int head, int row,
+                                         int batch, int rows) {
+#pragma unroll
+  for (int j = 0; j < D / BOX; ++j)
+    tma_load(dst + j * rows * 128, map, bar, j * BOX, head, row, batch);
+}
+
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float x, float y);
+
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float x, float y) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float x, float y) {
+  __half2 v = __floats2half2_rn(x, y);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// accumulator d (m64 x 16 kk ..) -> the A fragments of the k16 slices:
+// slice kk holds columns 16 kk .. 16 kk + 15, i.e. d[8 kk .. 8 kk + 7]
+template <typename T, int N>
+__device__ __forceinline__ void to_a_frags(const float (&d)[N / 2],
+                                           uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = pack2<T>(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+}
+
+// ------------------------------------------------------------ masking
+// the key tiles [kb, ke) a block of query rows q0 .. q0 + BR - 1 visits:
+// inside the key length, not wholly above the causal diagonal, not wholly
+// left of the window
+template <int BC>
+__device__ __forceinline__ void key_range(const FlashParams& p, int q0,
+                                          int& kb, int& ke) {
+  const int off = p.Lk - p.Lq;
+  kb = 0;
+  ke = (p.Lk + BC - 1) / BC;
+  if (p.causal) {
+    const int last = min(q0 + BR, p.Lq) - 1 + off;  // rightmost visible col
+    ke = last < 0 ? 0 : min(ke, last / BC + 1);
+    if (p.window) {
+      const int first = q0 + off - p.window + 1;    // leftmost visible col
+      kb = first <= 0 ? 0 : first / BC;
+    }
+  }
+}
+
+// every element of rows r0 .. r0 + 63 x keys k0 .. k0 + BC - 1 visible
+template <int BC>
+__device__ __forceinline__ bool tile_full(const FlashParams& p, int r0,
+                                          int k0) {
+  if (k0 + BC > p.Lk) return false;
+  if (!p.causal) return true;
+  const int off = p.Lk - p.Lq;
+  if (k0 + BC - 1 > r0 + off) return false;
+  return !p.window || k0 > r0 + 63 + off - p.window;
+}
+
+__device__ __forceinline__ bool visible(const FlashParams& p, int row,
+                                        int col) {
+  const int off = p.Lk - p.Lq;
+  bool keep = col < p.Lk;
+  if (p.causal) {
+    keep = keep && col <= row + off;
+    if (p.window) keep = keep && col > row + off - p.window;
+  }
+  return keep;
+}
+
+// column of accumulator element i for lane quarter t, from key k0
+__device__ __forceinline__ int acc_col(int k0, int i, int t) {
+  return k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+}
+
+// -------------------------------------------------------- shared layout
+template <int D, int BC, int STAGES, int NQ>
+struct Smem {
+  // NQ tiles of BR rows (Q, and dO for dQ), then per stage K and V tiles
+  // of BC rows, then full[STAGES], empty[STAGES] and the Q barrier
+  static constexpr int Q_BYTES = BR * D * 2;
+  static constexpr int KV_BYTES = BC * D * 2;
+  static constexpr int BARS = NQ * Q_BYTES + STAGES * 2 * KV_BYTES;
+  static constexpr int BYTES = BARS + 8 * (2 * STAGES + 1) + 1024;  // + align
+  static_assert(BYTES <= 232448, "over the 227 KB a block can use");
+
+  uint32_t base;
+  __device__ __forceinline__ explicit Smem(const void* raw)
+      : base((smem_u32(raw) + 1023u) & ~1023u) {}
+  __device__ __forceinline__ uint32_t q(int i) const {
+    return base + i * Q_BYTES;
+  }
+  __device__ __forceinline__ uint32_t k(int s) const {
+    return base + NQ * Q_BYTES + s * 2 * KV_BYTES;
+  }
+  __device__ __forceinline__ uint32_t v(int s) const {
+    return k(s) + KV_BYTES;
+  }
+  __device__ __forceinline__ uint32_t full(int s) const {
+    return base + BARS + 8 * s;
+  }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return base + BARS + 8 * (STAGES + s);
+  }
+  __device__ __forceinline__ uint32_t qbar() const {
+    return base + BARS + 16 * STAGES;
+  }
+};
+
+// barriers: full[s] completes when the producer's K and V bytes of stage s
+// have landed; empty[s] when every consumer warp is done with stage s
+template <class S, int STAGES>
+__device__ __forceinline__ void init_barriers(const S& sm) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(sm.full(s), 1);
+      mbar_init(sm.empty(s), CONSUMER_WARPS);
+    }
+    mbar_init(sm.qbar(), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// the producer: Q (and dO) once, then K and V of each key tile through
+// the ring; one thread issues every load
+template <int D, int BC, int STAGES, int NQ, class S>
+__device__ __forceinline__ void produce(const S& sm, const CUtensorMap* tq,
+                                        const CUtensorMap* tdo,
+                                        const CUtensorMap* tk,
+                                        const CUtensorMap* tv, int h, int hk,
+                                        int b, int q0, int kb, int ntiles) {
+  mbar_expect_tx(sm.qbar(), NQ * S::Q_BYTES);
+  tma_tile<D>(sm.q(0), tq, sm.qbar(), h, q0, b, BR);
+  if constexpr (NQ == 2) tma_tile<D>(sm.q(1), tdo, sm.qbar(), h, q0, b, BR);
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % STAGES;
+    mbar_wait(sm.empty(s), ((it / STAGES) & 1) ^ 1);
+    mbar_expect_tx(sm.full(s), 2 * S::KV_BYTES);
+    const int k0 = (kb + it) * BC;
+    tma_tile<D>(sm.k(s), tk, sm.full(s), hk, k0, b, BC);
+    tma_tile<D>(sm.v(s), tv, sm.full(s), hk, k0, b, BC);
+  }
+}
+
+// a consumer warp is done with stage s (its wgmmas have retired)
+__device__ __forceinline__ void release(uint32_t empty_bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(empty_bar);
+}
+
+// ---------------------------------------------------------------- forward
+constexpr int FWD_BC = 128;    // keys per stage
+constexpr int FWD_STAGES = 2;
+
+// one key tile of the online softmax: mask (edge tiles only), running
+// maximum m (in units of log2), row sums l (this thread's columns; the
+// quad sums them in the epilogue), p = exp2(s c - m) in place, corr the
+// factor that rescales the earlier output
+template <bool MASK, int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             const FlashParams& p,
+                                             const int (&rows)[2], int k0,
+                                             int t, float c) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int r = (i >> 1) & 1;
+    s[i] *= c;
+    if (MASK && !visible(p, rows[r], acc_col(k0, i, t))) s[i] = -INFINITY;
+    mx[r] = fmaxf(mx[r], s[i]);
+  }
+  float ms[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = quad_max(mx[r]);
+    ms[r] = mx[r] == -INFINITY ? 0.f : mx[r];
+    corr[r] = ex2(m[r] - ms[r]);
+    m[r] = mx[r];
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int r = (i >> 1) & 1;
+    s[i] = ex2(s[i] - ms[r]);
+    sum[r] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
+}
+
+// grid (H, B, ceil(Lq / 128)): a block owns 128 query rows of one head
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tmQ,
+                          const __grid_constant__ CUtensorMap tmK,
+                          const __grid_constant__ CUtensorMap tmV,
+                          const FlashParams p) {
+  constexpr int BC = FWD_BC, STAGES = FWD_STAGES;
+  using S = Smem<D, BC, STAGES, 1>;
+  extern __shared__ unsigned char smem_raw[];
+  const S sm(smem_raw);
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BR;   // longest first
+  const int hk = h / (p.H / p.Hkv);
+  int kb, ke;
+  key_range<BC>(p, q0, kb, ke);
+  const int ntiles = max(ke - kb, 0);
+  init_barriers<S, STAGES>(sm);
+
+  if (threadIdx.x >= 2 * 128) {
+    // ---- producer warpgroup
+    reg_dealloc<24>();
+    if (threadIdx.x == 2 * 128 && ntiles > 0)
+      produce<D, BC, STAGES, 1>(sm, &tmQ, nullptr, &tmK, &tmV, h, hk, b, q0,
+                                kb, ntiles);
+  } else {
+    // ---- consumer warpgroups
+    reg_alloc<240>();
+    const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int r0 = q0 + wg * 64;
+    const int rows[2] = {r0 + warp * 16 + g, r0 + warp * 16 + g + 8};
+    const float c = p.scale * LOG2E;
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    if (ntiles > 0) mbar_wait(sm.qbar(), 0);
+    for (int it = 0; it < ntiles; ++it) {
+      const int st = it % STAGES;
+      const int k0 = (kb + it) * BC;
+      mbar_wait(sm.full(st), (it / STAGES) & 1);
+      // S = Q K^T
+      float s[BC / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<T, BC>::ss(s, desc_k<BR>(sm.q(0), wg * 64, kk),
+                         desc_k<BC>(sm.k(st), 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(s);
+      float corr[2];
+      if (tile_full<BC>(p, r0, k0))
+        softmax_tile<false>(s, m, l, corr, p, rows, k0, t, c);
+      else
+        softmax_tile<true>(s, m, l, corr, p, rows, k0, t, c);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+      // O += P V: P from registers, V [keys, D] MN-major
+      uint32_t pa[BC / 16][4];
+      to_a_frags<T, BC>(s, pa);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BC / 16; ++kk)
+        Wgmma<T, D>::rs(o, pa[kk], desc_mn<BC>(sm.v(st), kk));
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(o);
+      release(sm.empty(st));
+    }
+
+    T* og = static_cast<T*>(p.out) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float lt = quad_sum(l[r]);
+      const int row = rows[r];
+      if (row >= p.Lq) continue;
+      const float l_safe = lt == 0.f ? 1.f : lt;
+      const float inv = 1.f / l_safe;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(og + row * p.o_sl + 8 * j + 2 * t) =
+            pack2<T>(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      if (t == 0)
+        p.lse_out[((int64_t)b * p.H + h) * p.Lq + row] =
+            m[r] == -INFINITY ? -INFINITY : m[r] * LN2 + logf(l_safe);
+    }
+  }
+}
+
+// --------------------------------------------------------------------- dQ
+constexpr int DQ_BC = 64;
+constexpr int DQ_STAGES = 3;
+
+// grid (H, B, ceil(Lq / 128)): a block owns 128 query rows of one head
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tmQ,
+                         const __grid_constant__ CUtensorMap tmK,
+                         const __grid_constant__ CUtensorMap tmV,
+                         const __grid_constant__ CUtensorMap tmdO,
+                         const FlashParams p) {
+  constexpr int BC = DQ_BC, STAGES = DQ_STAGES;
+  using S = Smem<D, BC, STAGES, 2>;
+  extern __shared__ unsigned char smem_raw[];
+  const S sm(smem_raw);
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BR;   // longest first
+  const int hk = h / (p.H / p.Hkv);
+  int kb, ke;
+  key_range<BC>(p, q0, kb, ke);
+  const int ntiles = max(ke - kb, 0);
+  init_barriers<S, STAGES>(sm);
+
+  if (threadIdx.x >= 2 * 128) {
+    reg_dealloc<24>();
+    if (threadIdx.x == 2 * 128 && ntiles > 0)
+      produce<D, BC, STAGES, 2>(sm, &tmQ, &tmdO, &tmK, &tmV, h, hk, b, q0,
+                                kb, ntiles);
+  } else {
+    reg_alloc<240>();
+    const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int r0 = q0 + wg * 64;
+    const int rows[2] = {r0 + warp * 16 + g, r0 + warp * 16 + g + 8};
+    const float c = p.scale * LOG2E;
+    float lse2[2], delta[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int64_t at = ((int64_t)b * p.H + h) * p.Lq + rows[r];
+      const float v = rows[r] < p.Lq ? p.lse[at] : 0.f;
+      lse2[r] = isfinite(v) ? v * LOG2E : 0.f;
+      delta[r] = rows[r] < p.Lq ? p.delta[at] : 0.f;
+    }
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    if (ntiles > 0) mbar_wait(sm.qbar(), 0);
+    for (int it = 0; it < ntiles; ++it) {
+      const int st = it % STAGES;
+      const int k0 = (kb + it) * BC;
+      mbar_wait(sm.full(st), (it / STAGES) & 1);
+      // S = Q K^T and dP = dO V^T
+      float s[BC / 2], dp[BC / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<T, BC>::ss(s, desc_k<BR>(sm.q(0), wg * 64, kk),
+                         desc_k<BC>(sm.k(st), 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<T, BC>::ss(dp, desc_k<BR>(sm.q(1), wg * 64, kk),
+                         desc_k<BC>(sm.v(st), 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(s);
+      fence_regs(dp);
+      // dS = P (dP - delta), P = exp2(s c - lse log2 e), in place in s
+      const bool full = tile_full<BC>(p, r0, k0);
+#pragma unroll
+      for (int i = 0; i < BC / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        float pv = ex2(fmaf(s[i], c, -lse2[r]));
+        if (!full && !visible(p, rows[r], acc_col(k0, i, t))) pv = 0.f;
+        s[i] = pv * (dp[i] - delta[r]);
+      }
+      // dQ += dS K: dS from registers, K [keys, D] MN-major
+      uint32_t da[BC / 16][4];
+      to_a_frags<T, BC>(s, da);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BC / 16; ++kk)
+        Wgmma<T, D>::rs(dq, da[kk], desc_mn<BC>(sm.k(st), kk));
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(dq);
+      release(sm.empty(st));
+    }
+
+    T* dqg = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = rows[r];
+      if (row >= p.Lq) continue;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(dqg + row * p.dq_sl + 8 * j + 2 * t) =
+            pack2<T>(dq[4 * j + 2 * r] * p.scale,
+                     dq[4 * j + 2 * r + 1] * p.scale);
+    }
+  }
+}
+
+// ------------------------------------------------------------------- host
+PFN_cuTensorMapEncodeTiled_v12000 encoder() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      f = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(f);
+  }();
+  return fn;
+}
+
+// rank-4 (D, heads, L, B) map of a 16-bit tensor with element strides
+// (head, row, batch), boxes of 64 columns x `rows` rows, 128-byte swizzle;
+// reads past L come back as zeros
+bool make_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType dt,
+              int D, int heads, int L, int B, int64_t sh, int64_t sl,
+              int64_t sb, int rows) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = encoder();
+  if (encode == nullptr) return false;
+  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)L,
+                        (cuuint64_t)B};
+  cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sl * 2,
+                           (cuuint64_t)sb * 2};
+  cuuint32_t box[4] = {(cuuint32_t)BOX, 1, (cuuint32_t)rows, 1};
+  cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, dt, 4, const_cast<void*>(ptr), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// cudaFuncSetAttribute once per kernel and device, not on every launch
+cudaError_t smem_once(std::atomic<uint64_t>& done, int device,
+                      const void* kernel, int bytes) {
+  const uint64_t bit = 1ull << (device & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+template <typename T, int D>
+cudaError_t launch_fwd(const FlashParams& p, CUtensorMapDataType dt,
+                       int device, cudaStream_t st) {
+  constexpr int BYTES = Smem<D, FWD_BC, FWD_STAGES, 1>::BYTES;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, p.q, dt, D, p.H, p.Lq, p.B, p.q_sh, p.q_sl, p.q_sb,
+                BR) ||
+      !make_map(&tk, p.k, dt, D, p.Hkv, p.Lk, p.B, p.k_sh, p.k_sl, p.k_sb,
+                FWD_BC) ||
+      !make_map(&tv, p.v, dt, D, p.Hkv, p.Lk, p.B, p.v_sh, p.v_sl, p.v_sb,
+                FWD_BC))
+    return cudaErrorInvalidValue;
+  static std::atomic<uint64_t> done{0};
+  cudaError_t err = smem_once(
+      done, device, reinterpret_cast<const void*>(flash_fwd_sm90_kernel<T, D>),
+      BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.H, p.B, (p.Lq + BR - 1) / BR);
+  flash_fwd_sm90_kernel<T, D><<<grid, THREADS, BYTES, st>>>(tq, tk, tv, p);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dq(const FlashParams& p, CUtensorMapDataType dt,
+                      int device, cudaStream_t st) {
+  constexpr int BYTES = Smem<D, DQ_BC, DQ_STAGES, 2>::BYTES;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!make_map(&tq, p.q, dt, D, p.H, p.Lq, p.B, p.q_sh, p.q_sl, p.q_sb,
+                BR) ||
+      !make_map(&tk, p.k, dt, D, p.Hkv, p.Lk, p.B, p.k_sh, p.k_sl, p.k_sb,
+                DQ_BC) ||
+      !make_map(&tv, p.v, dt, D, p.Hkv, p.Lk, p.B, p.v_sh, p.v_sl, p.v_sb,
+                DQ_BC) ||
+      !make_map(&tdo, p.dout, dt, D, p.H, p.Lq, p.B, p.do_sh, p.do_sl,
+                p.do_sb, BR))
+    return cudaErrorInvalidValue;
+  static std::atomic<uint64_t> done{0};
+  cudaError_t err = smem_once(
+      done, device, reinterpret_cast<const void*>(flash_dq_sm90_kernel<T, D>),
+      BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.H, p.B, (p.Lq + BR - 1) / BR);
+  flash_dq_sm90_kernel<T, D><<<grid, THREADS, BYTES, st>>>(tq, tk, tv, tdo,
+                                                           p);
+  return cudaGetLastError();
+}
+
+// a TMA operand: 16-byte aligned base and nonzero 16-byte (batch, row,
+// head) strides
+bool operand_ok(const void* x, int64_t sb, int64_t sl, int64_t sh) {
+  return x != nullptr && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         sb > 0 && sl > 0 && sh > 0 && sb % 8 == 0 && sl % 8 == 0 &&
+         sh % 8 == 0;
+}
+
+int run(const FlashParams* p, bool dq, int dtype, int device, void* stream) {
+  if (p == nullptr || p->B < 1 || p->B > 65535 || p->Hkv < 1 ||
+      p->H < p->Hkv || p->H % p->Hkv || p->Lq < 1 || p->Lk < 1 ||
+      (p->Lq + BR - 1) / BR > 65535 || (p->D != 64 && p->D != 128) ||
+      p->window < 0 || p->mask != nullptr || (dtype != 1 && dtype != 2) ||
+      !operand_ok(p->q, p->q_sb, p->q_sl, p->q_sh) ||
+      !operand_ok(p->k, p->k_sb, p->k_sl, p->k_sh) ||
+      !operand_ok(p->v, p->v_sb, p->v_sl, p->v_sh) ||
+      (dq && !operand_ok(p->dout, p->do_sb, p->do_sl, p->do_sh)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const CUtensorMapDataType dt = dtype == 1
+                                     ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  if (dq) {
+    if (dtype == 1)
+      return (int)(p->D == 64
+                       ? launch_dq<__nv_bfloat16, 64>(*p, dt, device, st)
+                       : launch_dq<__nv_bfloat16, 128>(*p, dt, device, st));
+    return (int)(p->D == 64 ? launch_dq<__half, 64>(*p, dt, device, st)
+                            : launch_dq<__half, 128>(*p, dt, device, st));
+  }
+  if (dtype == 1)
+    return (int)(p->D == 64
+                     ? launch_fwd<__nv_bfloat16, 64>(*p, dt, device, st)
+                     : launch_fwd<__nv_bfloat16, 128>(*p, dt, device, st));
+  return (int)(p->D == 64 ? launch_fwd<__half, 64>(*p, dt, device, st)
+                          : launch_fwd<__half, 128>(*p, dt, device, st));
+}
+
+}  // namespace
+
+// dtype: 1 bfloat16, 2 float16.  The same FlashParams as the
+// flash_attention.cu entries, with real (nonzero) strides for q, k, v and
+// dO: the tensor maps are built from them here.  Each returns a
+// cudaError_t code: cudaErrorInvalidValue for what the kernels do not
+// take, else the result of cudaGetLastError() right after the launch.
+extern "C" int flash_attention_sm90_fwd(const FlashParams* p, int dtype,
+                                        int device, void* stream) {
+  return run(p, false, dtype, device, stream);
+}
+
+extern "C" int flash_attention_sm90_bwd_dq(const FlashParams* p, int dtype,
+                                           int device, void* stream) {
+  return run(p, true, dtype, device, stream);
+}
+
+extern "C" int flash_attention_sm90_params_size() {
+  return sizeof(FlashParams);
+}
+
+extern "C" const char* flash_attention_sm90_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

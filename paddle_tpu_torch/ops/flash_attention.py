@@ -1,14 +1,27 @@
-"""Flash attention: three hand-written CUDA kernels (forward, dK/dV, dQ),
-their wrappers, their plain PyTorch versions, and the autograd Function
-that joins them.
+"""Flash attention: two families of hand-written CUDA kernels, their
+wrappers, their plain PyTorch versions, and the autograd Function that
+joins them.
 
 Counterpart: `paddle_tpu/ops/pallas/flash_attention.py` — the Pallas TPU
 kernels `_fwd_kernel` (`:84`), `_dkv_kernel` (`:262`) and `_dq_kernel`
 (`:312`), the custom VJP `_flash_core` (`:455-481`), the entries
 `flash_attention` (`:507`), `flash_block_fwd` / `flash_block_bwd`
-(`:590-636`) and the gate `supports` (`:639-682`).  The kernels are
-`csrc/flash_attention.cu`; its source note says what bounds them and how
-they are laid out.
+(`:590-636`) and the gate `supports` (`:639-682`).
+
+Kernel families (each source note says what bounds its kernels and how
+they are laid out):
+- "sm80", `csrc/flash_attention.cu`: forward, dK/dV and dQ on mma.sync
+  tiles of 64 rows; every dtype (float32 too), masks, D a multiple of 8
+  up to 128.
+- "sm90", `csrc/flash_attention_sm90.cu`: forward and dQ redesigned for
+  Hopper (TMA ring, wgmma, warp specialisation); bfloat16 / float16, D 64
+  or 128, no mask, 16-byte aligned operands.
+`_sm90_route(q, k, v, m4, dtype)` picks the family from the arguments
+before any launch: "sm90" for what that family takes, "sm80" for the
+rest (and for dK/dV, which has no sm90 kernel yet).  There is no
+fallback on failure: a failed launch raises.  The keyword `_impl` of
+`flash_fwd_cuda` / `flash_bwd_dq_cuda` forces a family, for A/B timing
+and the card tests only.
 
 Layout is (B, L, H, D), GQA reads kv head h // (H // Hkv) without a
 repeat, causal masking is bottom-right aligned over the real lengths
@@ -16,13 +29,16 @@ repeat, causal masking is bottom-right aligned over the real lengths
 (r + off - window, r + off], and masks become additive float32 with their
 batch, head and row broadcasts kept as strides of 0.  A row that sees
 nothing gives o = 0 and lse = -inf (XLA's softmax gives NaN there).
+The training path (bf16, D 128, causal, no mask, the q/k/v views of a
+fused qkv projection) takes the sm90 forward and dQ.
 
 Tensors on the CPU take the plain versions; tensors on a CUDA device
 launch the kernels or raise — there is no fallback.  The kernels take D a
 multiple of 8 from 8 to 128 (the TPU kernel pads any D to 128 lanes);
 `supports()` is the JAX gate narrowed to that.
 `flash_attention.launches_fwd`, `.launches_dkv` and `.launches_dq` count
-the kernels' launches.
+every launch of each kernel, of either family; `.launches_fwd_sm90` and
+`.launches_dq_sm90` count those of the sm90 kernels.
 """
 from __future__ import annotations
 
@@ -36,10 +52,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MASK_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _NEG_INF = float("-inf")
 _MAX_D = 128
+_SM90_DTYPES = (torch.bfloat16, torch.float16)
+_SM90_HEAD_DIMS = (64, 128)
 
 
 class _Params(ctypes.Structure):
-    """`FlashParams` of csrc/flash_attention.cu, field for field."""
+    """`FlashParams` of csrc/flash_params.cuh, field for field."""
     _fields_ = (
         [(n, ctypes.c_void_p) for n in (
             "q", "k", "v", "dout", "lse", "delta", "mask", "out", "lse_out",
@@ -53,27 +71,36 @@ class _Params(ctypes.Structure):
         + [("scale", ctypes.c_float)])
 
 
-_lib = None
+# source -> its launch entries
+_ENTRIES = {
+    "flash_attention": ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                        "flash_attention_bwd_dq"),
+    "flash_attention_sm90": ("flash_attention_sm90_fwd",
+                             "flash_attention_sm90_bwd_dq"),
+}
+_libs = {}
 
 
-def _kernel():
-    global _lib
-    if _lib is None:
-        lib = _build.load("flash_attention")
-        for fn in (lib.flash_attention_fwd, lib.flash_attention_bwd_dkv,
-                   lib.flash_attention_bwd_dq):
+def _kernel(source):
+    """The loaded library of `csrc/<source>.cu`, its entries typed."""
+    lib = _libs.get(source)
+    if lib is None:
+        lib = _build.load(source)
+        for name in _ENTRIES[source]:
+            fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int,
                            ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        lib.flash_attention_params_size.restype = ctypes.c_int
-        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-        size = lib.flash_attention_params_size()
+        getattr(lib, f"{source}_params_size").restype = ctypes.c_int
+        err = getattr(lib, f"{source}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        size = getattr(lib, f"{source}_params_size")()
         if size != ctypes.sizeof(_Params):
-            raise RuntimeError(f"FlashParams is {size} bytes in the library "
+            raise RuntimeError(f"FlashParams is {size} bytes in {source} "
                                f"and {ctypes.sizeof(_Params)} in ctypes")
-        _lib = lib
-    return _lib
+        _libs[source] = lib
+    return lib
 
 
 # ---------------------------------------------------------------- helpers
@@ -201,6 +228,50 @@ def _operand(x):
     return x, st
 
 
+def _tma_ready(x):
+    """Whether the sm90 kernels' tensor maps read x (B, L, H, D) as it is:
+    last dimension contiguous, base 16-byte aligned, and the stride of
+    every (batch, row, head) dimension longer than 1 a nonzero multiple of
+    16 bytes."""
+    vec = 16 // x.element_size()
+    return (x.stride(3) == 1 and x.data_ptr() % 16 == 0
+            and all(x.stride(i) > 0 and x.stride(i) % vec == 0
+                    for i in range(3) if x.shape[i] > 1))
+
+
+def _tma_strides(x):
+    """(batch, row, head) element strides for a tensor map of x: its own
+    strides, except that a dimension of size 1 whose stride is zero or not
+    a multiple of 16 bytes takes the stride it would have in a contiguous
+    tensor (a map needs a nonzero aligned stride there, and never steps
+    along it).  Computed here, not in the C entry, which only checks."""
+    vec = 16 // x.element_size()
+    _, L, H, D = x.shape
+    return [s if s > 0 and s % vec == 0 else c
+            for s, c in zip(x.stride()[:3], (L * H * D, H * D, D))]
+
+
+def _sm90_route(q, k, v, m4, dtype):
+    """The kernel family for these arguments, decided before any launch:
+    "sm90" for bfloat16 / float16, D 64 or 128, no mask, and q, k, v that
+    the tensor maps read as they are (`_tma_ready`); "sm80" otherwise."""
+    if m4 is not None or dtype not in _SM90_DTYPES:
+        return "sm80"
+    if q.shape[-1] not in _SM90_HEAD_DIMS:
+        return "sm80"
+    return "sm90" if all(_tma_ready(x) for x in (q, k, v)) else "sm80"
+
+
+def _family(q, k, v, m4, impl):
+    """The route, or the family `impl` forces ("sm80" always can; "sm90"
+    only where the route takes it)."""
+    route = _sm90_route(q, k, v, m4, q.dtype)
+    if impl is None or impl == route or impl == "sm80":
+        return impl or route
+    raise ValueError(f"the {impl} flash kernels do not take these "
+                     f"arguments (the route gives {route})")
+
+
 def _check(q, k, v, m4, extra=()):
     dev = q.device
     for name, t in (("k", k), ("v", v)) + tuple(extra):
@@ -257,44 +328,62 @@ def _set(p, name, x, strides):
         setattr(p, f"{name}_{s}", v)
 
 
-def _launch(fn, p, q):
-    lib = _kernel()
+def _launch(source, fn, p, q):
+    lib = _kernel(source)
     rc = getattr(lib, fn)(ctypes.byref(p), _DTYPE_CODES[q.dtype],
                           q.device.index or 0,
                           torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
-        raise RuntimeError(
-            f"{fn} kernel failed: "
-            f"{lib.flash_attention_error_string(rc).decode()} (code {rc})")
+        err = getattr(lib, f"{source}_error_string")(rc).decode()
+        raise RuntimeError(f"{fn} kernel failed: {err} (code {rc})")
+
+
+def _operands(p, impl, named):
+    """Point p at each (name, tensor): as the tensor maps read it (sm90,
+    tensors already `_tma_ready`), or as `_operand` returns it (sm80, which
+    may copy).  Returns the tensors launched on."""
+    out = []
+    for name, x in named:
+        if impl == "sm90":
+            st = _tma_strides(x)
+        else:
+            x, st = _operand(x)
+        _set(p, name, x, st)
+        out.append(x)
+    return out
 
 
 def flash_fwd_cuda(q, k, v, mask=None, is_causal=False, scale=None,
-                   window=None):
-    """Launch the forward kernel -> (o (B, Lq, H, D), lse (B, H, Lq)
-    float32).  CUDA tensors only; raises on what the kernel does not
-    take."""
+                   window=None, *, _impl=None):
+    """Launch a forward kernel -> (o (B, Lq, H, D), lse (B, H, Lq)
+    float32): the family `_sm90_route` picks, or the one `_impl` forces
+    (A/B timing and card tests only).  CUDA tensors only; raises on what
+    the kernel does not take."""
     window = _window(window, is_causal)
     m4 = _normalize_mask(mask)
     _check(q, k, v, m4)
+    impl = _family(q, k, v, m4, _impl)
     B, Lq, H, D = q.shape
     p = _params(q, k, v, m4, is_causal, _scale(scale, D), window)
-    q, sq = _operand(q)
-    k, sk = _operand(k)
-    v, sv = _operand(v)
+    q, k, v = _operands(p, impl, (("q", q), ("k", k), ("v", v)))
     o = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
-    for name, x, st in (("q", q, sq), ("k", k, sk), ("v", v, sv),
-                        ("o", o, _operand(o)[1])):
-        _set(p, name, x, st)
+    _set(p, "o", o, _operand(o)[1])
     p.lse_out = lse.data_ptr()
-    _launch("flash_attention_fwd", p, q)
+    if impl == "sm90":
+        _launch("flash_attention_sm90", "flash_attention_sm90_fwd", p, q)
+        flash_attention.launches_fwd_sm90 += 1
+    else:
+        _launch("flash_attention", "flash_attention_fwd", p, q)
     flash_attention.launches_fwd += 1
     return o, lse
 
 
-def _bwd_params(q, k, v, do, lse, delta, mask, is_causal, scale, window):
-    """Checked launch parameters of a backward kernel, and the tensors
-    they point into (kept alive by the caller until the launch)."""
+def _bwd_params(q, k, v, do, lse, delta, mask, is_causal, scale, window,
+                impl="sm80"):
+    """Checked launch parameters of a backward kernel of family `impl`
+    (None: the route's), the tensors they point into (kept alive by the
+    caller until the launch) and the family."""
     window = _window(window, is_causal)
     m4 = _normalize_mask(mask)
     _check(q, k, v, m4, (("do", do), ("lse", lse), ("delta", delta)))
@@ -307,42 +396,47 @@ def _bwd_params(q, k, v, do, lse, delta, mask, is_causal, scale, window):
         if tuple(t.shape) != (B, H, Lq):
             raise ValueError(f"{name} must be (B, H, Lq) = "
                              f"{(B, H, Lq)}, got {tuple(t.shape)}")
+    impl = _family(q, k, v, m4, impl)
     p = _params(q, k, v, m4, is_causal, _scale(scale, D), window)
-    q, sq = _operand(q)
-    k, sk = _operand(k)
-    v, sv = _operand(v)
-    do, sdo = _operand(do.to(q.dtype))
-    for name, x, st in (("q", q, sq), ("k", k, sk), ("v", v, sv),
-                        ("do", do, sdo)):
-        _set(p, name, x, st)
+    do = do.to(q.dtype)
+    if impl == "sm90" and not _tma_ready(do):
+        do = do.contiguous()
+    q, k, v, do = _operands(p, impl, (("q", q), ("k", k), ("v", v),
+                                      ("do", do)))
     p.lse, p.delta = lse.data_ptr(), delta.data_ptr()
-    return p, (q, k, v, do, lse, delta, m4)
+    return p, (q, k, v, do, lse, delta, m4), impl
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, mask=None, is_causal=False,
                        scale=None, window=None):
     """Launch the dK/dV kernel -> (dk, dv), given lse and delta (B, H, Lq)
     float32.  CUDA tensors only."""
-    p, held = _bwd_params(q, k, v, do, lse, delta, mask, is_causal, scale,
-                          window)
+    p, held, _ = _bwd_params(q, k, v, do, lse, delta, mask, is_causal,
+                             scale, window)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _set(p, "dk", dk, _operand(dk)[1])
     _set(p, "dv", dv, _operand(dv)[1])
-    _launch("flash_attention_bwd_dkv", p, held[0])
+    _launch("flash_attention", "flash_attention_bwd_dkv", p, held[0])
     flash_attention.launches_dkv += 1
     return dk, dv
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, mask=None, is_causal=False,
-                      scale=None, window=None):
-    """Launch the dQ kernel -> dq, given lse and delta (B, H, Lq) float32.
-    CUDA tensors only."""
-    p, held = _bwd_params(q, k, v, do, lse, delta, mask, is_causal, scale,
-                          window)
+                      scale=None, window=None, *, _impl=None):
+    """Launch a dQ kernel -> dq, given lse and delta (B, H, Lq) float32:
+    the family `_sm90_route` picks, or the one `_impl` forces (A/B timing
+    and card tests only).  CUDA tensors only."""
+    p, held, impl = _bwd_params(q, k, v, do, lse, delta, mask, is_causal,
+                                scale, window, _impl)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _set(p, "dq", dq, _operand(dq)[1])
-    _launch("flash_attention_bwd_dq", p, held[0])
+    if impl == "sm90":
+        _launch("flash_attention_sm90", "flash_attention_sm90_bwd_dq", p,
+                held[0])
+        flash_attention.launches_dq_sm90 += 1
+    else:
+        _launch("flash_attention", "flash_attention_bwd_dq", p, held[0])
     flash_attention.launches_dq += 1
     return dq
 
@@ -421,12 +515,15 @@ def flash_attention(q, k, v, mask=None, is_causal=False, scale=None,
 flash_attention.launches_fwd = 0
 flash_attention.launches_dkv = 0
 flash_attention.launches_dq = 0
+flash_attention.launches_fwd_sm90 = 0
+flash_attention.launches_dq_sm90 = 0
 
 
 def flash_block_fwd(q, k, v, is_causal, scale=None):
     """One attention block on (B, L, H, D) shards -> (o (B, Lq, H, D) in
-    the input dtype, lse (B, H, Lq) float32); no autograd (ring attention
-    composes these and writes its own backward)."""
+    the input dtype, lse (B, H, Lq) float32), through the same route as
+    `flash_attention`; no autograd (ring attention composes these and
+    writes its own backward)."""
     with torch.no_grad():
         return _forward(q, k, v, None, bool(is_causal),
                         _scale(scale, q.shape[-1]), 0)

@@ -8,7 +8,10 @@ setup of tests/conftest.py:
 
 On the CPU the `cuda` tests skip; the rest hold the plain versions (what
 the wrappers run for CPU tensors) against float64 dense attention and its
-autograd gradients.  The parity of this op with the JAX package is in
+autograd gradients, and the route that picks a kernel family.  The card
+tests run each case through both families: "sm80" (csrc/flash_attention.cu)
+and "sm90" (csrc/flash_attention_sm90.cu, forward and dQ), forced with the
+wrappers' `_impl`.  The parity of this op with the JAX package is in
 tests/test_torch_flash_attention.py.
 """
 import numpy as np
@@ -170,6 +173,82 @@ def test_check_rejects_what_the_kernels_do_not_take(bad):
         fa._check(q, k, v, fa._normalize_mask(mask))
 
 
+def _fused_qkv(B, L, H, D, dtype):
+    """q, k, v as the views unbind gives of a fused (B, L, 3, H, D)
+    projection."""
+    rng = np.random.default_rng(4)
+    qkv = torch.from_numpy(rng.standard_normal((B, L, 3, H, D)).astype(
+        np.float32)).to(dtype)
+    return qkv.unbind(2)
+
+
+def _route_case(name):
+    """-> (q, k, v, mask) of one route case, on the CPU."""
+    rng = np.random.default_rng(5)
+
+    def t(shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dtype)
+
+    if name == "bf16_d128_causal_fused_qkv":
+        return (*_fused_qkv(2, 64, 4, 128, torch.bfloat16), None)
+    if name == "fp16_d64_gqa_window":
+        return (t((2, 64, 8, 64), torch.float16),
+                t((2, 64, 2, 64), torch.float16),
+                t((2, 64, 2, 64), torch.float16), None)
+    if name == "float32":
+        return (*_fused_qkv(2, 64, 4, 128, torch.float32), None)
+    if name == "additive_mask":
+        q, k, v = _fused_qkv(2, 64, 4, 128, torch.bfloat16)
+        return q, k, v, torch.zeros(2, 1, 64, 64)
+    if name == "d96":
+        return (*_fused_qkv(2, 64, 4, 96, torch.bfloat16), None)
+    if name == "misaligned_view":            # base one element off
+        buf = t((1 + 2 * 64 * 4 * 128,), torch.bfloat16)
+        q = buf[1:].view(2, 64, 4, 128)
+        k, v = _fused_qkv(2, 64, 4, 128, torch.bfloat16)[1:]
+        return q, k, v, None
+    if name == "batch1":
+        return (*_fused_qkv(1, 64, 4, 128, torch.bfloat16), None)
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("name, family", [
+    ("bf16_d128_causal_fused_qkv", "sm90"),
+    ("fp16_d64_gqa_window", "sm90"),
+    ("float32", "sm80"),
+    ("additive_mask", "sm80"),
+    ("d96", "sm80"),
+    ("misaligned_view", "sm80"),
+    ("batch1", "sm90"),
+])
+def test_sm90_route(name, family):
+    q, k, v, mask = _route_case(name)
+    m4 = fa._normalize_mask(mask)
+    assert fa._sm90_route(q, k, v, m4, q.dtype) == family
+    assert fa._family(q, k, v, m4, None) == family
+    assert fa._family(q, k, v, m4, "sm80") == "sm80"
+    if family == "sm80":
+        with pytest.raises(ValueError):
+            fa._family(q, k, v, m4, "sm90")
+        return
+    # the tensor maps take the tensors' own strides: a fused view's row
+    # stride is 3 H D, and a size-1 batch keeps the stride torch gives it
+    for x in (q, k, v):
+        assert fa._tma_strides(x) == list(x.stride()[:3])
+    if name == "bf16_d128_causal_fused_qkv":
+        assert fa._tma_strides(q)[1] == 3 * 4 * 128
+
+
+def test_tma_strides_replace_a_zero_stride_of_a_size1_dim():
+    x = torch.zeros(8, 2, 64, dtype=torch.bfloat16)[None]
+    z = torch.as_strided(torch.zeros(8 * 2 * 64, dtype=torch.bfloat16),
+                         (1, 8, 2, 64), (0, 128, 64, 1))
+    assert fa._tma_strides(x) == [1024, 128, 64]
+    assert fa._tma_strides(z) == [1024, 128, 64]     # 0 -> contiguous
+    assert fa._sm90_route(z, z, z, None, torch.bfloat16) == "sm90"
+
+
 def test_window_must_be_causal_and_not_negative():
     q, k, v, _, _, _ = make_inputs("causal")
     with pytest.raises(ValueError):
@@ -209,25 +288,47 @@ def bwd_error(got, want):
                  / want.float().abs().max().clamp(min=1e-30))
 
 
+def _counts():
+    f = fa.flash_attention
+    return (f.launches_fwd, f.launches_dkv, f.launches_dq,
+            f.launches_fwd_sm90, f.launches_dq_sm90)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("family", ["sm80", "sm90"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_kernels_match_plain_on_card(card, name, dtype):
+def test_kernels_match_plain_on_card(card, name, dtype, family):
+    """Each case through one kernel family.  A case the sm90 kernels do
+    not take (float32, a mask, D other than 64 or 128) must be routed to
+    sm80, and forcing sm90 on it must raise before any launch."""
     q, k, v, do, mask, kw = make_inputs(name, dtype=dtype, device=card)
-    before = fa.flash_attention.launches_fwd
-    o, lse = fa.flash_fwd_cuda(q, k, v, mask, **kw)
+    m4 = fa._normalize_mask(mask)
+    if family == "sm90" and fa._sm90_route(q, k, v, m4, dtype) != "sm90":
+        before = _counts()
+        with pytest.raises(ValueError):
+            fa.flash_fwd_cuda(q, k, v, mask, **kw, _impl="sm90")
+        assert _counts() == before
+        return
+    sm90 = int(family == "sm90")
+    before = _counts()
+    o, lse = fa.flash_fwd_cuda(q, k, v, mask, **kw, _impl=family)
     torch.cuda.synchronize()
-    assert fa.flash_attention.launches_fwd == before + 1
+    assert _counts() == tuple(c + d for c, d in zip(before,
+                                                     (1, 0, 0, sm90, 0)))
     ref_o, ref_lse = fa.flash_fwd_plain(q, k, v, mask, **kw)
     torch.testing.assert_close(o.float(), ref_o.float(), **FWD_TOL[dtype])
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
 
     delta = fa._delta(do, ref_o)
-    got = fa.flash_bwd_cuda(q, k, v, do, ref_lse, delta, mask, **kw)
+    dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, ref_lse, delta, mask, **kw)
+    dq = fa.flash_bwd_dq_cuda(q, k, v, do, ref_lse, delta, mask, **kw,
+                              _impl=family)
     torch.cuda.synchronize()
+    assert fa.flash_attention.launches_dq_sm90 == before[4] + sm90
     want = fa.flash_bwd_plain(q, k, v, do, ref_lse, delta, mask, **kw)
-    for nm, a, b in zip(("dq", "dk", "dv"), got, want):
+    for nm, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert bwd_error(a, b) <= BWD_TOL[dtype], (nm, bwd_error(a, b))
 
@@ -247,16 +348,35 @@ def test_autograd_on_card_launches_each_kernel_once(card):
 
 
 @pytest.mark.cuda
-def test_strided_qkv_views_match_contiguous(card):
+def test_autograd_on_card_takes_the_sm90_forward_and_dq(card):
+    """The training path's arguments (bf16, D 128, causal, views of a fused
+    qkv) launch the sm90 forward and dQ once each, and dK/dV on sm80."""
+    qkv = torch.stack(_fused_qkv(2, 200, 4, 128, torch.bfloat16), 2)
+    qkv = qkv.to(card).requires_grad_()
+    q, k, v = qkv.unbind(2)
+    assert fa._sm90_route(q, k, v, None, q.dtype) == "sm90"
+    do = torch.randn(2, 200, 4, 128, device=card).to(torch.bfloat16)
+    before = _counts()
+    fa.flash_attention(q, k, v, is_causal=True).backward(do)
+    torch.cuda.synchronize()
+    assert _counts() == tuple(c + 1 for c in before)
+    assert qkv.grad is not None and bool(torch.isfinite(qkv.grad).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["sm80", "sm90"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_strided_qkv_views_match_contiguous(card, dtype, family):
     """q, k, v as the views unbind gives of a fused (b, s, 3, H, D)
     projection: read through their strides, no copy."""
     rng = np.random.default_rng(3)
     qkv = torch.from_numpy(rng.standard_normal((2, 77, 3, 4, 64)).astype(
-        np.float32)).to(card, torch.bfloat16)
+        np.float32)).to(card, dtype)
     q, k, v = qkv.unbind(2)
-    o, lse = fa.flash_fwd_cuda(q, k, v, is_causal=True)
+    o, lse = fa.flash_fwd_cuda(q, k, v, is_causal=True, _impl=family)
     o2, lse2 = fa.flash_fwd_cuda(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), is_causal=True)
+                                 v.contiguous(), is_causal=True,
+                                 _impl=family)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
