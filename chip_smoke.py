@@ -10,9 +10,13 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
 1. build         — times the nvcc build (one nvcc per source, in
                    parallel) and prints ptxas's registers, shared memory
                    and spills for each sm90 flash kernel;
-2. kernels       — holds the paged decode kernel against its plain PyTorch
-                   version on the card at the serving path's shapes, with
-                   stated tolerances;
+2. kernels       — holds the paged decode kernel (context split across
+                   blocks) against its plain PyTorch version on the card
+                   at the serving path's shapes and at the split edges
+                   (a row inside one partition, an empty row, a last
+                   partition of one token, GQA groups 1 to 16, bs 1), and
+                   against its one-pass layout (`_splits=1`), with stated
+                   tolerances;
 3. flash_kernels — holds the flash-attention forward (o, lse) and backward
                    (dq, dk, dv, given the same lse and delta) kernels
                    against their plain versions: the training shape in
@@ -20,8 +24,9 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    lengths, GQA, masks, a window, D 64, Lq 1, a fully
                    masked row, the strided q/k/v views of a fused qkv;
                    every case through the route, asserting which family
-                   launched (sm90 forward and dQ for bf16 / fp16 without
-                   a mask), and each sm90 case through sm80 as well;
+                   launched (sm90 forward, dK/dV and dQ for bf16 / fp16
+                   without a mask), and each sm90 case through sm80 as
+                   well;
 4. serve         — GPT-3 1.3B (full width, 24 layers, bf16, random weights
                    from a seed) served by LLMEngine: 16 requests, 32 greedy
                    tokens each; every request must finish, the pool must be
@@ -36,8 +41,8 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    Adafactor(1e-4), TrainStep; 3 warm-up and 10 timed
                    steps (tokens/s, step p50/p99, MFU, peak memory, the
                    loss series); each flash kernel must have launched 24
-                   times a step, the forward and dQ on the sm90 kernels,
-                   and sdpa must have taken its plain path no time; then
+                   times a step, all three on the sm90 kernels, and sdpa
+                   must have taken its plain path no time; then
                    a profile of 2 steps;
 7. train_e2e     — the same width at 2 layers in float32, AdamW, 3 steps:
                    the port on the card (through the kernels) against the
@@ -45,10 +50,12 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    weights and batch: loss series and final parameters
                    (float32 runs the sm80 kernels);
 8. timings       — paged kernel, plain version, library yardstick and the
-                   memory bound at the phase-4 decode shapes;
+                   memory bound at the phase-4 decode shapes; the one-pass
+                   layout and the chosen split in turns (one, split,
+                   split, one), and a sweep of split counts;
 9. flash_timings — the same for each flash kernel at the training shape,
-                   the sm80 and sm90 forward and dQ in turns on the same
-                   inputs (sm80, sm90, sm90, sm80).
+                   the sm80 and sm90 forward, dK/dV and dQ in turns on the
+                   same inputs (sm80, sm90, sm90, sm80).
 
 Each phase prints one JSON line.  Then one {"kernels": [...]} line, the
 card's name and power limit from nvidia-smi, and last
@@ -56,6 +63,7 @@ card's name and power limit from nvidia-smi, and last
 before the last line; without a CUDA device it exits 1 at once.
 """
 import json
+import re
 import subprocess
 import sys
 import time
@@ -113,8 +121,10 @@ def paged_inputs(lens, H, Hkv, D, bs, dtype, seed):
     return q, kp, vp, tables.cuda(), lens_t
 
 
-def compare(pd, args, dtype):
-    out = pd.paged_decode_attention(*args)
+def compare(pd, args, dtype, splits=None):
+    """(max abs error, within TOL) of the paged kernel (split as the
+    wrapper plans it, or `splits` forced) against its plain version."""
+    out = pd.paged_decode_attention(*args, _splits=splits)
     torch.cuda.synchronize()
     ref = pd.paged_decode_attention_plain(*args)
     torch.cuda.synchronize()
@@ -151,9 +161,15 @@ def ptxas_kernels(log):
 SM90_KERNEL_NAMES = {   # (mangled kernel, dtype, D) -> short name
     (kern, dt, d): f"{short}_{dts}_d{d}"
     for kern, short in (("flash_fwd_sm90_kernel", "fwd"),
+                        ("flash_dkv_sm90_kernel", "dkv"),
                         ("flash_dq_sm90_kernel", "dq"))
     for dt, dts in (("13__nv_bfloat16", "bf16"), ("6__half", "fp16"))
     for d in (64, 128)}
+
+
+PAGED_KERNEL = re.compile(r"paged_decode_kernelI(f|13__nv_bfloat16|6__half)"
+                          r"Li(\d+)ELi(\d+)E")
+PAGED_DTYPES = {"f": "fp32", "13__nv_bfloat16": "bf16", "6__half": "fp16"}
 
 
 def phase_build():
@@ -170,19 +186,36 @@ def phase_build():
         for (kern, dt, d), short in SM90_KERNEL_NAMES.items():
             if kern in name and dt in name and f"Li{d}E" in name:
                 sm90[short] = k
+    paged = {}
+    for name, k in kernels.items():
+        m = PAGED_KERNEL.search(name)
+        if m:   # dtype, query heads in registers, vectors a lane
+            paged[f"{PAGED_DTYPES[m[1]]}_g{m[2]}_vpl{m[3]}"] = k
+    # e.g. ptxas's notice that it serialized wgmma for want of registers
+    warnings = sorted({line.strip() for log in logs.values()
+                       for line in log.splitlines()
+                       if "warning" in line.lower()})
     emit({"phase": "build", "seconds": secs, "sources": _build.sources(),
           "compiled": sorted(logs), "kernels_compiled": len(regs),
           "max_registers": max(regs, default=None),
-          "spill_store_bytes": spills, "sm90_kernels": sm90})
+          "spill_store_bytes": spills, "sm90_kernels": sm90,
+          "paged_kernels": paged, "warnings": warnings})
     if logs:
         assert len(sm90) == len(SM90_KERNEL_NAMES), \
             f"ptxas reported {sorted(sm90)} of the sm90 kernels"
 
 
 def phase_kernels():
+    """The paged kernel, split as the wrapper plans it and in its one-pass
+    layout (`_splits=1`), against the plain version: the serving shapes
+    (ragged rows to 1,056 tokens, 5 partitions), then the split edges."""
     from paddle_tpu_torch.ops import paged_decode as pd
     ragged = [1, 16, 17, 33, 100, 255, 256, 257, 500, 640, 777, 800, 900,
               1000, 1024, 1056]
+    # a row inside one partition, an empty row, a last partition of one
+    # token, a row over six partitions
+    part = pd.PARTITION_TOKENS
+    edges = [10, 0, part + 1, 5 * part + 40]
     cases = [  # name, lens, H, Hkv, D, bs, dtype
         ("mha_d128_bf16", ragged, 16, 16, 128, 16, torch.bfloat16),
         ("mha_d128_fp32", ragged, 16, 16, 128, 16, torch.float32),
@@ -190,18 +223,34 @@ def phase_kernels():
         ("gqa_h16_hkv4_bf16", [0] + ragged[1:], 16, 4, 128, 16,
          torch.bfloat16),
         ("d64_bf16", ragged, 16, 16, 64, 16, torch.bfloat16),
+        ("split_edges_g1_bf16", edges, 16, 16, 128, 16, torch.bfloat16),
+        ("split_edges_g2_fp32", edges, 16, 8, 128, 16, torch.float32),
+        ("split_edges_g8_fp16", edges, 16, 2, 128, 16, torch.float16),
+        ("split_edges_g16_bf16", edges, 16, 1, 128, 16, torch.bfloat16),
+        ("split_bs1_g2_fp16", [1, 2 * part + 1, 2 * part + 60], 16, 8, 128,
+         1, torch.float16),
     ]
     results = []
     for i, (name, lens, H, Hkv, D, bs, dtype) in enumerate(cases):
         args = paged_inputs(lens, H, Hkv, D, bs, dtype, seed=100 + i)
+        splits, tokens = pd.split_plan(args[3].shape[1], bs)
         err, ok = compare(pd, args, dtype)
+        again = pd.paged_decode_attention(*args)
+        first = pd.paged_decode_attention(*args)    # counters back at 0
+        err1, ok1 = compare(pd, args, dtype, splits=1)
+        torch.cuda.synchronize()
         rtol, atol = TOL[dtype]
-        results.append({"case": name, "max_abs_err": err, "rtol": rtol,
-                        "atol": atol, "ok": ok})
+        results.append({"case": name, "splits": splits,
+                        "split_tokens": tokens, "max_abs_err": err,
+                        "one_pass_max_abs_err": err1, "rtol": rtol,
+                        "atol": atol,
+                        "repeat_equal": bool(torch.equal(again, first)),
+                        "ok": ok and ok1 and bool(torch.equal(again, first))})
     emit({"phase": "kernels", "kernel": "paged_decode_attention",
-          "cases": results})
+          "partition_tokens": pd.PARTITION_TOKENS, "cases": results})
     failed = [r["case"] for r in results if not r["ok"]]
     assert not failed, f"kernel disagrees with its plain version: {failed}"
+    assert sum(r["splits"] > 1 for r in results) >= 6, results
 
 
 def phase_serve():
@@ -364,16 +413,22 @@ def phase_e2e():
 LAUNCH_COVER_CYCLES = 2_000_000
 
 
-def cuda_ms(fn, flush, iters=50):
+def cuda_ms(fn, flush, iters=50, clean=False):
     """Mean device time of fn() over `iters` launches, CUDA events around
     each launch; the L2 cache is overwritten before every launch, as a
     decode step finds each layer's K/V cold, and the card is kept busy
-    while the host issues the launch (`LAUNCH_COVER_CYCLES`)."""
+    while the host issues the launch (`LAUNCH_COVER_CYCLES`).  The flush
+    writes `flush`, which leaves the L2 full of dirty lines that fn's own
+    reads then write back; with `clean` it reads `flush` instead, so fn
+    finds a cold L2 with nothing to write back."""
     for _ in range(3):
         fn()
     total = 0.0
     for _ in range(iters):
-        flush.zero_()
+        if clean:
+            flush.max()
+        else:
+            flush.zero_()
         torch.cuda._sleep(LAUNCH_COVER_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -409,9 +464,30 @@ def phase_timings(launches, lens):
     qs = q.transpose(1, 2)                                   # [B, H, 1, D]
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
-    kernel_ms = cuda_ms(lambda: pd.paged_decode_attention(*args), flush)
+    def paged(splits):
+        return lambda: pd.paged_decode_attention(*args, _splits=splits)
+
+    M = tables.shape[1]
+    splits, part = pd.split_plan(M, bs)
+    # the one-pass layout and the planned split in turns on the same inputs
+    turns = [(n, cuda_ms(paged(n), flush))
+             for n in (1, splits, splits, 1)]
+    one_pass_ms = sum(t for n, t in turns if n == 1) / 2
+    kernel_ms = sum(t for n, t in turns if n == splits) / 2
+    # the same with a clean cold L2 (a read flush: nothing to write back)
+    clean_turns = [(n, cuda_ms(paged(n), flush, clean=True))
+                   for n in (1, splits, splits, 1)]
+    clean_ms = {n: sum(t for m, t in clean_turns if m == n) / 2
+                for n in (1, splits)}
+    # other partition sizes: forced split counts, with the plan's tokens
+    sweep = [{"splits": pd.split_plan(M, bs, n)[0],
+              "split_tokens": pd.split_plan(M, bs, n)[1],
+              "clean_l2_ms": cuda_ms(paged(n), flush, iters=25, clean=True)}
+             for n in (2, 3, 4, 6, 9)]
     plain_ms = cuda_ms(lambda: pd.paged_decode_attention_plain(*args), flush)
     library_ms = cuda_ms(lambda: sdpa(qs, K, V, attn_mask=mask), flush)
+    library_clean_ms = cuda_ms(lambda: sdpa(qs, K, V, attn_mask=mask), flush,
+                               clean=True)
 
     ctx = sum(lens)
     esize = torch.finfo(dtype).bits // 8
@@ -425,18 +501,29 @@ def phase_timings(launches, lens):
     emit({"phase": "timings", "kernel": "paged_decode_attention",
           "shape": {"B": B, "H": H, "Hkv": Hkv, "D": D, "bs": bs,
                     "dtype": "bfloat16", "context_tokens": ctx,
-                    "table_cols": tables.shape[1]},
+                    "table_cols": M},
+          "splits": splits, "split_tokens": part,
+          "turns_ms": turns, "one_pass_ms": one_pass_ms,
+          "split_speedup": one_pass_ms / kernel_ms,
+          "clean_l2_turns_ms": clean_turns,
+          "clean_l2_ms": clean_ms[splits],
+          "clean_l2_one_pass_ms": clean_ms[1],
+          "library_clean_l2_ms": library_clean_ms, "split_sweep": sweep,
           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
           "library_ms": library_ms, "bytes": bytes_moved, "flops": flops,
           "bound_ms": max(bytes_ms, ops_ms),
-          "achieved_bytes_per_s": bytes_moved / (kernel_ms * 1e-3)})
-    return kernel_record(
+          "achieved_bytes_per_s": bytes_moved / (kernel_ms * 1e-3),
+          "clean_l2_bytes_per_s": bytes_moved / (clean_ms[splits] * 1e-3)})
+    record = kernel_record(
         "paged_decode_attention", "paddle_tpu_torch/csrc/paged_attention.cu",
         "paddle_tpu/ops/pallas/paged_attention.py:41", launches, err, err,
         {"rtol": rtol, "atol": atol, "dtype": "bfloat16"}, kernel_ms,
         plain_ms, bytes_ms, ops_ms, library_ms,
         "torch SDPA on K/V pre-gathered to contiguous [B, H, Lmax, D] with "
         "a boolean length mask")
+    record.update(clean_l2_ms=clean_ms[splits],
+                  library_clean_l2_ms=library_clean_ms)
+    return record
 
 
 def kernel_record(name, source, replaces, launches, max_abs_err, max_err,
@@ -539,7 +626,7 @@ def flash_counts(fa):
     f = fa.flash_attention
     return {"fwd": f.launches_fwd, "dkv": f.launches_dkv,
             "dq": f.launches_dq, "fwd_sm90": f.launches_fwd_sm90,
-            "dq_sm90": f.launches_dq_sm90}
+            "dkv_sm90": f.launches_dkv_sm90, "dq_sm90": f.launches_dq_sm90}
 
 
 def reset_flash_counts(fa):
@@ -560,52 +647,53 @@ def bwd_error(pairs):
 def flash_errors(fa, q, k, v, do, mask, causal, window, families=(None,)):
     """Each kernel against its plain version on the same inputs: for each
     family (None: the route's; "sm80" / "sm90" forced) {"fwd": (max abs,
-    max err, ok), "dq": ..., "lse_max_abs_err": x, "launched": family},
-    plus "dkv" (sm80 only).  The backward kernels get the plain forward's
-    lse and delta; "launched" is the family the launch counters saw."""
+    max err, ok), "dkv": ..., "dq": ..., "lse_max_abs_err": x, "launched":
+    family}.  The backward kernels get the plain forward's lse and delta;
+    "launched" is the family the launch counters saw, one for all three
+    kernels."""
     dtype = q.dtype
     kw = dict(is_causal=causal, window=window)
     ref_o, ref_lse = fa.flash_fwd_plain(q, k, v, mask, **kw)
     delta = fa._delta(do, ref_o)
     ref_dq, ref_dk, ref_dv = fa.flash_bwd_plain(q, k, v, do, ref_lse, delta,
                                                 mask, **kw)
-    dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, ref_lse, delta, mask, **kw)
-    torch.cuda.synchronize()
-    abs_err, rel = bwd_error(((dk, ref_dk), (dv, ref_dv)))
-    out = {"dkv": (abs_err, rel, rel <= FLASH_BWD_TOL[dtype])}
     rtol, atol = FLASH_FWD_TOL[dtype]
     finite = torch.isfinite(ref_lse)
+    out = {}
     for fam in families:
         before = flash_counts(fa)
         o, lse = fa.flash_fwd_cuda(q, k, v, mask, **kw, _impl=fam)
+        dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, ref_lse, delta, mask,
+                                       **kw, _impl=fam)
         dq = fa.flash_bwd_dq_cuda(q, k, v, do, ref_lse, delta, mask, **kw,
                                   _impl=fam)
         torch.cuda.synchronize()
         after = flash_counts(fa)
-        sm90 = (after["fwd_sm90"] - before["fwd_sm90"],
-                after["dq_sm90"] - before["dq_sm90"])
-        assert after["fwd"] - before["fwd"] == 1
-        assert after["dq"] - before["dq"] == 1
-        assert sm90 in ((0, 0), (1, 1)), sm90
+        grew = {n: after[n] - before[n] for n in after}
+        sm90 = (grew["fwd_sm90"], grew["dkv_sm90"], grew["dq_sm90"])
+        assert grew["fwd"] == grew["dkv"] == grew["dq"] == 1, grew
+        assert sm90 in ((0, 0, 0), (1, 1, 1)), sm90
         do_ = (o.float() - ref_o.float()).abs()
         fwd_ok = bool((do_ <= atol + rtol * ref_o.float().abs()).all())
         lse_ok = bool(torch.equal(finite, torch.isfinite(lse))) and bool(
             ((lse - ref_lse).abs()[finite]
              <= 1e-5 + 1e-5 * ref_lse.abs()[finite]).all())
-        abs_err, rel = bwd_error(((dq, ref_dq),))
+        dkv_abs, dkv_rel = bwd_error(((dk, ref_dk), (dv, ref_dv)))
+        dq_abs, dq_rel = bwd_error(((dq, ref_dq),))
         out[fam] = {
             "fwd": (float(do_.max()), float(do_.max()), fwd_ok and lse_ok),
             "lse_max_abs_err": float((lse - ref_lse).abs()[finite].max()),
-            "dq": (abs_err, rel, rel <= FLASH_BWD_TOL[dtype]),
-            "launched": "sm90" if sm90 == (1, 1) else "sm80"}
+            "dkv": (dkv_abs, dkv_rel, dkv_rel <= FLASH_BWD_TOL[dtype]),
+            "dq": (dq_abs, dq_rel, dq_rel <= FLASH_BWD_TOL[dtype]),
+            "launched": "sm90" if sm90 == (1, 1, 1) else "sm80"}
     return out
 
 
 def phase_flash_kernels():
     """Every case through the route, asserting which family launched (the
-    sm90 forward and dQ for bf16 / fp16, D 64 or 128 and no mask; sm80
-    for the rest); each case the route sends to sm90 runs through the
-    sm80 kernels too (`_impl="sm80"`)."""
+    sm90 forward, dK/dV and dQ for bf16 / fp16, D 64 or 128 and no mask;
+    sm80 for the rest); each case the route sends to sm90 runs through
+    the sm80 kernels too (`_impl="sm80"`)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     torch.backends.cuda.matmul.allow_tf32 = False    # full float32 plain
     torch.backends.cudnn.allow_tf32 = False
@@ -622,23 +710,24 @@ def phase_flash_kernels():
         err = flash_errors(fa, q, k, v, do, mask, causal, window, fams)
         rec = {"case": name, "dtype": str(dtype).split(".")[1],
                "shape": [B, Lq, Lk, H, Hkv, D], "causal": causal,
-               "window": window, "mask": kind, "route": route,
-               "dkv_max_abs_err": err["dkv"][0],
-               "dkv_max_err": err["dkv"][1], "ok": err["dkv"][2]}
+               "window": window, "mask": kind, "route": route, "ok": True}
         for fam in fams:
             e = err[fam]
             assert e["launched"] == (fam or route), (name, fam, e)
             tag = fam or route
             rec.update({f"{tag}_fwd_max_abs_err": e["fwd"][0],
                         f"{tag}_lse_max_abs_err": e["lse_max_abs_err"],
+                        f"{tag}_dkv_max_abs_err": e["dkv"][0],
+                        f"{tag}_dkv_max_err": e["dkv"][1],
                         f"{tag}_dq_max_abs_err": e["dq"][0],
                         f"{tag}_dq_max_err": e["dq"][1]})
-            rec["ok"] = rec["ok"] and e["fwd"][2] and e["dq"][2]
+            rec["ok"] = (rec["ok"] and e["fwd"][2] and e["dkv"][2]
+                         and e["dq"][2])
         results.append(rec)
         del q, k, v, do, mask
     emit({"phase": "flash_kernels",
           "kernels": ["flash_fwd", "flash_dkv", "flash_dq",
-                      "flash_fwd_sm90", "flash_dq_sm90"],
+                      "flash_fwd_sm90", "flash_dkv_sm90", "flash_dq_sm90"],
           "fwd_tol": {str(d).split(".")[1]: t
                       for d, t in FLASH_FWD_TOL.items()},
           "bwd_tol": {str(d).split(".")[1]: t
@@ -719,8 +808,8 @@ def phase_train(steps=10, warmup=3, batch=4, seq=1024):
     want = cfg.num_layers * (warmup + steps)
     assert launches == (want,) * 3, \
         f"flash launches {launches}, want {want} each"
-    assert counts["fwd_sm90"] == counts["dq_sm90"] == want, \
-        f"sm90 launches {counts}, want {want} of the forward and of dQ"
+    assert counts["fwd_sm90"] == counts["dkv_sm90"] == counts["dq_sm90"] \
+        == want, f"sm90 launches {counts}, want {want} of each kernel"
     assert plain_calls == 0, f"sdpa took its plain path {plain_calls} times"
     phase_train_profile(step, ids, labels, p50)
     del step, opt, model
@@ -750,7 +839,8 @@ def phase_train_profile(step, ids, labels, step_p50_s, steps=2):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     flash = {k: sum(us for name, us in by_name.items()
                     if f"flash_{k}_kernel" in name) / steps / 1e3
-             for k in ("fwd", "fwd_sm90", "dkv", "dq", "dq_sm90")}
+             for k in ("fwd", "fwd_sm90", "dkv", "dkv_sm90", "dq",
+                       "dq_sm90")}
     busy_ms = busy / steps / 1e3
     gemm = sum(us for name, us in by_name.items()
                if any(tag in name.lower() for tag in GEMM_TAGS))
@@ -808,7 +898,7 @@ def phase_train_e2e(steps=3, batch=2, seq=128):
     counts = flash_counts(fa)
     # float32: the sm80 kernels, 2 layers a step
     assert counts == {"fwd": steps * 2, "dkv": steps * 2, "dq": steps * 2,
-                      "fwd_sm90": 0, "dq_sm90": 0}, counts
+                      "fwd_sm90": 0, "dkv_sm90": 0, "dq_sm90": 0}, counts
     assert ops.sdpa.plain_calls == 0
     t0 = time.perf_counter()
     cpu_losses = train(cpu, "cpu")
@@ -841,16 +931,16 @@ def phase_flash_timings(train, train_e2e):
     """Each flash kernel at the training shape (bf16, causal): its time
     with the L2 flushed, its plain version's, PyTorch's fused attention as
     the yardstick, and the least time the card could take.  The sm80 and
-    sm90 forward (and dQ) are timed on the same inputs in turns: sm80,
-    sm90, sm90, sm80.  `train` and `train_e2e` are the launch counts of
+    sm90 forward, dK/dV and dQ are timed on the same inputs in turns:
+    sm80, sm90, sm90, sm80.  `train` and `train_e2e` are the launch counts of
     those phases; each kernel's `launches` is their sum."""
     from paddle_tpu_torch.ops import flash_attention as fa
     B, L, H, D = (FLASH_SHAPE[k] for k in ("B", "L", "H", "D"))
     dtype = torch.bfloat16
     q, k, v, do, _ = flash_inputs(B, L, L, H, H, D, None, dtype, seed=9)
     err = flash_errors(fa, q, k, v, do, None, True, 0, ("sm80", "sm90"))
-    assert err["dkv"][2] and all(err[f][n][2] for f in ("sm80", "sm90")
-                                 for n in ("fwd", "dq")), err
+    assert all(err[f][n][2] for f in ("sm80", "sm90")
+               for n in ("fwd", "dkv", "dq")), err
     o, lse = fa.flash_fwd_cuda(q, k, v, is_causal=True)
     delta = fa._delta(do, o)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
@@ -859,19 +949,21 @@ def phase_flash_timings(train, train_e2e):
     def fwd(impl):
         return lambda: fa.flash_fwd_cuda(q, k, v, **kw, _impl=impl)
 
+    def dkv(impl):
+        return lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw,
+                                             _impl=impl)
+
     def dq(impl):
         return lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw,
                                             _impl=impl)
 
     turns = {}
-    for name, fn in (("fwd", fwd), ("dq", dq)):
+    for name, fn in (("fwd", fwd), ("dkv", dkv), ("dq", dq)):
         turns[name] = [(impl, cuda_ms(fn(impl), flush, iters=25))
                        for impl in ("sm80", "sm90", "sm90", "sm80")]
     ms = {f"{name}{'' if impl == 'sm80' else '_sm90'}":
           sum(t for i, t in turns[name] if i == impl) / 2
-          for name in ("fwd", "dq") for impl in ("sm80", "sm90")}
-    ms["dkv"] = cuda_ms(lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
-                                                      **kw), flush)
+          for name in ("fwd", "dkv", "dq") for impl in ("sm80", "sm90")}
     plain_fwd_ms = cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, **kw), flush,
                            iters=10)
     plain_bwd_ms = cuda_ms(lambda: fa.flash_bwd_plain(q, k, v, do, lse,
@@ -902,8 +994,10 @@ def phase_flash_timings(train, train_e2e):
     rec = {"phase": "flash_timings", "shape": dict(FLASH_SHAPE, dtype="bf16",
                                                    causal=True),
            "turns_ms": turns,
-           "sm90_speedup": {n: ms[n] / ms[f"{n}_sm90"] for n in ("fwd", "dq")},
-           "dkv_plus_dq_ms": ms["dkv"] + ms["dq_sm90"]}
+           "sm90_speedup": {n: ms[n] / ms[f"{n}_sm90"]
+                            for n in ("fwd", "dkv", "dq")},
+           "dkv_plus_dq_ms": ms["dkv_sm90"] + ms["dq_sm90"],
+           "library_bwd_ms": lib_bwd_ms}
     lib_bwd = "torch SDPA backward (dq, dk and dv together), is_causal"
     entries = []
     for kname, base, source, line, lib in (
@@ -913,6 +1007,7 @@ def phase_flash_timings(train, train_e2e):
             ("dq", "dq", "flash_attention.cu", 312, lib_bwd),
             ("fwd_sm90", "fwd", "flash_attention_sm90.cu", 84,
              "torch SDPA forward, is_causal, on [B, H, L, D]"),
+            ("dkv_sm90", "dkv", "flash_attention_sm90.cu", 262, lib_bwd),
             ("dq_sm90", "dq", "flash_attention_sm90.cu", 312, lib_bwd)):
         nbytes, flops = costs[base]
         kernel_ms = ms[kname]
@@ -924,14 +1019,13 @@ def phase_flash_timings(train, train_e2e):
                       "library_ms": library_ms, "bytes": nbytes,
                       "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
                       "achieved_tflops": flops / (kernel_ms * 1e-3) / 1e12}
-        e = err["dkv"] if base == "dkv" else \
-            err["sm90" if kname.endswith("_sm90") else "sm80"][base]
+        e = err["sm90" if kname.endswith("_sm90") else "sm80"][base]
         tol = ({"rtol": FLASH_FWD_TOL[dtype][0],
                 "atol": FLASH_FWD_TOL[dtype][1], "dtype": "bfloat16"}
                if base == "fwd" else
                {"max_err_over_max_abs": FLASH_BWD_TOL[dtype],
                 "dtype": "bfloat16"})
-        if kname.endswith("_sm90") or base == "dkv":
+        if kname.endswith("_sm90"):
             n = train[kname] + train_e2e[kname]
         else:   # sm80 launches: all launches less the sm90 ones
             n = sum(c[base] - c[f"{base}_sm90"] for c in (train, train_e2e))

@@ -1,10 +1,12 @@
-// Flash attention for Hopper (sm_90a): the forward and the dQ kernel of
-// the backward, redesigned around TMA, wgmma and warp specialisation, on
-// (B, L, H, D) tensors in bfloat16 or float16 with D 64 or 128.
+// Flash attention for Hopper (sm_90a): the forward and both kernels of the
+// backward (dK/dV, dQ), redesigned around TMA, wgmma and warp
+// specialisation, on (B, L, H, D) tensors in bfloat16 or float16 with D 64
+// or 128.
 //
 // Replaces, for the shapes it takes, the Pallas TPU kernels of
 // paddle_tpu/ops/pallas/flash_attention.py
 //   _fwd_kernel (:84, via _fwd :183)  -> flash_fwd_sm90_kernel
+//   _dkv_kernel (:262, via _bwd :358) -> flash_dkv_sm90_kernel
 //   _dq_kernel  (:312, via _bwd :358) -> flash_dq_sm90_kernel
 // with the semantics of flash_attention.cu (bottom-right causal, a sliding
 // window with causal, GQA, ragged lengths; a row that sees nothing gives
@@ -13,20 +15,33 @@
 //
 // Bound, at the GPT training shape (B 4, L 1024, H 16, D 128, causal,
 // bf16): the forward moves ~67 MB for ~17 GFLOP and is bound by bytes
-// (0.0201 ms at 3.35 TB/s); dQ does three products (~26 GFLOP) and is
-// bound by operations (0.0261 ms at 989 TFLOP/s).
+// (0.0201 ms at 3.35 TB/s); dK/dV does four products (~34 GFLOP) and dQ
+// three (~26 GFLOP), both bound by operations (0.0348 and 0.0261 ms at
+// 989 TFLOP/s).
 //
-// Design: both kernels are q-stationary and share one mainloop.
-//  * A block owns 128 query rows of one (batch, head): two consumer
-//    warpgroups of 64 rows each and a producer warpgroup whose one thread
-//    only issues TMA loads; setmaxnreg moves registers from the producer
-//    (24) to the consumers (240).
-//  * Q (and dO for dQ) are loaded once.  K and V tiles of BC keys stream
-//    through a ring of STAGES stages with full / empty mbarriers, so the
-//    producer runs ahead of the products.  The forward takes BC 128 in 2
-//    stages (fewer, wider wgmmas; S and O are 64 floats a thread each;
-//    161 KB of shared memory at D 128); dQ takes BC 64 in 3 stages, since
-//    S, dP and the dQ accumulator live together (32 + 32 + 64 floats).
+// Design: three kernels on one mainloop shape.
+//  * A block has two consumer warpgroups of 64 rows each and a producer
+//    warpgroup whose first warp only feeds shared memory; setmaxnreg moves
+//    registers from the producer (24) to the consumers (240).
+//  * The forward and dQ are q-stationary: a block owns 128 query rows of
+//    one (batch, head).  Q (and dO for dQ) are loaded once; K and V tiles
+//    of BC keys stream through a ring of STAGES stages with full / empty
+//    mbarriers, so the producer runs ahead of the products.  The forward
+//    takes BC 128 in 2 stages (fewer, wider wgmmas; S and O are 64 floats
+//    a thread each; 161 KB of shared memory at D 128); dQ takes BC 64 in 3
+//    stages, since S, dP and the dQ accumulator live together (32 + 32 +
+//    64 floats).
+//  * dK/dV is kv-stationary: a block owns 128 keys of one (batch, kv head);
+//    K and V are loaded once and stay resident, and Q, dO, lse and delta
+//    tiles of 64 query rows stream through a 3-stage ring (163 KB of
+//    shared memory at D 128).  The GQA group is folded into the loop (the
+//    block walks g query heads x the query tiles that see its keys, as
+//    _dkv_kernel's grid folds it into its last axis), so dK and dV are
+//    written once, with no atomics: the result is deterministic.  lse and delta belong to the accumulator's columns,
+//    so the producer warp's lanes copy them per stage into shared memory
+//    (rows past Lq as 0) and arrive on the stage's full barrier beside the
+//    TMA bytes.  dK and dV take 64 + 64 floats a thread at D 128, S^T and
+//    dP^T 32 + 32.
 //  * Tensor maps are rank 4 (D, H, L, B) with byte strides, built on the
 //    host in the C entry, so the q/k/v views of a fused qkv projection
 //    need no copy; rows past Lq or Lk come back zero-filled from TMA.
@@ -43,15 +58,23 @@
 //    lse log2(e)) and dS = P (dP - delta) in registers; dS, rounded to the
 //    input dtype, is the register A operand of dQ += dS K with K MN-major
 //    from the stage already in shared memory; the scale is applied once,
-//    in the epilogue.  These are the roundings of the flash_attention.cu
-//    kernels.
-//  * Key tiles wholly visible to a warpgroup run with no per-element
-//    test; the edge tiles (causal diagonal, the window's left edge, the
-//    ragged Lk tail) test each element.  Causal and window are runtime
+//    in the epilogue.
+//  * dK/dV: S^T = K Q^T and dP^T = V dO^T from shared memory (both
+//    K-major along D); P^T and dS^T in registers; dV += P^T dO and dK +=
+//    dS^T Q with P^T and dS^T, rounded to the input dtype, as the register
+//    A operand and dO and Q MN-major from the stage; the scale once, in
+//    the epilogue.  P and dS round where the flash_attention.cu kernels
+//    round them, so both families err alike against the plain version.
+//  * Tiles wholly visible to a warpgroup run with no per-element test; the
+//    edge tiles (causal diagonal, the window's edge, the ragged Lq / Lk
+//    tails) test each element, and a dK/dV warpgroup skips a query tile
+//    that sees none of its keys.  Causal and window are runtime
 //    arguments, tested once per tile.
-//  * The grid is (H, B, q tiles) with the q tiles in reverse order, so
-//    the longest causal blocks start first and short ones fill the tail.
-//    cudaFuncSetAttribute runs once per kernel and device.
+//  * Under causal masking the longest blocks start first: the forward and
+//    dQ grids (H, B, q tiles) take the q tiles in reverse order, the dK/dV
+//    grid (Hkv, B, key tiles) the key tiles in order (the left ones see
+//    the most rows).  cudaFuncSetAttribute runs once per kernel and
+//    device.
 //
 // Not taken (the wrapper routes these to flash_attention.cu before any
 // launch): an additive or bool mask, float32, D other than 64 or 128, and
@@ -558,14 +581,16 @@ struct Smem {
   }
 };
 
-// barriers: full[s] completes when the producer's K and V bytes of stage s
-// have landed; empty[s] when every consumer warp is done with stage s
+// barriers: full[s] completes when the producer's bytes of stage s have
+// landed (and, for dK/dV, its lanes' lse and delta stores are done);
+// empty[s] when every consumer warp is done with stage s
 template <class S, int STAGES>
-__device__ __forceinline__ void init_barriers(const S& sm) {
+__device__ __forceinline__ void init_barriers(const S& sm,
+                                              uint32_t full_arrivals = 1) {
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(sm.full(s), 1);
+      mbar_init(sm.full(s), full_arrivals);
       mbar_init(sm.empty(s), CONSUMER_WARPS);
     }
     mbar_init(sm.qbar(), 1);
@@ -836,6 +861,256 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// ------------------------------------------------------------------ dK/dV
+constexpr int BKV = 128;       // keys per block
+constexpr int BQ = 64;         // query rows per stage
+constexpr int DKV_STAGES = 3;
+constexpr int DKV_FULL_ARRIVALS = 1 + 32;   // the TMA arrival + a warp
+
+// K and V of the block's keys (resident), then per stage Q and dO tiles of
+// BQ rows, then per stage lse * log2(e) and delta of those rows (float32),
+// then full[STAGES], empty[STAGES] and the K/V barrier
+template <int D, int STAGES>
+struct DkvSmem {
+  static constexpr int KV_BYTES = BKV * D * 2;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int VEC_BYTES = 2 * BQ * 4;
+  static constexpr int ROWS = 2 * KV_BYTES + STAGES * 2 * Q_BYTES;
+  static constexpr int BARS = ROWS + STAGES * VEC_BYTES;
+  static constexpr int BYTES = BARS + 8 * (2 * STAGES + 1) + 1024;
+  static_assert(BYTES <= 232448, "over the 227 KB a block can use");
+
+  uint32_t base;
+  unsigned char* ptr;   // base as a generic pointer
+  __device__ __forceinline__ explicit DkvSmem(unsigned char* raw)
+      : base((smem_u32(raw) + 1023u) & ~1023u),
+        ptr(raw + (base - smem_u32(raw))) {}
+  __device__ __forceinline__ uint32_t k() const { return base; }
+  __device__ __forceinline__ uint32_t v() const { return base + KV_BYTES; }
+  __device__ __forceinline__ uint32_t q(int s) const {
+    return base + 2 * KV_BYTES + s * 2 * Q_BYTES;
+  }
+  __device__ __forceinline__ uint32_t dout(int s) const {
+    return q(s) + Q_BYTES;
+  }
+  __device__ __forceinline__ float* lse2(int s) const {
+    return reinterpret_cast<float*>(ptr + ROWS + s * VEC_BYTES);
+  }
+  __device__ __forceinline__ float* delta(int s) const {
+    return lse2(s) + BQ;
+  }
+  __device__ __forceinline__ uint32_t full(int s) const {
+    return base + BARS + 8 * s;
+  }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return base + BARS + 8 * (STAGES + s);
+  }
+  __device__ __forceinline__ uint32_t qbar() const {   // K and V
+    return base + BARS + 16 * STAGES;
+  }
+};
+
+// the query tiles [qb, qe) of BQ rows that see any of the keys k0 ..
+// k0 + BKV - 1: not wholly below the causal diagonal's reach (rows before
+// k0 - off see none of them), not wholly right of the window
+__device__ __forceinline__ void query_range(const FlashParams& p, int k0,
+                                            int& qb, int& qe) {
+  const int off = p.Lk - p.Lq;
+  qb = 0;
+  qe = (p.Lq + BQ - 1) / BQ;
+  if (p.causal) {
+    const int first = k0 - off;          // first row that sees key k0
+    if (first > 0) qb = min(first / BQ, qe);
+    if (p.window) {                      // last row that sees the last key
+      const int last = min(k0 + BKV, p.Lk) - 1 - off + p.window - 1;
+      qe = last < 0 ? 0 : min(qe, last / BQ + 1);
+    }
+  }
+}
+
+// rows q0 .. q0 + BQ - 1 x keys c0 .. c0 + 63: some element visible
+__device__ __forceinline__ bool kv_tile_any(const FlashParams& p, int q0,
+                                            int c0) {
+  if (c0 >= p.Lk) return false;
+  if (!p.causal) return true;
+  const int off = p.Lk - p.Lq;
+  if (c0 > min(q0 + BQ, p.Lq) - 1 + off) return false;
+  return !p.window || min(c0 + 64, p.Lk) - 1 > q0 + off - p.window;
+}
+
+// every element visible
+__device__ __forceinline__ bool kv_tile_full(const FlashParams& p, int q0,
+                                             int c0) {
+  if (q0 + BQ > p.Lq || c0 + 64 > p.Lk) return false;
+  if (!p.causal) return true;
+  const int off = p.Lk - p.Lq;
+  if (c0 + 63 > q0 + off) return false;
+  return !p.window || c0 > q0 + BQ - 1 + off - p.window;
+}
+
+// the producer warp: K and V once (one lane), then per (query head of the
+// group, query tile) the Q and dO tiles by TMA (lane 0) and lse * log2(e)
+// and delta of the tile's rows by the warp's loads, rows past Lq as 0 and a
+// lse that is not finite as 0; every lane arrives on full[s] after its
+// stores, lane 0 once more with the TMA bytes
+template <int D, int STAGES, class S>
+__device__ __forceinline__ void produce_dkv(
+    const S& sm, const FlashParams& p, const CUtensorMap* tq,
+    const CUtensorMap* tdo, const CUtensorMap* tk, const CUtensorMap* tv,
+    int hk, int b, int k0, int qb, int nq, int ntiles) {
+  const int lane = threadIdx.x & 31;
+  const int grp = p.H / p.Hkv;
+  if (lane == 0) {
+    mbar_expect_tx(sm.qbar(), 2 * S::KV_BYTES);
+    tma_tile<D>(sm.k(), tk, sm.qbar(), hk, k0, b, BKV);
+    tma_tile<D>(sm.v(), tv, sm.qbar(), hk, k0, b, BKV);
+  }
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % STAGES;
+    const int h = hk * grp + it / nq;
+    const int q0 = (qb + it % nq) * BQ;
+    mbar_wait(sm.empty(s), ((it / STAGES) & 1) ^ 1);
+    if (lane == 0) {
+      mbar_expect_tx(sm.full(s), 2 * S::Q_BYTES);
+      tma_tile<D>(sm.q(s), tq, sm.full(s), h, q0, b, BQ);
+      tma_tile<D>(sm.dout(s), tdo, sm.full(s), h, q0, b, BQ);
+    }
+    const int64_t at = ((int64_t)b * p.H + h) * p.Lq;
+    float* lse2 = sm.lse2(s);
+    float* delta = sm.delta(s);
+#pragma unroll
+    for (int i = lane; i < BQ; i += 32) {
+      const int row = q0 + i;
+      const float l = row < p.Lq ? p.lse[at + row] : 0.f;
+      lse2[i] = isfinite(l) ? l * LOG2E : 0.f;
+      delta[i] = row < p.Lq ? p.delta[at + row] : 0.f;
+    }
+    mbar_arrive(sm.full(s));
+  }
+}
+
+// grid (Hkv, B, ceil(Lk / 128)): a block owns 128 keys of one kv head and
+// walks the g query heads of its group times the query tiles that see them
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tmQ,
+                          const __grid_constant__ CUtensorMap tmK,
+                          const __grid_constant__ CUtensorMap tmV,
+                          const __grid_constant__ CUtensorMap tmdO,
+                          const FlashParams p) {
+  constexpr int STAGES = DKV_STAGES;
+  using S = DkvSmem<D, STAGES>;
+  extern __shared__ unsigned char smem_raw[];
+  const S sm(smem_raw);
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * BKV;   // the left tiles, which see the most
+                                     // rows under causal, start first
+  int qb, qe;
+  query_range(p, k0, qb, qe);
+  const int nq = max(qe - qb, 0);
+  const int ntiles = nq * (p.H / p.Hkv);
+  init_barriers<S, STAGES>(sm, DKV_FULL_ARRIVALS);
+
+  if (threadIdx.x >= 2 * 128) {
+    reg_dealloc<24>();
+    if (threadIdx.x < 2 * 128 + 32 && ntiles > 0)
+      produce_dkv<D, STAGES>(sm, p, &tmQ, &tmdO, &tmK, &tmV, hk, b, k0, qb,
+                             nq, ntiles);
+  } else {
+    reg_alloc<240>();
+    const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int c0 = k0 + wg * 64;
+    const int keys[2] = {c0 + warp * 16 + g, c0 + warp * 16 + g + 8};
+    const float c = p.scale * LOG2E;
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) {
+      dk[i] = 0.f;
+      dv[i] = 0.f;
+    }
+    if (ntiles > 0) mbar_wait(sm.qbar(), 0);
+    for (int it = 0; it < ntiles; ++it) {
+      const int st = it % STAGES;
+      const int q0 = (qb + it % nq) * BQ;
+      mbar_wait(sm.full(st), (it / STAGES) & 1);
+      if (kv_tile_any(p, q0, c0)) {
+        // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries
+        float s[BQ / 2], dp[BQ / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<T, BQ>::ss(s, desc_k<BKV>(sm.k(), wg * 64, kk),
+                           desc_k<BQ>(sm.q(st), 0, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<T, BQ>::ss(dp, desc_k<BKV>(sm.v(), wg * 64, kk),
+                           desc_k<BQ>(sm.dout(st), 0, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait();
+        fence_regs(s);
+        fence_regs(dp);
+        // P^T = exp2(s c - lse log2 e) in s, dS^T = P^T (dP^T - delta) in
+        // dp; lse and delta belong to the column (the query row)
+        const float* lse2 = sm.lse2(st);
+        const float* delta = sm.delta(st);
+        const bool full = kv_tile_full(p, q0, c0);
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
+          const float2 dl =
+              *reinterpret_cast<const float2*>(delta + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            float pv = ex2(fmaf(s[i], c, -((e & 1) ? l2.y : l2.x)));
+            if (!full) {
+              const int row = acc_col(q0, i, t);
+              if (row >= p.Lq || !visible(p, row, keys[e >> 1])) pv = 0.f;
+            }
+            s[i] = pv;
+            dp[i] = pv * (dp[i] - ((e & 1) ? dl.y : dl.x));
+          }
+        }
+        // dV += P^T dO and dK += dS^T Q: A from registers, dO and Q
+        // [queries, D] MN-major from the stage
+        uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+        to_a_frags<T, BQ>(s, pa);
+        to_a_frags<T, BQ>(dp, da);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          Wgmma<T, D>::rs(dv, pa[kk], desc_mn<BQ>(sm.dout(st), kk));
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          Wgmma<T, D>::rs(dk, da[kk], desc_mn<BQ>(sm.q(st), kk));
+        wgmma_commit();
+        wgmma_wait();
+        fence_regs(dv);
+        fence_regs(dk);
+      }
+      release(sm.empty(st));
+    }
+
+    T* dkg = static_cast<T*>(p.dk) + b * p.dk_sb + hk * p.dk_sh;
+    T* dvg = static_cast<T*>(p.dv) + b * p.dv_sb + hk * p.dv_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = keys[r];
+      if (key >= p.Lk) continue;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dkg + key * p.dk_sl + 8 * j + 2 * t) =
+            pack2<T>(dk[4 * j + 2 * r] * p.scale,
+                     dk[4 * j + 2 * r + 1] * p.scale);
+        *reinterpret_cast<uint32_t*>(dvg + key * p.dv_sl + 8 * j + 2 * t) =
+            pack2<T>(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------------------- host
 PFN_cuTensorMapEncodeTiled_v12000 encoder() {
   static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
@@ -933,6 +1208,31 @@ cudaError_t launch_dq(const FlashParams& p, CUtensorMapDataType dt,
   return cudaGetLastError();
 }
 
+template <typename T, int D>
+cudaError_t launch_dkv(const FlashParams& p, CUtensorMapDataType dt,
+                       int device, cudaStream_t st) {
+  constexpr int BYTES = DkvSmem<D, DKV_STAGES>::BYTES;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!make_map(&tq, p.q, dt, D, p.H, p.Lq, p.B, p.q_sh, p.q_sl, p.q_sb,
+                BQ) ||
+      !make_map(&tk, p.k, dt, D, p.Hkv, p.Lk, p.B, p.k_sh, p.k_sl, p.k_sb,
+                BKV) ||
+      !make_map(&tv, p.v, dt, D, p.Hkv, p.Lk, p.B, p.v_sh, p.v_sl, p.v_sb,
+                BKV) ||
+      !make_map(&tdo, p.dout, dt, D, p.H, p.Lq, p.B, p.do_sh, p.do_sl,
+                p.do_sb, BQ))
+    return cudaErrorInvalidValue;
+  static std::atomic<uint64_t> done{0};
+  cudaError_t err = smem_once(
+      done, device,
+      reinterpret_cast<const void*>(flash_dkv_sm90_kernel<T, D>), BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.Hkv, p.B, (p.Lk + BKV - 1) / BKV);
+  flash_dkv_sm90_kernel<T, D><<<grid, THREADS, BYTES, st>>>(tq, tk, tv, tdo,
+                                                            p);
+  return cudaGetLastError();
+}
+
 // a TMA operand: 16-byte aligned base and nonzero 16-byte (batch, row,
 // head) strides
 bool operand_ok(const void* x, int64_t sb, int64_t sl, int64_t sh) {
@@ -941,15 +1241,28 @@ bool operand_ok(const void* x, int64_t sb, int64_t sl, int64_t sh) {
          sh % 8 == 0;
 }
 
-int run(const FlashParams* p, bool dq, int dtype, int device, void* stream) {
+enum Which { FWD = 0, DQ = 1, DKV = 2 };
+
+template <typename T, int D>
+cudaError_t launch(const FlashParams& p, Which which, CUtensorMapDataType dt,
+                   int device, cudaStream_t st) {
+  if (which == FWD) return launch_fwd<T, D>(p, dt, device, st);
+  if (which == DQ) return launch_dq<T, D>(p, dt, device, st);
+  return launch_dkv<T, D>(p, dt, device, st);
+}
+
+int run(const FlashParams* p, Which which, int dtype, int device,
+        void* stream) {
+  const bool bwd = which != FWD;
   if (p == nullptr || p->B < 1 || p->B > 65535 || p->Hkv < 1 ||
-      p->H < p->Hkv || p->H % p->Hkv || p->Lq < 1 || p->Lk < 1 ||
-      (p->Lq + BR - 1) / BR > 65535 || (p->D != 64 && p->D != 128) ||
+      p->H < p->Hkv || p->H % p->Hkv || p->H > 65535 || p->Lq < 1 ||
+      p->Lk < 1 || (p->Lq + BR - 1) / BR > 65535 ||
+      (p->Lk + BKV - 1) / BKV > 65535 || (p->D != 64 && p->D != 128) ||
       p->window < 0 || p->mask != nullptr || (dtype != 1 && dtype != 2) ||
       !operand_ok(p->q, p->q_sb, p->q_sl, p->q_sh) ||
       !operand_ok(p->k, p->k_sb, p->k_sl, p->k_sh) ||
       !operand_ok(p->v, p->v_sb, p->v_sl, p->v_sh) ||
-      (dq && !operand_ok(p->dout, p->do_sb, p->do_sl, p->do_sh)))
+      (bwd && !operand_ok(p->dout, p->do_sb, p->do_sl, p->do_sh)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -957,20 +1270,12 @@ int run(const FlashParams* p, bool dq, int dtype, int device, void* stream) {
   const CUtensorMapDataType dt = dtype == 1
                                      ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
-  if (dq) {
-    if (dtype == 1)
-      return (int)(p->D == 64
-                       ? launch_dq<__nv_bfloat16, 64>(*p, dt, device, st)
-                       : launch_dq<__nv_bfloat16, 128>(*p, dt, device, st));
-    return (int)(p->D == 64 ? launch_dq<__half, 64>(*p, dt, device, st)
-                            : launch_dq<__half, 128>(*p, dt, device, st));
-  }
   if (dtype == 1)
     return (int)(p->D == 64
-                     ? launch_fwd<__nv_bfloat16, 64>(*p, dt, device, st)
-                     : launch_fwd<__nv_bfloat16, 128>(*p, dt, device, st));
-  return (int)(p->D == 64 ? launch_fwd<__half, 64>(*p, dt, device, st)
-                          : launch_fwd<__half, 128>(*p, dt, device, st));
+                     ? launch<__nv_bfloat16, 64>(*p, which, dt, device, st)
+                     : launch<__nv_bfloat16, 128>(*p, which, dt, device, st));
+  return (int)(p->D == 64 ? launch<__half, 64>(*p, which, dt, device, st)
+                          : launch<__half, 128>(*p, which, dt, device, st));
 }
 
 }  // namespace
@@ -982,12 +1287,17 @@ int run(const FlashParams* p, bool dq, int dtype, int device, void* stream) {
 // take, else the result of cudaGetLastError() right after the launch.
 extern "C" int flash_attention_sm90_fwd(const FlashParams* p, int dtype,
                                         int device, void* stream) {
-  return run(p, false, dtype, device, stream);
+  return run(p, FWD, dtype, device, stream);
 }
 
 extern "C" int flash_attention_sm90_bwd_dq(const FlashParams* p, int dtype,
                                            int device, void* stream) {
-  return run(p, true, dtype, device, stream);
+  return run(p, DQ, dtype, device, stream);
+}
+
+extern "C" int flash_attention_sm90_bwd_dkv(const FlashParams* p, int dtype,
+                                            int device, void* stream) {
+  return run(p, DKV, dtype, device, stream);
 }
 
 extern "C" int flash_attention_sm90_params_size() {

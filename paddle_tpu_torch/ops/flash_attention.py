@@ -13,15 +13,16 @@ they are laid out):
 - "sm80", `csrc/flash_attention.cu`: forward, dK/dV and dQ on mma.sync
   tiles of 64 rows; every dtype (float32 too), masks, D a multiple of 8
   up to 128.
-- "sm90", `csrc/flash_attention_sm90.cu`: forward and dQ redesigned for
-  Hopper (TMA ring, wgmma, warp specialisation); bfloat16 / float16, D 64
-  or 128, no mask, 16-byte aligned operands.
+- "sm90", `csrc/flash_attention_sm90.cu`: forward, dK/dV and dQ
+  redesigned for Hopper (TMA ring, wgmma, warp specialisation; the
+  forward and dQ q-stationary, dK/dV kv-stationary); bfloat16 / float16,
+  D 64 or 128, no mask, 16-byte aligned operands.
 `_sm90_route(q, k, v, m4, dtype)` picks the family from the arguments
-before any launch: "sm90" for what that family takes, "sm80" for the
-rest (and for dK/dV, which has no sm90 kernel yet).  There is no
-fallback on failure: a failed launch raises.  The keyword `_impl` of
-`flash_fwd_cuda` / `flash_bwd_dq_cuda` forces a family, for A/B timing
-and the card tests only.
+before any launch, one family for all three kernels: "sm90" for what
+that family takes, "sm80" for the rest.  There is no fallback on
+failure: a failed launch raises.  The keyword `_impl` of
+`flash_fwd_cuda`, `flash_bwd_dkv_cuda` and `flash_bwd_dq_cuda` forces a
+family, for A/B timing and the card tests only.
 
 Layout is (B, L, H, D), GQA reads kv head h // (H // Hkv) without a
 repeat, causal masking is bottom-right aligned over the real lengths
@@ -30,15 +31,16 @@ repeat, causal masking is bottom-right aligned over the real lengths
 batch, head and row broadcasts kept as strides of 0.  A row that sees
 nothing gives o = 0 and lse = -inf (XLA's softmax gives NaN there).
 The training path (bf16, D 128, causal, no mask, the q/k/v views of a
-fused qkv projection) takes the sm90 forward and dQ.
+fused qkv projection) takes the sm90 forward, dK/dV and dQ.
 
 Tensors on the CPU take the plain versions; tensors on a CUDA device
 launch the kernels or raise — there is no fallback.  The kernels take D a
 multiple of 8 from 8 to 128 (the TPU kernel pads any D to 128 lanes);
 `supports()` is the JAX gate narrowed to that.
 `flash_attention.launches_fwd`, `.launches_dkv` and `.launches_dq` count
-every launch of each kernel, of either family; `.launches_fwd_sm90` and
-`.launches_dq_sm90` count those of the sm90 kernels.
+every launch of each kernel, of either family; `.launches_fwd_sm90`,
+`.launches_dkv_sm90` and `.launches_dq_sm90` count those of the sm90
+kernels.
 """
 from __future__ import annotations
 
@@ -76,6 +78,7 @@ _ENTRIES = {
     "flash_attention": ("flash_attention_fwd", "flash_attention_bwd_dkv",
                         "flash_attention_bwd_dq"),
     "flash_attention_sm90": ("flash_attention_sm90_fwd",
+                             "flash_attention_sm90_bwd_dkv",
                              "flash_attention_sm90_bwd_dq"),
 }
 _libs = {}
@@ -380,7 +383,7 @@ def flash_fwd_cuda(q, k, v, mask=None, is_causal=False, scale=None,
 
 
 def _bwd_params(q, k, v, do, lse, delta, mask, is_causal, scale, window,
-                impl="sm80"):
+                impl=None):
     """Checked launch parameters of a backward kernel of family `impl`
     (None: the route's), the tensors they point into (kept alive by the
     caller until the launch) and the family."""
@@ -408,16 +411,22 @@ def _bwd_params(q, k, v, do, lse, delta, mask, is_causal, scale, window,
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, mask=None, is_causal=False,
-                       scale=None, window=None):
-    """Launch the dK/dV kernel -> (dk, dv), given lse and delta (B, H, Lq)
-    float32.  CUDA tensors only."""
-    p, held, _ = _bwd_params(q, k, v, do, lse, delta, mask, is_causal,
-                             scale, window)
+                       scale=None, window=None, *, _impl=None):
+    """Launch a dK/dV kernel -> (dk, dv), given lse and delta (B, H, Lq)
+    float32: the family `_sm90_route` picks, or the one `_impl` forces
+    (A/B timing and card tests only).  CUDA tensors only."""
+    p, held, impl = _bwd_params(q, k, v, do, lse, delta, mask, is_causal,
+                                scale, window, _impl)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _set(p, "dk", dk, _operand(dk)[1])
     _set(p, "dv", dv, _operand(dv)[1])
-    _launch("flash_attention", "flash_attention_bwd_dkv", p, held[0])
+    if impl == "sm90":
+        _launch("flash_attention_sm90", "flash_attention_sm90_bwd_dkv", p,
+                held[0])
+        flash_attention.launches_dkv_sm90 += 1
+    else:
+        _launch("flash_attention", "flash_attention_bwd_dkv", p, held[0])
     flash_attention.launches_dkv += 1
     return dk, dv
 
@@ -516,6 +525,7 @@ flash_attention.launches_fwd = 0
 flash_attention.launches_dkv = 0
 flash_attention.launches_dq = 0
 flash_attention.launches_fwd_sm90 = 0
+flash_attention.launches_dkv_sm90 = 0
 flash_attention.launches_dq_sm90 = 0
 
 

@@ -10,9 +10,21 @@ Unlike the TPU kernel (D % 128 == 0 and bs % 8 == 0 only), the CUDA
 kernel takes any block size, D a multiple of 8 from 8 to 256, H a
 multiple of Hkv, and float32, bfloat16 or float16.
 
+The kernel splits each row's context across blocks ("flash-decoding") and
+merges the partial softmax states in the same launch.  `split_plan` picks
+the split count from the table's width alone (`PARTITION_TOKENS` tokens a
+partition, a multiple of the block size), never from `lens`, which lives
+on the card: reading it would cost a device-to-host sync per call.  The
+wrapper keeps one float32 workspace and one zeroed int32 arrival counter
+per (row, kv head) per device, grown when a call needs more; launches
+that share them must run in stream order (the engine's do).
+
 `paged_decode_attention` runs the plain version only for tensors on the
 CPU.  On a CUDA tensor it launches the kernel or raises; it never falls
 back.  `paged_decode_attention.launches` counts the kernel's launches.
+The keyword `_splits` forces a split count (`_splits=1`: one block walks
+each row's whole context, the one-pass layout), for A/B timing and the
+card tests only.
 """
 from __future__ import annotations
 
@@ -23,7 +35,12 @@ import torch
 from . import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# tokens of context a block walks, rounded down to a multiple of the block
+# size; chosen by timing partitions of 128 to 528 tokens and the one-pass
+# layout at the serving shape on the card (PERF.md)
+PARTITION_TOKENS = 512
 _lib = None
+_workspaces = {}    # device index -> (partials float32, arrivals int32)
 
 
 def _kernel():
@@ -31,8 +48,8 @@ def _kernel():
     if _lib is None:
         lib = _build.load("paged_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.paged_decode_attention.argtypes = [p, p, p, p, p, p,
-                                               i, i, i, i, i, i,
+        lib.paged_decode_attention.argtypes = [p, p, p, p, p, p, p, p,
+                                               i, i, i, i, i, i, i, i,
                                                ctypes.c_float, i, i, p]
         lib.paged_decode_attention.restype = i
         lib.paged_attention_error_string.argtypes = [i]
@@ -43,6 +60,38 @@ def _kernel():
 
 def _scale(scale, d):
     return float(scale) if scale is not None else 1.0 / (d ** 0.5)
+
+
+def split_plan(M, bs, splits=None):
+    """(splits, tokens per split) for block tables of M columns of bs
+    tokens.  By default partitions of `PARTITION_TOKENS` rounded down to a
+    multiple of bs (at least one block); `splits` asks for that many
+    partitions instead (fewer if M has fewer columns).  Every partition is
+    a whole number of blocks, and one split covers the whole table.  It
+    reads the table's shape only, never the lengths."""
+    cap = M * bs
+    if splits is None:
+        part = max(1, PARTITION_TOKENS // bs) * bs
+    elif splits < 1:
+        raise ValueError(f"_splits must be >= 1, got {splits}")
+    else:
+        part = -(-M // splits) * bs
+    n = -(-cap // part)
+    return (1, cap) if n == 1 else (n, part)
+
+
+def _workspace(device, B, H, Hkv, D, splits):
+    """The device's partial-state workspace (B * H * splits * (D + 2)
+    float32) and arrival counters (B * Hkv int32, zero between launches),
+    allocated once and grown when a call needs more."""
+    part, arrivals = _workspaces.get(device.index, (None, None))
+    need = B * H * splits * (D + 2)
+    if part is None or part.numel() < need:
+        part = torch.empty(need, dtype=torch.float32, device=device)
+    if arrivals is None or arrivals.numel() < B * Hkv:
+        arrivals = torch.zeros(B * Hkv, dtype=torch.int32, device=device)
+    _workspaces[device.index] = (part, arrivals)
+    return part, arrivals
 
 
 def paged_decode_attention_plain(q, k_pool, v_pool, tables, lens,
@@ -112,11 +161,14 @@ def _check(q, k_pool, v_pool, tables, lens):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def paged_decode_attention(q, k_pool, v_pool, tables, lens, scale=None):
+def paged_decode_attention(q, k_pool, v_pool, tables, lens, scale=None, *,
+                           _splits=None):
     """One-token paged attention.  q: [B, 1, H, D]; pools [N, bs, Hkv, D];
     tables: [B, M] int32 block ids; lens: [B] int32 visible context length
     including the token just written.  Returns [B, 1, H, D] in q's dtype.
-    CPU tensors take the plain version; CUDA tensors the kernel."""
+    CPU tensors take the plain version; CUDA tensors the kernel, with the
+    split count `split_plan` gives (or `_splits`: A/B timing and card tests
+    only)."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, tables, lens,
                                             scale)
@@ -126,12 +178,19 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lens, scale=None):
     _check(q, k_pool, v_pool, tables, lens)
     B, _, H, D = q.shape
     _, bs, Hkv, _ = k_pool.shape
+    M = tables.shape[1]
+    splits, split_tokens = split_plan(M, bs, _splits)
+    part = arrivals = None
+    if splits > 1:
+        part, arrivals = _workspace(q.device, B, H, Hkv, D, splits)
     out = torch.empty_like(q)
     lib = _kernel()
     rc = lib.paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        B, H, Hkv, D, bs, tables.shape[1], _scale(scale, D),
+        None if part is None else part.data_ptr(),
+        None if arrivals is None else arrivals.data_ptr(),
+        B, H, Hkv, D, bs, M, splits, split_tokens, _scale(scale, D),
         _DTYPE_CODES[q.dtype], q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc:

@@ -10,8 +10,8 @@ On the CPU the `cuda` tests skip; the rest hold the plain versions (what
 the wrappers run for CPU tensors) against float64 dense attention and its
 autograd gradients, and the route that picks a kernel family.  The card
 tests run each case through both families: "sm80" (csrc/flash_attention.cu)
-and "sm90" (csrc/flash_attention_sm90.cu, forward and dQ), forced with the
-wrappers' `_impl`.  The parity of this op with the JAX package is in
+and "sm90" (csrc/flash_attention_sm90.cu, forward, dK/dV and dQ), forced
+with the wrappers' `_impl`.  The parity of this op with the JAX package is in
 tests/test_torch_flash_attention.py.
 """
 import numpy as np
@@ -213,21 +213,31 @@ def _route_case(name):
     raise ValueError(name)
 
 
-@pytest.mark.parametrize("name, family", [
-    ("bf16_d128_causal_fused_qkv", "sm90"),
-    ("fp16_d64_gqa_window", "sm90"),
-    ("float32", "sm80"),
-    ("additive_mask", "sm80"),
-    ("d96", "sm80"),
-    ("misaligned_view", "sm80"),
-    ("batch1", "sm90"),
+def _bwd_args(q):
+    """dO, lse and delta for q (B, L, H, D): what a backward launch takes."""
+    B, L, H, _ = q.shape
+    return (torch.ones_like(q), torch.zeros(B, H, L), torch.zeros(B, H, L))
+
+
+# name, the family of the forward and dQ, the family of dK/dV
+@pytest.mark.parametrize("name, family, dkv_family", [
+    ("bf16_d128_causal_fused_qkv", "sm90", "sm90"),
+    ("fp16_d64_gqa_window", "sm90", "sm90"),
+    ("float32", "sm80", "sm80"),
+    ("additive_mask", "sm80", "sm80"),
+    ("d96", "sm80", "sm80"),
+    ("misaligned_view", "sm80", "sm80"),
+    ("batch1", "sm90", "sm90"),
 ])
-def test_sm90_route(name, family):
+def test_sm90_route(name, family, dkv_family):
     q, k, v, mask = _route_case(name)
     m4 = fa._normalize_mask(mask)
     assert fa._sm90_route(q, k, v, m4, q.dtype) == family
     assert fa._family(q, k, v, m4, None) == family
     assert fa._family(q, k, v, m4, "sm80") == "sm80"
+    # a backward launch's parameters take the route too (no launch here)
+    _, _, impl = fa._bwd_params(q, k, v, *_bwd_args(q), mask, True, None, 0)
+    assert impl == dkv_family
     if family == "sm80":
         with pytest.raises(ValueError):
             fa._family(q, k, v, m4, "sm90")
@@ -238,6 +248,23 @@ def test_sm90_route(name, family):
         assert fa._tma_strides(x) == list(x.stride()[:3])
     if name == "bf16_d128_causal_fused_qkv":
         assert fa._tma_strides(q)[1] == 3 * 4 * 128
+
+
+@pytest.mark.parametrize("name", ["float32", "additive_mask", "d96",
+                                  "misaligned_view"])
+def test_dkv_forced_to_sm90_raises_before_any_launch(name):
+    """Forcing the sm90 dK/dV kernel on arguments the route sends to sm80
+    raises ValueError in the wrapper, before a library is loaded or a
+    kernel launched (these tensors are on the CPU, so any launch would
+    fail otherwise)."""
+    q, k, v, mask = _route_case(name)
+    before = (fa.flash_attention.launches_dkv,
+              fa.flash_attention.launches_dkv_sm90)
+    with pytest.raises(ValueError, match="sm90"):
+        fa.flash_bwd_dkv_cuda(q, k, v, *_bwd_args(q), mask, is_causal=True,
+                              _impl="sm90")
+    assert (fa.flash_attention.launches_dkv,
+            fa.flash_attention.launches_dkv_sm90) == before
 
 
 def test_tma_strides_replace_a_zero_stride_of_a_size1_dim():
@@ -291,7 +318,7 @@ def bwd_error(got, want):
 def _counts():
     f = fa.flash_attention
     return (f.launches_fwd, f.launches_dkv, f.launches_dq,
-            f.launches_fwd_sm90, f.launches_dq_sm90)
+            f.launches_fwd_sm90, f.launches_dkv_sm90, f.launches_dq_sm90)
 
 
 @pytest.mark.cuda
@@ -316,17 +343,18 @@ def test_kernels_match_plain_on_card(card, name, dtype, family):
     o, lse = fa.flash_fwd_cuda(q, k, v, mask, **kw, _impl=family)
     torch.cuda.synchronize()
     assert _counts() == tuple(c + d for c, d in zip(before,
-                                                     (1, 0, 0, sm90, 0)))
+                                                     (1, 0, 0, sm90, 0, 0)))
     ref_o, ref_lse = fa.flash_fwd_plain(q, k, v, mask, **kw)
     torch.testing.assert_close(o.float(), ref_o.float(), **FWD_TOL[dtype])
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
 
     delta = fa._delta(do, ref_o)
-    dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, ref_lse, delta, mask, **kw)
+    dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, ref_lse, delta, mask, **kw,
+                                   _impl=family)
     dq = fa.flash_bwd_dq_cuda(q, k, v, do, ref_lse, delta, mask, **kw,
                               _impl=family)
     torch.cuda.synchronize()
-    assert fa.flash_attention.launches_dq_sm90 == before[4] + sm90
+    assert _counts()[4:] == (before[4] + sm90, before[5] + sm90)
     want = fa.flash_bwd_plain(q, k, v, do, ref_lse, delta, mask, **kw)
     for nm, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert a.dtype == b.dtype and a.shape == b.shape
@@ -350,7 +378,7 @@ def test_autograd_on_card_launches_each_kernel_once(card):
 @pytest.mark.cuda
 def test_autograd_on_card_takes_the_sm90_forward_and_dq(card):
     """The training path's arguments (bf16, D 128, causal, views of a fused
-    qkv) launch the sm90 forward and dQ once each, and dK/dV on sm80."""
+    qkv) launch the sm90 forward, dK/dV and dQ once each."""
     qkv = torch.stack(_fused_qkv(2, 200, 4, 128, torch.bfloat16), 2)
     qkv = qkv.to(card).requires_grad_()
     q, k, v = qkv.unbind(2)
@@ -378,6 +406,36 @@ def test_strided_qkv_views_match_contiguous(card, dtype, family):
                                  v.contiguous(), is_causal=True,
                                  _impl=family)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["sm80", "sm90"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("L, H, Hkv", [(77, 4, 4), (300, 8, 2), (130, 4, 1)])
+def test_strided_views_dkv_match_contiguous(card, dtype, family, L, H, Hkv):
+    """dK/dV on the views unbind gives of a fused projection (q of H
+    heads, k and v of Hkv) equals dK/dV on contiguous copies, bit for bit
+    (no atomics: the GQA group is summed in one block in a fixed order),
+    and matches the plain version."""
+    rng = np.random.default_rng(6)
+    fused = torch.from_numpy(rng.standard_normal(
+        (2, L, H + 2 * Hkv, 64)).astype(np.float32)).to(card, dtype)
+    q, k, v = fused.split([H, Hkv, Hkv], dim=2)
+    do = torch.from_numpy(rng.standard_normal((2, L, H, 64)).astype(
+        np.float32)).to(card, dtype)
+    o, lse = fa.flash_fwd_plain(q, k, v, is_causal=True)
+    delta = fa._delta(do, o)
+    dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, is_causal=True,
+                                   _impl=family)
+    dk2, dv2 = fa.flash_bwd_dkv_cuda(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), do, lse, delta,
+                                     is_causal=True, _impl=family)
+    torch.cuda.synchronize()
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    _, want_dk, want_dv = fa.flash_bwd_plain(q, k, v, do, lse, delta,
+                                             is_causal=True)
+    assert bwd_error(dk, want_dk) <= BWD_TOL[dtype]
+    assert bwd_error(dv, want_dv) <= BWD_TOL[dtype]
 
 
 @pytest.mark.cuda

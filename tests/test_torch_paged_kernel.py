@@ -125,6 +125,35 @@ def test_check_rejects_what_the_kernel_does_not_take(bad):
         pa._check(q, kp, vp, tables, lens)
 
 
+# M, bs, _splits -> (splits, tokens per split), with partitions of 512
+@pytest.mark.parametrize("M, bs, splits, want", [
+    (66, 16, None, (3, 512)),     # the serving shape: 1,056 columns' tokens
+    (32, 16, None, (1, 512)),     # one whole partition
+    (4, 16, None, (1, 64)),       # one short partition: the whole table
+    (33, 16, None, (2, 512)),     # one block past a partition
+    (1300, 1, None, (3, 512)),    # bs 1
+    (12, 100, None, (3, 500)),    # bs not a divisor of the partition
+    (500, 600, None, (500, 600)),  # bs above the partition: one block each
+    (66, 16, 1, (1, 1056)),       # _splits=1: the one-pass layout
+    (66, 16, 3, (3, 352)),
+    (5, 16, 99, (5, 16)),         # at most one split per column
+])
+def test_split_plan_from_the_table_width(M, bs, splits, want):
+    """The split count and partition come from the table's shape (M
+    columns of bs tokens) and the partition size, not from the lengths,
+    which live on the card; partitions are whole blocks and cover the
+    table."""
+    got = pa.split_plan(M, bs, splits)
+    assert got == want
+    n, part = got
+    assert part % bs == 0 and n * part >= M * bs > (n - 1) * part
+
+
+def test_split_plan_rejects_zero_splits():
+    with pytest.raises(ValueError):
+        pa.split_plan(4, 16, 0)
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -160,6 +189,49 @@ def test_kernel_matches_plain_on_card(card, name, dtype):
     assert pa.paged_decode_attention.launches == before + 1
     ref = pa.paged_decode_attention_plain(q, kp, vp, tables, lens_t)
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+
+# split edges, each row's context cut into partitions of P tokens:
+# name: (B, H, Hkv, D, bs, M, lens)
+P = pa.PARTITION_TOKENS
+SPLIT_CASES = {
+    # a row inside one partition, an empty row, a last partition of one
+    # token, a row over six partitions
+    "g1_bs16_edges": (4, 4, 4, 128, 16, -(-(5 * P + 40) // 16),
+                      [10, 0, P + 1, 5 * P + 40]),
+    # bs 1: partitions of P blocks; 2 P + 1 = two partitions and one token
+    "g2_bs1": (3, 4, 2, 64, 1, 2 * P + 60, [1, 2 * P + 1, 2 * P + 60]),
+    "g8_bs16": (2, 16, 2, 128, 16, -(-(P + 100) // 16), [P + 100, 33]),
+    "g16_bs16_chunks": (2, 16, 1, 128, 16, -(-(P + 100) // 16),
+                        [P + 100, P + 1]),
+    "d256_bs16": (2, 4, 4, 256, 16, -(-(P + 60) // 16), [P + 60, 0]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+def test_split_kernel_matches_plain_and_one_pass_on_card(card, name, dtype):
+    """The split kernel against the plain version and against the
+    one-pass layout (`_splits=1`), both within TOL; a second call gives
+    the same bits, so the first left its arrival counters at 0."""
+    B, H, Hkv, D, bs, M, lens = SPLIT_CASES[name]
+    assert pa.split_plan(M, bs)[0] > 1
+    q, kp, vp, tables, lens_t = _inputs(B, H, Hkv, D, bs, M, lens,
+                                        dtype=dtype, device=card, seed=3)
+    before = pa.paged_decode_attention.launches
+    out = pa.paged_decode_attention(q, kp, vp, tables, lens_t)
+    again = pa.paged_decode_attention(q, kp, vp, tables, lens_t)
+    one = pa.paged_decode_attention(q, kp, vp, tables, lens_t, _splits=1)
+    torch.cuda.synchronize()
+    assert pa.paged_decode_attention.launches == before + 3
+    ref = pa.paged_decode_attention_plain(q, kp, vp, tables, lens_t)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    torch.testing.assert_close(out.float(), one.float(), **TOL[dtype])
+    assert torch.equal(out, again)
+    empty = [b for b, n in enumerate(lens) if n == 0]
+    assert not out[empty].any()
 
 
 @pytest.mark.cuda
