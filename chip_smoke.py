@@ -14,19 +14,22 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    blocks) against its plain PyTorch version on the card
                    at the serving path's shapes and at the split edges
                    (a row inside one partition, an empty row, a last
-                   partition of one token, GQA groups 1 to 16, bs 1), and
-                   against its one-pass layout (`_splits=1`), with stated
-                   tolerances;
+                   partition of one token, GQA groups 1 to 16 and
+                   Qwen2's 6 and 7, bs 1), and against its one-pass
+                   layout (`_splits=1`), with stated tolerances;
 3. flash_kernels — holds the flash-attention forward (o, lse) and backward
                    (dq, dk, dv, given the same lse and delta) kernels
                    against their plain versions: the training shape in
                    bf16, fp16 and fp32, non-causal, Lq < Lk, ragged
                    lengths, GQA, masks, a window, D 64, Lq 1, a fully
-                   masked row, the strided q/k/v views of a fused qkv;
-                   every case through the route, asserting which family
-                   launched (sm90 forward, dK/dV and dQ for bf16 / fp16
-                   without a mask), and each sm90 case through sm80 as
-                   well;
+                   masked row, the strided q/k/v views of a fused qkv,
+                   and the generation paths' bool masks (a prefill into
+                   a longer buffer, per-row decode and speculative
+                   verify masks, with and without a window band, at GQA
+                   32/8 and 28/4); every case through the route,
+                   asserting which family launched (sm90 forward, dK/dV
+                   and dQ for bf16 / fp16 without a mask), and each sm90
+                   case through sm80 as well;
 4. serve         — GPT-3 1.3B (full width, 24 layers, bf16, random weights
                    from a seed) served by LLMEngine: 16 requests, 32 greedy
                    tokens each; every request must finish, the pool must be
@@ -49,13 +52,36 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    port on the CPU (through the plain versions), same
                    weights and batch: loss series and final parameters
                    (float32 runs the sm80 kernels);
-8. timings       — paged kernel, plain version, library yardstick and the
+8. generate      — Mistral-7B (full width and depth, bf16, random weights
+                   from a seed), batch 4, 512-token prompts, 64 greedy
+                   tokens: `generate(use_jit=True)` (the decode step
+                   captured as a CUDA graph) against the eager loop
+                   (concat caches) and the uncaptured static step, with
+                   tokens/s, step p50/p99, prefill ms, peak memory and a
+                   profile of each; beam search (4 beams, batch 1) and
+                   speculative decoding (k 4, a 2-layer draft); each
+                   path's flash launches by family, sdpa's plain calls,
+                   and each bf16 token against a dense float32 forward
+                   (`MARGIN_TOL`);
+9. serve_llama   — Qwen2-7B (full width and depth, bf16, GQA 28/4) served
+                   by LLMEngine with the serve phase's request mix:
+                   tokens/s, decode step, TTFT, paged launches, and the
+                   served tokens against a dense float32 forward;
+10. generate_e2e — Mistral width at 2 layers, float32, window 64: the
+                   captured `jit_generate`, eager and bucketed
+                   `generate`, speculative greedy and `jit_beam_search`
+                   on the card token for token against the CPU, and the
+                   captured step against the eager loop and the
+                   uncaptured step;
+11. timings      — paged kernel, plain version, library yardstick and the
                    memory bound at the phase-4 decode shapes; the one-pass
                    layout and the chosen split in turns (one, split,
                    split, one), and a sweep of split counts;
-9. flash_timings — the same for each flash kernel at the training shape,
+12. flash_timings — the same for each flash kernel at the training shape,
                    the sm80 and sm90 forward, dK/dV and dQ in turns on the
-                   same inputs (sm80, sm90, sm90, sm80).
+                   same inputs (sm80, sm90, sm90, sm80), and the sm80
+                   forward at the Mistral-7B decode shape against SDPA
+                   with the same mask.
 
 Each phase prints one JSON line.  Then one {"kernels": [...]} line, the
 card's name and power limit from nvidia-smi, and last
@@ -229,6 +255,11 @@ def phase_kernels():
         ("split_edges_g16_bf16", edges, 16, 1, 128, 16, torch.bfloat16),
         ("split_bs1_g2_fp16", [1, 2 * part + 1, 2 * part + 60], 16, 8, 128,
          1, torch.float16),
+        # the GQA groups of Qwen2-1.5B (12 / 2) and Qwen2-7B (28 / 4)
+        ("gqa_g6_bf16", ragged, 12, 2, 128, 16, torch.bfloat16),
+        ("gqa_g7_bf16", ragged, 28, 4, 128, 16, torch.bfloat16),
+        ("split_edges_g6_fp16", edges, 12, 2, 128, 16, torch.float16),
+        ("split_edges_g7_fp32", edges, 28, 4, 128, 16, torch.float32),
     ]
     results = []
     for i, (name, lens, H, Hkv, D, bs, dtype) in enumerate(cases):
@@ -590,6 +621,29 @@ FLASH_CASES = [
      "fused_qkv", torch.bfloat16),
     ("fused_qkv_views_fp16", 4, 1024, 1024, 16, 16, 128, True, 0,
      "fused_qkv", torch.float16),
+    # the generation paths' bool masks (text/decode.py
+    # `_update_prealloc_cache`): a prefill into a longer buffer [1, 1, s,
+    # L], a per-row decode step [b, 1, 1, L], a speculative verify [b, 1,
+    # k + 1, L]; at Mistral's GQA 32 / 8 and Qwen2-7B's 28 / 4, with and
+    # without a window band
+    ("prefill_buffer_gqa4_bf16", 2, 512, 576, 32, 8, 128, False, 0,
+     "prefill_buffer", torch.bfloat16),
+    ("prefill_buffer_window64_gqa4_fp32", 2, 128, 160, 32, 8, 128, False,
+     0, "prefill_buffer_w64", torch.float32),
+    ("decode_rows_gqa4_bf16", 4, 1, 576, 32, 8, 128, False, 0,
+     "decode_rows", torch.bfloat16),
+    ("decode_rows_window64_gqa4_bf16", 4, 1, 576, 32, 8, 128, False, 0,
+     "decode_rows_w64", torch.bfloat16),
+    ("verify_rows_gqa4_bf16", 4, 5, 581, 32, 8, 128, False, 0,
+     "verify_rows", torch.bfloat16),
+    ("verify_rows_window64_gqa4_fp32", 2, 5, 165, 32, 8, 128, False, 0,
+     "verify_rows_w64", torch.float32),
+    ("prefill_buffer_gqa7_bf16", 2, 512, 544, 28, 4, 128, False, 0,
+     "prefill_buffer", torch.bfloat16),
+    ("decode_rows_gqa7_fp16", 4, 1, 544, 28, 4, 128, False, 0,
+     "decode_rows", torch.float16),
+    ("verify_rows_gqa7_bf16", 4, 5, 549, 28, 4, 128, False, 0,
+     "verify_rows", torch.bfloat16),
 ]
 
 
@@ -619,19 +673,56 @@ def flash_inputs(B, Lq, Lk, H, Hkv, D, kind, dtype, seed):
         mask = torch.rand(B, Lq, Lk, generator=g, device="cuda") < 0.7
         mask[:, 3] = False
         mask[1, 77] = False
+    elif kind is not None and kind.split("_w")[0] in (
+            "prefill_buffer", "decode_rows", "verify_rows"):
+        mask = generation_mask(kind, B, Lq, Lk, g)
     return q, k, v, do, mask
 
 
-def flash_counts(fa):
-    f = fa.flash_attention
-    return {"fwd": f.launches_fwd, "dkv": f.launches_dkv,
-            "dq": f.launches_dq, "fwd_sm90": f.launches_fwd_sm90,
-            "dkv_sm90": f.launches_dkv_sm90, "dq_sm90": f.launches_dq_sm90}
+def generation_mask(kind, B, Lq, Lk, g):
+    """The bool masks `_update_prealloc_cache` builds: cols <= pos + row
+    (and > pos + row - W with a window "_w<W>"); "prefill_buffer" at pos
+    0 for every row ([1, 1, Lq, Lk]), "decode_rows" / "verify_rows" at a
+    random pos per row in [Lk / 2, Lk - Lq] ([B, 1, Lq, Lk])."""
+    name, _, w = kind.partition("_w")
+    cols = torch.arange(Lk, device="cuda")
+    if name == "prefill_buffer":
+        pos = torch.zeros(1, dtype=torch.long, device="cuda")
+    else:
+        pos = torch.randint(Lk // 2, Lk - Lq + 1, (B,), generator=g,
+                            device="cuda")
+    rows = (pos[:, None] + torch.arange(Lq, device="cuda"))[:, :, None]
+    mask = cols <= rows
+    if w:
+        mask &= cols > rows - int(w)
+    return mask[:, None]
 
 
-def reset_flash_counts(fa):
-    for name in flash_counts(fa):
-        setattr(fa.flash_attention, f"launches_{name}", 0)
+def zero_counts():
+    """Every kernel launch counter (and sdpa.plain_calls) to 0."""
+    from paddle_tpu_torch import ops
+    ops.add_launch_counts({k: -v for k, v in ops.launch_counts().items()})
+
+
+def read_counts():
+    """The launch counters (`ops.launch_counts()`) once the card has
+    finished."""
+    from paddle_tpu_torch import ops
+    torch.cuda.synchronize()
+    return ops.launch_counts()
+
+
+def flash_part(counts):
+    """The flash kernels' counters of `counts` (as `ops.launch_counts()`
+    names them): {"fwd", "dkv", "dq", "fwd_sm90", "dkv_sm90",
+    "dq_sm90"}."""
+    return {k[len("flash_"):]: v for k, v in counts.items()
+            if k.startswith("flash_")}
+
+
+def flash_counts():
+    from paddle_tpu_torch import ops
+    return flash_part(ops.launch_counts())
 
 
 def bwd_error(pairs):
@@ -661,14 +752,14 @@ def flash_errors(fa, q, k, v, do, mask, causal, window, families=(None,)):
     finite = torch.isfinite(ref_lse)
     out = {}
     for fam in families:
-        before = flash_counts(fa)
+        before = flash_counts()
         o, lse = fa.flash_fwd_cuda(q, k, v, mask, **kw, _impl=fam)
         dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, ref_lse, delta, mask,
                                        **kw, _impl=fam)
         dq = fa.flash_bwd_dq_cuda(q, k, v, do, ref_lse, delta, mask, **kw,
                                   _impl=fam)
         torch.cuda.synchronize()
-        after = flash_counts(fa)
+        after = flash_counts()
         grew = {n: after[n] - before[n] for n in after}
         sm90 = (grew["fwd_sm90"], grew["dkv_sm90"], grew["dq_sm90"])
         assert grew["fwd"] == grew["dkv"] == grew["dq"] == 1, grew
@@ -751,7 +842,6 @@ def train_flops(n_params, cfg, batch, seq):
 def phase_train(steps=10, warmup=3, batch=4, seq=1024):
     from paddle_tpu_torch import amp, ops
     from paddle_tpu_torch.jit import train_step
-    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.optimizer import Adafactor
     from paddle_tpu_torch.text import GPTConfig, GPTForCausalLM, gpt_loss_fn
 
@@ -773,14 +863,13 @@ def phase_train(steps=10, warmup=3, batch=4, seq=1024):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_flash_counts(fa)
-    ops.sdpa.plain_calls = 0
+    zero_counts()
     losses, times = [], []
     for _ in range(warmup + steps):
         t0 = time.perf_counter()
         losses.append(step(ids, labels).item())     # waits for the card
         times.append(time.perf_counter() - t0)
-    counts = flash_counts(fa)
+    counts = flash_counts()
     launches = (counts["fwd"], counts["dkv"], counts["dq"])
     plain_calls = ops.sdpa.plain_calls
 
@@ -866,7 +955,6 @@ def phase_train_e2e(steps=3, batch=2, seq=128):
     The card runs the flash kernels, the CPU the plain versions."""
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.jit import train_step
-    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.text import GPTConfig, GPTForCausalLM, gpt_loss_fn
 
@@ -892,10 +980,9 @@ def phase_train_e2e(steps=3, batch=2, seq=128):
         return [step(ids.to(dev), labels.to(dev)).item()
                 for _ in range(steps)]
 
-    reset_flash_counts(fa)
-    ops.sdpa.plain_calls = 0
+    zero_counts()
     card_losses = train(card, "cuda")
-    counts = flash_counts(fa)
+    counts = flash_counts()
     # float32: the sm80 kernels, 2 layers a step
     assert counts == {"fwd": steps * 2, "dkv": steps * 2, "dq": steps * 2,
                       "fwd_sm90": 0, "dkv_sm90": 0, "dq_sm90": 0}, counts
@@ -927,13 +1014,15 @@ def phase_train_e2e(steps=3, batch=2, seq=128):
     return counts
 
 
-def phase_flash_timings(train, train_e2e):
+def phase_flash_timings(paths):
     """Each flash kernel at the training shape (bf16, causal): its time
     with the L2 flushed, its plain version's, PyTorch's fused attention as
     the yardstick, and the least time the card could take.  The sm80 and
     sm90 forward, dK/dV and dQ are timed on the same inputs in turns:
-    sm80, sm90, sm90, sm80.  `train` and `train_e2e` are the launch counts of
-    those phases; each kernel's `launches` is their sum."""
+    sm80, sm90, sm90, sm80.  The sm80 forward is also timed at the
+    Mistral-7B decode shape, the launch every generated token pays a
+    layer.  `paths` maps each main path's run to its launch counts (as
+    `flash_part` names them); each kernel's `launches` is their sum."""
     from paddle_tpu_torch.ops import flash_attention as fa
     B, L, H, D = (FLASH_SHAPE[k] for k in ("B", "L", "H", "D"))
     dtype = torch.bfloat16
@@ -1026,21 +1115,471 @@ def phase_flash_timings(train, train_e2e):
                {"max_err_over_max_abs": FLASH_BWD_TOL[dtype],
                 "dtype": "bfloat16"})
         if kname.endswith("_sm90"):
-            n = train[kname] + train_e2e[kname]
+            by_path = {p: c[kname] for p, c in paths.items()}
         else:   # sm80 launches: all launches less the sm90 ones
-            n = sum(c[base] - c[f"{base}_sm90"] for c in (train, train_e2e))
+            by_path = {p: c[base] - c[f"{base}_sm90"]
+                       for p, c in paths.items()}
+        n = sum(by_path.values())
         record = kernel_record(
             f"flash_attention_{kname}", f"paddle_tpu_torch/csrc/{source}",
             f"paddle_tpu/ops/pallas/flash_attention.py:{line}", n, e[0],
             e[1], tol, kernel_ms, plain_ms, bytes_ms, ops_ms, library_ms,
             lib)
-        record["launches_path"] = "train (bf16) + train_e2e (fp32)"
+        record["launches_by_path"] = by_path
+        if kname == "fwd":
+            record["decode_shape"] = rec["mistral_decode"] = \
+                decode_shape_timing(fa, flush, by_path)
         entries.append(record)
-        assert n > 0, f"{kname} launched no time on the training paths"
+        assert n > 0, f"{kname} launched no time on the main paths"
     rec["plain_note"] = ("dkv and dq share one plain backward (dq, dk and "
                          "dv together)")
     emit(rec)
     return entries
+
+
+# ------------------------------------------------------------- generation
+# A token a bfloat16 path emits must lie within MARGIN_TOL of its row's
+# largest logit under a dense teacher-forced float32 forward of the same
+# weights (beam search: of the row's beam-th largest logit, since a
+# surviving beam's token ranks within the top `beam` of its row).  These
+# random-weight models' logits have a std of about 1.3 (0.02 x
+# sqrt(hidden) after the final RMSNorm): a wrong mask or kernel puts a
+# token about 2 std below the maximum; bfloat16 rounding moves a logit by
+# hundredths (the record prints the dense bf16-vs-float32 error beside).
+MARGIN_TOL = 0.5
+
+
+def sync_time(fn):
+    """(fn(), wall seconds), the card idle before and finished after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def step_ms(step, n):
+    """Wall ms of each of n calls of step(), each ended by a synchronize:
+    the latency a streamed token waits."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def pct(xs):
+    return {"p50": float(np.percentile(xs, 50)),
+            "p99": float(np.percentile(xs, 99))}
+
+
+def busy(step, n, p50_ms):
+    """torch.profiler over n calls of step(): device busy ms a step (the
+    union of kernel spans) and its share of the unprofiled step p50."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events, by_name, busy_us = device_time(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    busy_ms = busy_us / n / 1e3
+    return {"steps": n, "device_events": events,
+            "device_busy_ms_per_step": busy_ms,
+            "unprofiled_step_p50_ms": p50_ms,
+            "device_busy_share": busy_ms / p50_ms,
+            "profiled_wall_ms_per_step": wall_us / n / 1e3,
+            "device_busy_share_of_profiled_wall": busy_us / wall_us,
+            "flash_ms_per_step": sum(us for name, us in by_name.items()
+                                     if "flash_" in name) / n / 1e3,
+            "top_device_ms_per_step": [[name[:80], us / n / 1e3]
+                                       for name, us in top],
+            "top_host_self_ms_per_step": [[e.key[:60],
+                                           e.self_cpu_time_total / n / 1e3,
+                                           e.count // n] for e in host[:8]]}
+
+
+def lm_logits(model, seqs, start):
+    """Teacher-forced logits [b, n - start, V] (float32) of the tokens of
+    seqs [b, n] from column `start` on, through the dense forward."""
+    with torch.no_grad():
+        h = model.llama(seqs[:, :-1])[:, start - 1:]
+        return model.lm_head(h).float()
+
+
+def margin(logits, seqs, start, beam=1):
+    """The largest (row's beam-th largest logit - chosen token's logit)
+    over the tokens of seqs from column `start` on."""
+    chosen = logits.gather(-1, seqs[:, start:, None])[..., 0]
+    ref = logits.topk(beam, dim=-1).values[..., -1]
+    return float((ref - chosen).max())
+
+
+def phase_generate(batch=4, prompt=512, new=64, beams=4, beam_new=16,
+                   k=4, profile_steps=8):
+    """Mistral-7B (full width and depth, bf16, random weights from seed
+    0): `generate(use_jit=True)` (the captured decode step) against the
+    eager loop (concat caches) and the uncaptured static step, beam search
+    at batch 1, speculative decoding with a 2-layer draft; then every
+    path's tokens against a dense float32 forward of the same weights."""
+    from paddle_tpu_torch.text import LlamaConfig, LlamaForCausalLM, generate
+    from paddle_tpu_torch.text import decode
+
+    cfg = LlamaConfig.from_preset("mistral-7b")
+    model = LlamaForCausalLM(
+        cfg, device="cuda", dtype=torch.bfloat16,
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    # the draft: the target's embedding, first 2 layers, final norm and
+    # head (a layer-skip draft of the same width)
+    dcfg = LlamaConfig.from_preset("mistral-7b", num_layers=2)
+    draft = LlamaForCausalLM(
+        dcfg, device="cuda", dtype=torch.bfloat16,
+        generator=torch.Generator(device="cuda").manual_seed(1))
+    own = draft.state_dict()
+    draft.load_state_dict({n: t for n, t in model.state_dict().items()
+                           if n in own})
+    g = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g,
+                        device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the captured loop: the first call builds the program and captures
+    # the step, the second replays it
+    first, build_s = sync_time(lambda: model.generate(ids,
+                                                      max_new_tokens=new))
+    zero_counts()
+    captured, cap_s = sync_time(lambda: model.generate(ids,
+                                                       max_new_tokens=new))
+    paths = {"captured": read_counts()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    key = (prompt, new, False, 1.0, None, None, None, batch)
+    prog = model._jit_decode_cache[key]
+    assert prog.graph is not None, "the decode step was not captured"
+    mallocs = torch.cuda.memory_stats()["num_device_alloc"]
+    _, prefill_s = sync_time(lambda: prog.prefill(ids))
+    mallocs = torch.cuda.memory_stats()["num_device_alloc"] - mallocs
+    prefill_prof = busy(lambda: prog.prefill(ids), 1, prefill_s * 1e3)
+    cap_steps = step_ms(prog.step, new - 1)
+    prog.prefill(ids)
+    cap_prof = busy(prog.step, profile_steps, pct(cap_steps)["p50"])
+
+    # the eager loop over concat caches
+    zero_counts()
+    eager, eager_s = sync_time(lambda: model.generate(ids, max_new_tokens=new,
+                                                      use_jit=False))
+    paths["eager"] = read_counts()
+    with torch.no_grad():
+        caches = model.new_caches(batch)
+        tok = [model(ids, caches=caches)[:, -1:].argmax(-1)]
+
+        def eager_step():
+            tok[0] = model(tok[0], caches=caches)[:, -1:].argmax(-1)
+
+        eager_steps = step_ms(eager_step, new - 1 - profile_steps)
+        eager_prof = busy(eager_step, profile_steps,
+                          pct(eager_steps)["p50"])
+    del caches
+
+    # the same static step, uncaptured (launched op by op)
+    static, static_s = sync_time(lambda: decode.jit_generate(
+        model, ids, max_new_tokens=new, _capture=False))
+    prog = model._jit_decode_cache[key]
+    prog.prefill(ids)
+    static_steps = step_ms(prog.step, new - 1 - profile_steps)
+    static_prof = busy(prog.step, profile_steps, pct(static_steps)["p50"])
+
+    zero_counts()
+    beam, beam_s = sync_time(lambda: generate(
+        model, ids[:1], max_new_tokens=beam_new, num_beams=beams))
+    paths["beam"] = read_counts()
+    zero_counts()
+    spec, spec_s = sync_time(lambda: generate(
+        model, ids, max_new_tokens=new, draft_model=draft,
+        num_speculative_tokens=k))
+    paths["speculative"] = read_counts()
+    # each round launches the flash forward once a layer in k + 1 draft
+    # steps and in one verify; the prefills once a layer of each model
+    per_round = (k + 1) * dcfg.num_layers + cfg.num_layers
+    rounds = (paths["speculative"]["flash_fwd"]
+              - cfg.num_layers - dcfg.num_layers) / per_round
+    # greedy acceptance of a proposal is the draft's argmax agreeing with
+    # the target's token on the target's own prefix: teacher-forced over
+    # the emitted tokens it is the per-token acceptance probability
+    with torch.no_grad():
+        dl = lm_logits(draft, captured, prompt)
+        agree = float((dl.argmax(-1) == captured[:, prompt:]).float().mean())
+        bf16_logits = lm_logits(model, captured, prompt)
+    model._jit_decode_cache.clear()
+    del draft, prog, dl
+
+    # the margin check in float32 (TF32 off)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model.float()
+    outs = {"captured": captured, "eager": eager, "static": static,
+            "speculative": spec}
+    margins, dense_err = {}, None
+    for name, seqs in outs.items():
+        logits = lm_logits(model, seqs, prompt)
+        margins[name] = margin(logits, seqs, prompt)
+        if name == "captured":
+            dense_err = float((bf16_logits.float() - logits).abs().max())
+            top1 = float((logits.argmax(-1) == seqs[:, prompt:]).float()
+                         .mean())
+        del logits
+    margins["beam"] = margin(lm_logits(model, beam, prompt), beam, prompt,
+                             beam=beams)
+    del bf16_logits
+    families = {name: {"flash_fwd_sm80": c["flash_fwd"] - c["flash_fwd_sm90"],
+                       "flash_fwd_sm90": c["flash_fwd_sm90"],
+                       "sdpa_plain_calls": c["sdpa_plain"]}
+                for name, c in paths.items()}
+    tok = batch * new
+    emit({"phase": "generate", "model": "mistral-7b", "dtype": "bfloat16",
+          "layers": cfg.num_layers, "n_params": n_params, "batch": batch,
+          "prompt_tokens": prompt, "new_tokens": new,
+          "captured": {"tokens_per_s": tok / cap_s, "wall_s": cap_s,
+                       "first_call_s": build_s,
+                       "decode_tokens_per_s": batch * 1e3
+                       / pct(cap_steps)["p50"],
+                       "step_ms": pct(cap_steps), "profile": cap_prof},
+          "eager": {"tokens_per_s": tok / eager_s, "wall_s": eager_s,
+                    "step_ms": pct(eager_steps), "profile": eager_prof},
+          "static_uncaptured": {"tokens_per_s": tok / static_s,
+                                "wall_s": static_s,
+                                "step_ms": pct(static_steps),
+                                "profile": static_prof},
+          "prefill_ms": prefill_s * 1e3, "prefill_cuda_mallocs": mallocs,
+          "prefill_profile": prefill_prof,
+          "peak_memory_gib": peak,
+          "beam": {"num_beams": beams, "batch": 1, "new_tokens": beam_new,
+                   "wall_s": beam_s},
+          "speculative": {"k": k, "draft_layers": dcfg.num_layers,
+                          "wall_s": spec_s, "tokens_per_s": tok / spec_s,
+                          "rounds": rounds,
+                          "tokens_per_round_slowest_row": (new - 1) / rounds,
+                          "draft_agreement": agree},
+          "tokens_equal": {"captured_vs_first_call":
+                           bool(torch.equal(first, captured)),
+                           "captured_vs_static": bool(torch.equal(captured,
+                                                                  static)),
+                           "captured_vs_eager_share": float(
+                               (captured == eager).float().mean()),
+                           "captured_vs_speculative_share": float(
+                               (captured == spec).float().mean())},
+          "launches": paths, "flash_families": families,
+          "margins": margins, "margin_tol": MARGIN_TOL,
+          "dense_bf16_vs_fp32_max_abs": dense_err,
+          "captured_top1_under_fp32": top1})
+    for name, c in paths.items():
+        assert c["sdpa_plain"] == 0, f"{name}: sdpa took its plain path"
+        assert c["flash_fwd"] > 0, f"{name}: no flash launch"
+    # prefill and each of the new - 1 steps: once a layer
+    assert paths["captured"]["flash_fwd"] == new * cfg.num_layers, paths
+    assert paths["eager"]["flash_fwd"] == new * cfg.num_layers, paths
+    assert torch.equal(first, captured)
+    bad = {n: m for n, m in margins.items() if m > MARGIN_TOL}
+    assert not bad, f"tokens below the float32 maximum: {bad}"
+    del model, first, captured, eager, static, spec, beam
+    torch.cuda.empty_cache()
+    return {n: flash_part(c) for n, c in paths.items()}
+
+
+def phase_serve_llama():
+    """Qwen2-7B (full width and depth, bf16, random weights from seed 0)
+    served by LLMEngine with the serve phase's request mix and settings;
+    the served tokens then against a dense float32 forward."""
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.serving import LLMEngine
+    from paddle_tpu_torch.text import Qwen2Config, Qwen2ForCausalLM
+
+    cfg = Qwen2Config.from_preset("qwen2-7b")
+    model = Qwen2ForCausalLM(
+        cfg, device="cuda", dtype=torch.bfloat16,
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    eng = LLMEngine(model, num_blocks=2048, block_size=16, max_running=16,
+                    prefill_chunk=512)
+    rng = np.random.default_rng(0)
+    plens = rng.integers(128, 1025, size=16)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in plens]
+    eng.generate_batch([prompts[0][:64]], max_new_tokens=2)    # warm-up
+
+    reg = metrics.registry()
+    reg.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    reqs = [eng.add_request(p, max_new_tokens=32) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    steps = reg.counter("serving_decode_steps_total").value
+    step_s = reg.histogram("serving_decode_step_seconds")
+    ttft = reg.histogram("serving_ttft_seconds")
+    tokens = sum(len(r.generated) for r in reqs)
+    reasons = sorted({r.finish_reason for r in reqs})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    leaks = eng.close()
+    del eng
+    torch.cuda.empty_cache()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model.float()
+    worst = 0.0
+    for p, r in zip(prompts, reqs):
+        seq = torch.tensor([list(p) + r.generated], device="cuda")
+        worst = max(worst, margin(lm_logits(model, seq, len(p)), seq,
+                                  len(p)))
+    emit({"phase": "serve_llama", "model": "qwen2-7b", "dtype": "bfloat16",
+          "layers": cfg.num_layers, "heads": cfg.num_heads,
+          "kv_heads": cfg.num_kv_heads, "requests": len(reqs),
+          "prompt_tokens": int(plens.sum()), "output_tokens": tokens,
+          "wall_s": wall, "output_tokens_per_s": tokens / wall,
+          "decode_steps": steps,
+          "decode_step_p50_ms": step_s.percentile(50) * 1e3,
+          "decode_step_p99_ms": step_s.percentile(99) * 1e3,
+          "ttft_p50_s": ttft.percentile(50), "ttft_p99_s": ttft.percentile(99),
+          "peak_memory_gib": peak, "launches": counts,
+          "paged_kernel_launches": counts["paged_decode"],
+          "finish_reasons": reasons, "leaks": leaks,
+          "max_margin": worst, "margin_tol": MARGIN_TOL})
+    assert reasons == ["length"], f"requests finished with {reasons}"
+    assert leaks == ([], []), f"pool leaks {leaks}"
+    assert counts["paged_decode"] == steps * cfg.num_layers and steps > 0, \
+        f"{counts['paged_decode']} paged launches for {steps} decode steps"
+    assert counts["sdpa_plain"] == 0, counts
+    assert worst <= MARGIN_TOL, f"a served token sits {worst} below the max"
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_generate_e2e(batch=2, prompt=128, new=32):
+    """Mistral width at 2 layers in float32 with a window of 64 (so that
+    the band bites): each decode path on the card against the same on the
+    CPU, token for token, and the captured step against the eager loop
+    and the uncaptured step on the card."""
+    from paddle_tpu_torch.text import LlamaConfig, LlamaForCausalLM, generate
+    from paddle_tpu_torch.text import decode
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = LlamaConfig.from_preset("mistral-7b", num_layers=2,
+                                  sliding_window=64)
+    dcfg = LlamaConfig.from_preset("mistral-7b", num_layers=1,
+                                   sliding_window=64)
+    card = LlamaForCausalLM(
+        cfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(3))
+    dcard = LlamaForCausalLM(
+        dcfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(4))
+    cpu = LlamaForCausalLM(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    dcpu = LlamaForCausalLM(dcfg, device="cpu")
+    dcpu.load_state_dict(dcard.state_dict())
+    ids = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (batch, prompt)))
+    paths = {
+        "jit_generate": lambda m, d, x: decode.jit_generate(
+            m, x, max_new_tokens=new),
+        "eager": lambda m, d, x: generate(m, x, max_new_tokens=new),
+        "bucketed": lambda m, d, x: generate(m, x, max_new_tokens=new,
+                                             shape_buckets="on"),
+        "speculative": lambda m, d, x: generate(
+            m, x, max_new_tokens=new, draft_model=d,
+            num_speculative_tokens=4),
+        "jit_beam_search": lambda m, d, x: decode.jit_beam_search(
+            m, x, beam_size=3, max_new_tokens=16),
+    }
+    zero_counts()
+    on_card = {n: fn(card, dcard, ids.cuda()).cpu() for n, fn in paths.items()}
+    counts = read_counts()
+    key = (prompt, new, False, 1.0, None, None, None, batch)
+    captured = card._jit_decode_cache[key].graph is not None
+    static = decode.jit_generate(card, ids.cuda(), max_new_tokens=new,
+                                 _capture=False).cpu()
+    t0 = time.perf_counter()
+    on_cpu = {n: fn(cpu, dcpu, ids) for n, fn in paths.items()}
+    cpu_s = time.perf_counter() - t0
+    equal = {n: bool(torch.equal(on_card[n], on_cpu[n])) for n in paths}
+    emit({"phase": "generate_e2e", "model": "mistral-7b width, 2 layers",
+          "dtype": "float32", "sliding_window": 64, "batch": batch,
+          "prompt_tokens": prompt, "new_tokens": new,
+          "card_equals_cpu": equal, "step_captured": captured,
+          "captured_equals_uncaptured": bool(torch.equal(
+              on_card["jit_generate"], static)),
+          "captured_equals_eager": bool(torch.equal(
+              on_card["jit_generate"], on_card["eager"])),
+          "cpu_seconds": cpu_s, "launches": counts})
+    assert captured, "the decode step was not captured"
+    assert all(equal.values()), f"card and CPU tokens differ: {equal}"
+    assert torch.equal(on_card["jit_generate"], static)
+    assert torch.equal(on_card["jit_generate"], on_card["eager"])
+    assert counts["sdpa_plain"] == 0 and counts["flash_fwd"] > 0, counts
+    del card, dcard, cpu, dcpu
+    torch.cuda.empty_cache()
+    return flash_part(counts)
+
+
+def decode_shape_timing(fa, flush, launches):
+    """The flash forward at the Mistral-7B decode shape: Lq 1, a per-row
+    [4, 1, 1, 576] bool mask, GQA 32 / 8, D 128, bf16 (the sm80 kernel,
+    which takes masks); its plain version, PyTorch's SDPA with the same
+    mask as a yardstick, and the bound."""
+    B, Lk, H, Hkv, D = 4, 576, 32, 8, 128
+    dtype = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q = torch.randn(B, 1, H, D, generator=g, device="cuda").to(dtype)
+    k = torch.randn(B, Lk, Hkv, D, generator=g, device="cuda").to(dtype)
+    v = torch.randn(B, Lk, Hkv, D, generator=g, device="cuda").to(dtype)
+    lens = torch.tensor([576, 560, 544, 530], device="cuda")
+    mask = (torch.arange(Lk, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    assert fa._sm90_route(q, k, v, fa._normalize_mask(mask), dtype) == "sm80"
+    o, _ = fa.flash_fwd_cuda(q, k, v, mask)
+    ref, _ = fa.flash_fwd_plain(q, k, v, mask)
+    err = float((o.float() - ref.float()).abs().max())
+    rtol, atol = FLASH_FWD_TOL[dtype]
+    assert bool(((o.float() - ref.float()).abs()
+                 <= atol + rtol * ref.float().abs()).all()), err
+    kernel_ms = cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, mask), flush)
+    plain_ms = cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, mask), flush,
+                       iters=20)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    with torch.no_grad():
+        library_ms = cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask,
+                                          enable_gqa=True), flush)
+    visible = int(lens.sum())
+    nbytes = (q.numel() * 2 + 2 * k.numel() * 2 + mask.numel()
+              + q.numel() * 2 + B * H * 4)   # q, k, v, mask; o, lse
+    flops = 4 * visible * H * D
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS * 1e3
+    return {"shape": {"B": B, "Lq": 1, "Lk": Lk, "H": H, "Hkv": Hkv, "D": D,
+                      "mask": "[4, 1, 1, 576] bool, lens 576/560/544/530",
+                      "dtype": "bfloat16"},
+            "family": "sm80", "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library": "torch SDPA, the same bool mask, enable_gqa",
+            "max_abs_err": err, "bytes": nbytes, "flops": flops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "achieved_bytes_per_s": nbytes / (kernel_ms * 1e-3),
+            "launches": launches}
 
 
 def main():
@@ -1053,10 +1592,15 @@ def main():
     phase_flash_kernels()
     launches, lens = phase_serve()
     phase_e2e()
-    train = phase_train()
-    train_e2e = phase_train_e2e()
-    paged = phase_timings(launches, lens)
-    flash = phase_flash_timings(train, train_e2e)
+    paths = {"train": phase_train(), "train_e2e": phase_train_e2e()}
+    paths.update({f"generate/{name}": counts
+                  for name, counts in phase_generate().items()})
+    serve_llama = phase_serve_llama()
+    paths["generate_e2e"] = phase_generate_e2e()
+    paged = phase_timings(launches + serve_llama["paged_decode"], lens)
+    paged["launches_by_path"] = {"serve": launches,
+                                 "serve_llama": serve_llama["paged_decode"]}
+    flash = phase_flash_timings(paths)
     emit({"kernels": [paged] + flash})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -11,7 +11,10 @@ training step: the flash-attention forward and backward kernels in CUDA
 (`ops.flash_attention`), dropout, attention and cross entropy
 (`nn.functional`), gradient clipping (`nn.clip`), recompute
 (`distributed`), AMP O2 (`amp`), Adam, AdamW and Adafactor
-(`optimizer`), and `TrainStep` (`jit`).
+(`optimizer`), and `TrainStep` (`jit`); and generation with the LLaMA
+family: `text.decode.jit_generate` (the decode step captured as a CUDA
+graph), eager `text.generate`, beam search and speculative decoding, and
+`LlamaForCausalLM` / `Qwen2ForCausalLM` (LLaMA, Mistral, Qwen2).
 """
 from .device import generator, resolve_device, seed
 

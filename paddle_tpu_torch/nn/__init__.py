@@ -1,12 +1,13 @@
 """Layers and functional ops of the port (counterpart: `paddle_tpu/nn`)."""
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from . import functional
 from .clip import ClipGradByGlobalNorm
 
-__all__ = ["ClipGradByGlobalNorm", "Dropout", "functional"]
+__all__ = ["ClipGradByGlobalNorm", "Dropout", "RMSNorm", "functional"]
 
 
 class Dropout(nn.Module):
@@ -22,3 +23,18 @@ class Dropout(nn.Module):
     def forward(self, x):
         return functional.dropout(x, self.p, training=self.training,
                                   generator=self.generator)
+
+
+class RMSNorm(nn.Module):
+    """`functional.rms_norm` with a learned scale (counterpart
+    `paddle_tpu.nn.RMSNorm`, `paddle_tpu/nn/norm.py:36-45`): the weight
+    starts at ones."""
+
+    def __init__(self, hidden_size, epsilon=1e-6, device=None, dtype=None):
+        super().__init__()
+        self.epsilon = float(epsilon)
+        self.weight = nn.Parameter(torch.ones(hidden_size, device=device,
+                                              dtype=dtype))
+
+    def forward(self, x):
+        return functional.rms_norm(x, self.weight, self.epsilon)

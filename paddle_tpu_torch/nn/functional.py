@@ -1,12 +1,13 @@
-"""Functional ops of the training path.
+"""Functional ops of the training path and the LLaMA family.
 
 Counterpart: `paddle_tpu/nn/functional.py` — `dropout` (`:117-129`),
 `scaled_dot_product_attention` (`:400-428`) and `cross_entropy`
 (`:432-454`, over `softmax_ce_k` in `paddle_tpu/ops/nn_kernels.py:415-430`).
 Ported here: what the GPT training step runs — upscale-in-train dropout,
 attention with dropout on its output, and hard-label cross entropy with
-`ignore_index`.  Weighted, soft-label and smoothed cross entropy are not
-ported yet.
+`ignore_index` — and what the LLaMA family adds: `silu` (`:19`) and
+`rms_norm` (`rms_norm_k`, `paddle_tpu/ops/nn_kernels.py:266-272`).
+Weighted, soft-label and smoothed cross entropy are not ported yet.
 
 Randomness goes through an explicit `torch.Generator` (None: PyTorch's
 default generator of the tensor's device).  The JAX package draws from
@@ -50,6 +51,18 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     if dropout_p > 0.0 and training:
         out = dropout(out, dropout_p, training=True, generator=generator)
     return out
+
+
+def silu(x):
+    """x * sigmoid(x) (`jax.nn.silu`), computed in float32 and rounded
+    once to x's dtype, as XLA's fused elementwise ops round."""
+    return F.silu(x)
+
+
+def rms_norm(x, weight=None, epsilon=1e-6):
+    """Root-mean-square norm over the last axis, in the JAX package's
+    rounding order (`ops.nn_kernels.rms_norm`)."""
+    return ops.rms_norm(x, weight, epsilon)
 
 
 def cross_entropy(input, label, ignore_index=-100, reduction="mean"):

@@ -15,8 +15,13 @@ Counterpart: `paddle_tpu/ops/pallas/__init__.py`, which overrides the
   outside the gate runs the plain version, as the JAX package sends it to
   XLA, and adds 1 to `sdpa.plain_calls`.  CPU tensors run the plain
   version.
-* `paged_write` — plain on every device, as in the JAX package (no
-  Pallas kernel there either).
+* `paged_write`, `dyn_update_seq` and `rms_norm` — plain on every
+  device, as in the JAX package (no Pallas kernel there either).
+
+`launch_counts()` reads every kernel launch counter and
+`sdpa.plain_calls` at once; `add_launch_counts` adds a captured CUDA
+graph's launches to them each time the graph replays (the wrappers run
+once, at capture, where they launch nothing).
 
 The kernel module of `sdpa` is `ops/flash_attention.py` (the module, not
 re-exported here under that name, so that the attribute stays the
@@ -28,11 +33,12 @@ import torch
 
 from . import flash_attention as _flash
 from . import nn_kernels
-from .nn_kernels import paged_write
+from .nn_kernels import dyn_update_seq, paged_write, rms_norm
 from .paged_decode import paged_decode_attention
 
-__all__ = ["paged_attention", "paged_decode_attention", "paged_write",
-           "sdpa"]
+__all__ = ["add_launch_counts", "dyn_update_seq", "launch_counts",
+           "paged_attention", "paged_decode_attention", "paged_write",
+           "rms_norm", "sdpa"]
 
 
 def paged_attention(q, k_pool, v_pool, tables, pos, scale=None):
@@ -64,3 +70,30 @@ def sdpa(q, k, v, mask=None, is_causal=False, scale=None,
 
 
 sdpa.plain_calls = 0
+
+
+def _counters():
+    """name -> (object, attribute) of each launch counter."""
+    f = _flash.flash_attention
+    out = {f"flash_{k}": (f, f"launches_{k}") for k in (
+        "fwd", "dkv", "dq", "fwd_sm90", "dkv_sm90", "dq_sm90")}
+    out["paged_decode"] = (paged_decode_attention, "launches")
+    out["sdpa_plain"] = (sdpa, "plain_calls")
+    return out
+
+
+def launch_counts():
+    """{counter: value} of every kernel's launch counter and of
+    `sdpa.plain_calls`."""
+    return {name: getattr(obj, attr)
+            for name, (obj, attr) in _counters().items()}
+
+
+def add_launch_counts(delta, times=1):
+    """Add `times` x `delta` ({counter: n}, as `launch_counts` names them)
+    to the counters: a CUDA graph replay launches the kernels its capture
+    recorded without running the wrappers that count them."""
+    for name, (obj, attr) in _counters().items():
+        n = delta.get(name, 0)
+        if n:
+            setattr(obj, attr, getattr(obj, attr) + n * times)

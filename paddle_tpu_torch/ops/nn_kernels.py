@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the attention ops the serving path uses.
+"""Plain PyTorch versions of the ops the serving and generation paths use.
 
-Counterpart: `paddle_tpu/ops/nn_kernels.py` — `sdpa_k`, `paged_write_k`
-and `paged_attention_k`.  Layouts follow the JAX package: activations are
-(B, L, H, D) and the paged KV pool is [N, bs, Hkv, D].
+Counterpart: `paddle_tpu/ops/nn_kernels.py` — `sdpa_k`, `paged_write_k`,
+`paged_attention_k` and `rms_norm_k` — and `dyn_update_seq_k`
+(`paddle_tpu/ops/kernels.py:459-474`).  Layouts follow the JAX package:
+activations are (B, L, H, D) and the paged KV pool is [N, bs, Hkv, D].
 """
 from __future__ import annotations
 
@@ -86,3 +87,32 @@ def paged_attention(q, k_pool, v_pool, tables, pos, scale=None):
             + torch.arange(s, device=q.device)[None, :, None])
     mask = (cols <= rows)[:, None, :, :]                 # [b, 1, s, M*bs]
     return sdpa(q, K, V, mask=mask, scale=scale)
+
+
+def dyn_update_seq(buf, val, pos):
+    """Write `val` [b, s, ...] into `buf` [b, L, ...] IN PLACE at sequence
+    offset `pos` (axis 1) and return `buf`: `pos` is a 0-d tensor (every
+    row at one offset) or a [b] tensor (per-row offsets).  As
+    `lax.dynamic_update_slice` does, a negative start counts from the end
+    (start + L) and every start is then clamped to [0, L - s], so the
+    write always fits; nothing raises and nothing is read back to the
+    host, so the write can be captured in a CUDA graph."""
+    b, s = val.shape[0], val.shape[1]
+    L = buf.shape[1]
+    start = pos.reshape(-1).long()
+    start = torch.where(start < 0, start + L, start).clamp(0, L - s)
+    start = start.expand(b)
+    idx = start[:, None] + torch.arange(s, device=buf.device)[None, :]
+    idx = idx.reshape((b, s) + (1,) * (val.dim() - 2)).expand(val.shape)
+    return buf.scatter_(1, idx, val.to(buf.dtype))
+
+
+def rms_norm(x, weight=None, eps=1e-6):
+    """RMSNorm in `rms_norm_k`'s rounding order: the mean of squares in
+    float32, rsqrt, a cast back to x's dtype, then the product with the
+    weight in that dtype.  (`torch.nn.functional.rms_norm` multiplies by
+    the weight before it rounds, which differs in bfloat16.)"""
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    out = (xf * torch.rsqrt(ms + eps)).to(x.dtype)
+    return out * weight if weight is not None else out

@@ -18,6 +18,10 @@ What differs from the JAX engine, and why the tokens do not:
 * Left out: the AOT export/load methods and the chaos fault sites
   (ROADMAP.md lists both).
 
+It serves GPT and the LLaMA family (LLaMA, Qwen2; GQA through the paged
+kernel).  As the JAX engine does, it refuses a sliding-window model
+(Mistral) with NotImplementedError: the pool keeps the full context.
+
 Greedy sampling is argmax; sampled mode filters through
 `text.generation.filter_logits` and draws from
 `np.random.default_rng([seed, position])`, so a request's stream does not
@@ -56,7 +60,13 @@ class LLMEngine:
                  prefill_chunk=64, max_model_len=None, dtype=None,
                  shed_queue_depth=None, shed_free_blocks=None,
                  promote_after=4):
+        if getattr(model.cfg, "sliding_window", None):
+            raise NotImplementedError(
+                "sliding_window models cannot serve from the paged pool "
+                "yet (the pool keeps the full context)")
         self.model = model
+        # the decoder under the LM head, which prefill skips
+        self._body = model.gpt if hasattr(model, "gpt") else model.llama
         model.eval()
         self.pool = BlockPool.for_model(model, num_blocks,
                                         block_size=block_size, dtype=dtype)
@@ -300,7 +310,7 @@ class LLMEngine:
                               np.asarray([req.ctx], np.int32))
         with torch.no_grad():
             # the pool writes are the only output: skip the LM head
-            self.model.gpt(tokens, caches=caches)
+            self._body(tokens, caches=caches)
         req.ctx += n
         self._reg.counter("serving_prefill_tokens_total").inc(n)
 

@@ -8,12 +8,14 @@ whose weight is [out, in] where the JAX package keeps [in, out].
 
 Ported here: the no-cache branch of `GPTAttention` (training and dense
 inference, through the flash kernels on the card), the block-paged branch
-the serving engine drives, recompute of the blocks in training
-(`use_recompute`, `:248-258`), train-mode dropout, the pretraining
-criterion (`:327-333`) and `gpt_loss_fn` (`:336-347`, dense only: MoE's
-aux loss comes with the MoE slice).  Tensor parallelism, MoE, ring
-attention and the concat / preallocated decode caches are later slices of
-the port (ROADMAP.md).
+the serving engine drives, the preallocated branch (`:129-135`, the
+jitted decode loops) and the concat branch (`:136-143`, the eager
+`generate`), `GPTModel`'s positions for each (`:222-241`), `new_caches`
+(`:301-316`) and `generate` (`:318-325`), recompute of the blocks in
+training (`use_recompute`, `:248-258`), train-mode dropout, the
+pretraining criterion (`:327-333`) and `gpt_loss_fn` (`:336-347`, dense
+only: MoE's aux loss comes with the MoE slice).  Tensor parallelism,
+MoE and ring attention are later slices of the port (ROADMAP.md).
 
 Dropout draws from explicit generators: `set_dropout_generator` gives
 one `torch.Generator` to every dropout of the model (None: the device's
@@ -31,7 +33,9 @@ from ..device import resolve_device
 from ..distributed.recompute import recompute
 from ..nn import Dropout
 from ..nn import functional as PF
-from .decode import _update_paged_cache
+from .decode import (_update_paged_cache, _update_prealloc_cache,
+                     jit_generate)
+from .generation import generate as _eager_generate
 
 
 class GPTConfig:
@@ -82,12 +86,27 @@ class GPTAttention(nn.Module):
         # [b, s, 3, H, D] then unbind the 3: the JAX package's qkv layout
         qkv = self.qkv_proj(x).view(b, s, 3, self.num_heads, self.head_dim)
         q, k, v = qkv.unbind(2)
-        if cache is not None:
+        if cache is not None and "table" in cache:
             # block-paged pool (serving engine): write this chunk's k/v
             # through the block table, then attend the whole context
             kp, vp = _update_paged_cache(cache, k, v)
             out = ops.paged_attention(q, kp, vp, cache["table"],
                                       cache["pos"])
+        elif cache is not None and "pos" in cache:
+            # preallocated cache (jitted decode): static shapes, write at
+            # the offset, attend under the length mask
+            k, v, mask = _update_prealloc_cache(cache, k, v, s)
+            out = PF.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, dropout_p=0.0,
+                training=self.training)
+        elif cache is not None:
+            # concat cache (eager decode): causal only within the chunk
+            k = torch.cat([cache["k"], k], dim=1)
+            v = torch.cat([cache["v"], v], dim=1)
+            cache["k"], cache["v"] = k, v
+            out = PF.scaled_dot_product_attention(
+                q, k, v, is_causal=s > 1, dropout_p=0.0,
+                training=self.training)
         else:
             # dropout on the attention output in training, as the JAX
             # package applies it
@@ -137,16 +156,19 @@ class GPTModel(nn.Module):
         self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=1e-5, **kw)
 
     def forward(self, input_ids, position_ids=None, caches=None):
-        """Final hidden states [b, s, hidden].  With `caches` (one paged
-        cache dict per layer) row r's tokens sit at positions
-        pos[r] .. pos[r] + s - 1."""
+        """Final hidden states [b, s, hidden].  With paged or preallocated
+        caches the tokens sit at pos .. pos + s - 1 (`pos` 0-d, or [b]
+        per row); with concat caches after the cached length."""
         b, s = input_ids.shape
         if position_ids is None:
             ar = torch.arange(s, device=input_ids.device)
-            if caches is not None:
-                position_ids = caches[0]["pos"].long()[:, None] + ar[None, :]
+            if caches is not None and "pos" in caches[0]:
+                p = caches[0]["pos"].long()
+                position_ids = (p + ar)[None, :] if p.dim() == 0 else \
+                    p[:, None] + ar[None, :]
             else:
-                position_ids = ar[None, :]
+                offset = 0 if caches is None else caches[0]["k"].shape[1]
+                position_ids = (ar + offset)[None, :]
         x = self.drop(self.wte(input_ids) + self.wpe(position_ids))
         for i, block in enumerate(self.h):
             if self.cfg.use_recompute and self.training and caches is None:
@@ -198,6 +220,20 @@ class GPTForCausalLM(nn.Module):
         x = self.gpt(input_ids, position_ids, caches)
         return F.linear(x, self.gpt.wte.weight)
 
+    def new_caches(self, batch_size, dtype=None, max_length=None):
+        """Concat-style caches (eager decode) or, with `max_length`, the
+        preallocated static-shape caches of the jitted decode loops: per
+        layer {"k", "v": [batch, max_length or 0, H, D] zeros} on the
+        model's device, in `dtype` (default: the parameters'), plus a 0-d
+        int32 "pos" when preallocated."""
+        return _new_caches(self, self.cfg.num_heads, batch_size, dtype,
+                           max_length)
+
+    def generate(self, input_ids, max_new_tokens=20, use_jit=True, **kw):
+        """`decode.jit_generate` (the captured decode step) or, with
+        `use_jit=False`, the eager `generation.generate`."""
+        return _generate(self, input_ids, max_new_tokens, use_jit, **kw)
+
 
 class GPTPretrainingCriterion(nn.Module):
     """Token-mean cross entropy; with `loss_mask`, the mean over the
@@ -215,3 +251,26 @@ def gpt_loss_fn(model, input_ids, labels):
     """The pretraining loss TrainStep drives: cross entropy of the logits
     against `labels` (float32, mean over the labels that are not -100)."""
     return PF.cross_entropy(model(input_ids), labels, reduction="mean")
+
+
+def _new_caches(model, kv_heads, batch_size, dtype, max_length):
+    """`new_caches` of a decoder: one cache dict per layer (see
+    `GPTForCausalLM.new_caches`)."""
+    cfg = model.cfg
+    param = next(iter(model.parameters()))
+    shape = (batch_size, 0 if max_length is None else max_length, kv_heads,
+             cfg.hidden_size // cfg.num_heads)
+    kw = dict(dtype=dtype or param.dtype, device=param.device)
+    caches = []
+    for _ in range(cfg.num_layers):
+        c = {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+        if max_length is not None:
+            c["pos"] = torch.zeros((), dtype=torch.int32,
+                                   device=param.device)
+        caches.append(c)
+    return caches
+
+
+def _generate(model, input_ids, max_new_tokens, use_jit, **kw):
+    fn = jit_generate if use_jit else _eager_generate
+    return fn(model, input_ids, max_new_tokens=max_new_tokens, **kw)

@@ -3,9 +3,11 @@
 `load_paddle_tpu_state(model, arrays)` takes the `{name: np.ndarray}`
 that a `paddle_tpu` model's `state_dict()` gives (each value through
 `np.asarray`) and copies it into the port's model of the same
-architecture, name for name.  The JAX package keeps a Linear weight as
-[in, out] (`paddle_tpu/nn/common.py::Linear`); `torch.nn.Linear` keeps
-[out, in], so those weights are transposed on the way.
+architecture (GPT, LLaMA, Mistral, Qwen2), name for name.  The JAX
+package keeps a Linear weight as [in, out] (`paddle_tpu/nn/common.py::
+Linear`); `torch.nn.Linear` keeps [out, in], so those weights (every
+projection and LLaMA's untied `lm_head`) are transposed on the way;
+embeddings, LayerNorm and RMSNorm weights and biases are not.
 
 `load_paddle_tpu_optimizer_state(optimizer, model, state)` does the same
 for the JAX optimizer's per-parameter slots.

@@ -20,7 +20,9 @@ from paddle_tpu_torch.jit import train_step
 from paddle_tpu_torch.ops.flash_attention import flash_attention
 from paddle_tpu_torch.optimizer import Adafactor
 from paddle_tpu_torch.serving import BlockPool
-from paddle_tpu_torch.text import GPTConfig, GPTForCausalLM, gpt_loss_fn
+from paddle_tpu_torch.text import (GPTConfig, GPTForCausalLM, LlamaConfig,
+                                   LlamaForCausalLM, Qwen2Config,
+                                   Qwen2ForCausalLM, gpt_loss_fn)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "paddle_tpu", "paddle"}
@@ -62,7 +64,9 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.ops.flash_attention, paddle_tpu_torch.nn, "
             "paddle_tpu_torch.nn.functional, paddle_tpu_torch.nn.clip, "
             "paddle_tpu_torch.amp, paddle_tpu_torch.optimizer, "
-            "paddle_tpu_torch.jit, paddle_tpu_torch.distributed\n"
+            "paddle_tpu_torch.jit, paddle_tpu_torch.distributed, "
+            "paddle_tpu_torch.text.decode, paddle_tpu_torch.text.generation, "
+            "paddle_tpu_torch.text.llama, paddle_tpu_torch.text.qwen\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "assert not bad, bad\n")
@@ -77,6 +81,12 @@ def test_entry_points_raise_without_a_device(monkeypatch):
                     max_position_embeddings=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GPTForCausalLM(cfg)
+    tiny = dict(vocab_size=16, hidden_size=8, num_layers=1, num_heads=2,
+                num_kv_heads=1, intermediate_size=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LlamaForCausalLM(LlamaConfig(**tiny))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Qwen2ForCausalLM(Qwen2Config(**tiny))
     with pytest.raises(RuntimeError):
         resolve_device()
     with pytest.raises(RuntimeError):

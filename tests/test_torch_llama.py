@@ -1,0 +1,452 @@
+"""The port's LLaMA family (LLaMA, Qwen2, Mistral) against the JAX package,
+on the CPU.
+
+Tiny models are built in the JAX package from a seed and their weights
+carried into the port through `load_paddle_tpu_state`.  Mirrors
+tests/test_decode.py (LLaMA GQA decode), tests/test_qwen_swa.py (Qwen2
+biases, the sliding window biting at a window of 6, the three decode
+paths agreeing under it, speculative decoding under it) and
+tests/test_serving.py::test_engine_parity_llama_gqa on the port: RMSNorm,
+SiLU and rope in float32 and bfloat16, logits of every branch of the
+attention, greedy tokens of every decode loop (token-identical in
+float32), and the serving engine.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import paddle_tpu as pt
+from paddle_tpu.ops.nn_kernels import rms_norm_k
+from paddle_tpu.serving import LLMEngine as JaxEngine
+from paddle_tpu.text import LlamaConfig as JaxLlamaConfig
+from paddle_tpu.text import LlamaForCausalLM as JaxLlama
+from paddle_tpu.text import Qwen2Config as JaxQwen2Config
+from paddle_tpu.text import Qwen2ForCausalLM as JaxQwen2
+from paddle_tpu.text import decode as jax_decode
+from paddle_tpu.text import generation as jax_generation
+from paddle_tpu.text.llama import _rope as jax_rope
+from paddle_tpu_torch import nn as pnn
+from paddle_tpu_torch.nn import functional as PF
+from paddle_tpu_torch.serving import LLMEngine
+from paddle_tpu_torch.text import (LlamaConfig, LlamaForCausalLM,
+                                   Qwen2Config, Qwen2ForCausalLM, Qwen2Model,
+                                   beam_search, generate)
+from paddle_tpu_torch.text import decode
+from paddle_tpu_torch.text.llama import _rope
+from paddle_tpu_torch.weights import load_paddle_tpu_state
+
+LLAMA = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
+             num_kv_heads=2, intermediate_size=64,
+             max_position_embeddings=64)
+QWEN = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
+            num_kv_heads=2, intermediate_size=128, rope_theta=1000000.0,
+            max_position_embeddings=64)
+# Mistral's shape at tiny size, with a window of 6 so that it bites
+MISTRAL = dict(LLAMA, sliding_window=6)
+FAMILIES = {"llama": (JaxLlama, JaxLlamaConfig, LlamaForCausalLM,
+                      LlamaConfig, LLAMA),
+            "qwen2": (JaxQwen2, JaxQwen2Config, Qwen2ForCausalLM,
+                      Qwen2Config, QWEN),
+            "mistral": (JaxLlama, JaxLlamaConfig, LlamaForCausalLM,
+                        LlamaConfig, MISTRAL)}
+# float32 on both sides, matmuls summed in another order
+LOGIT_TOL = dict(rtol=2e-4, atol=2e-5)
+
+
+def _pair(family, seed=0, **over):
+    """A JAX model of `family` from `seed` and the port's model carrying
+    its weights (float32)."""
+    jcls, jcfg, tcls, tcfg, cfg = FAMILIES[family]
+    cfg = dict(cfg, **over)
+    pt.seed(seed)
+    jm = jcls(jcfg(tensor_parallel=False, **cfg))
+    jm.eval()
+    tm = tcls(tcfg(**cfg), device="cpu")
+    load_paddle_tpu_state(tm, {k: np.asarray(v)
+                               for k, v in jm.state_dict().items()})
+    return jm, tm.eval()
+
+
+@pytest.fixture(scope="module", params=sorted(FAMILIES))
+def pair(request):
+    return request.param, _pair(request.param)
+
+
+def _ids(b, n, seed=0, vocab=64):
+    return np.random.RandomState(seed).randint(0, vocab, size=(b, n))
+
+
+def _j(ids):
+    return pt.to_tensor(np.asarray(ids).astype("int64"))
+
+
+def _t(ids):
+    return torch.from_numpy(np.asarray(ids).astype(np.int64))
+
+
+def _np(x):
+    return np.asarray(x.numpy())
+
+
+def _bf16_np(x):
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+# ===================================================================
+# RMSNorm, SiLU, rope
+# ===================================================================
+def test_rms_norm_matches_jax_float32_and_bfloat16():
+    rng = np.random.RandomState(0)
+    x = rng.randn(3, 5, 48).astype(np.float32) * 3
+    w = (1 + 0.1 * rng.randn(48)).astype(np.float32)
+    want = np.asarray(rms_norm_k(jnp.asarray(x), jnp.asarray(w), 1e-6))
+    got = PF.rms_norm(torch.from_numpy(x), torch.from_numpy(w), 1e-6)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    # bfloat16: the same rounding order (float32 statistics, one cast to
+    # bfloat16, then the bfloat16 product with the weight) gives the
+    # same bits, where torch.nn.functional.rms_norm differs
+    jb = rms_norm_k(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16),
+                    1e-6)
+    norm = pnn.RMSNorm(48, 1e-6, dtype=torch.bfloat16)
+    with torch.no_grad():
+        norm.weight.copy_(torch.from_numpy(w))
+        tb = norm(torch.from_numpy(x).bfloat16())
+    assert tb.dtype == torch.bfloat16
+    np.testing.assert_array_equal(tb.float().numpy(), _bf16_np(jb))
+
+
+def test_silu_matches_jax():
+    import jax
+    x = np.linspace(-8, 8, 1001).astype(np.float32)
+    np.testing.assert_allclose(PF.silu(torch.from_numpy(x)).numpy(),
+                               np.asarray(jax.nn.silu(jnp.asarray(x))),
+                               rtol=1e-6, atol=1e-6)
+    # bfloat16: JAX rounds the sigmoid to bfloat16 before the product,
+    # the port rounds once: up to 2 bfloat16 units apart (2**-6 relative)
+    jb = _bf16_np(jax.nn.silu(jnp.asarray(x, jnp.bfloat16)))
+    tb = PF.silu(torch.from_numpy(x).bfloat16()).float().numpy()
+    np.testing.assert_allclose(tb, jb, rtol=2 ** -6, atol=1e-6)
+
+
+@pytest.mark.parametrize("rows", ["shared", "per_row"])
+def test_rope_matches_jax(rows):
+    """Interleaved pairs, float32; in bfloat16 the JAX function returns
+    float32 (bfloat16 q times float32 cos promotes) and the port rounds
+    that to bfloat16: one rounding, 2**-8 relative."""
+    rng = np.random.RandomState(1)
+    q = rng.randn(2, 7, 4, 16).astype(np.float32)
+    k = rng.randn(2, 7, 2, 16).astype(np.float32)
+    pos = (np.arange(7)[None] + (np.array([[3]]) if rows == "shared"
+                                 else np.array([[0], [40]])))
+    jq, jk = jax_rope(jnp.asarray(q), jnp.asarray(k), jnp.asarray(pos),
+                      10000.0)
+    tq, tk = _rope(torch.from_numpy(q), torch.from_numpy(k),
+                   torch.from_numpy(pos), 10000.0)
+    np.testing.assert_allclose(tq.numpy(), np.asarray(jq), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(tk.numpy(), np.asarray(jk), rtol=1e-5,
+                               atol=1e-5)
+    jq, jk = jax_rope(jnp.asarray(q, jnp.bfloat16),
+                      jnp.asarray(k, jnp.bfloat16), jnp.asarray(pos), 10000.0)
+    assert jq.dtype == jnp.float32                 # JAX promotes
+    tq, tk = _rope(torch.from_numpy(q).bfloat16(),
+                   torch.from_numpy(k).bfloat16(), torch.from_numpy(pos),
+                   10000.0)
+    assert tq.dtype == tk.dtype == torch.bfloat16  # the port rounds back
+    for t, j in ((tq, jq), (tk, jk)):
+        np.testing.assert_allclose(t.float().numpy(), np.asarray(j),
+                                   rtol=2 ** -8, atol=1e-5)
+
+
+# ===================================================================
+# configs
+# ===================================================================
+def test_presets_match_jax():
+    for name in LlamaConfig.PRESETS:
+        a = vars(LlamaConfig.from_preset(name))
+        b = vars(JaxLlamaConfig.from_preset(name, tensor_parallel=False))
+        assert a == b, name
+    for name in Qwen2Config.PRESETS:
+        a = vars(Qwen2Config.from_preset(name))
+        b = vars(JaxQwen2Config.from_preset(name, tensor_parallel=False))
+        assert a == b, name
+    assert LlamaConfig.from_preset("mistral-7b").sliding_window == 4096
+    assert Qwen2Config.from_preset("qwen2-7b").attention_bias is True
+
+
+def test_config_validation():
+    with pytest.raises(ValueError, match="context_parallel"):
+        LlamaConfig(sliding_window=8, context_parallel=True)
+    for flag in ("tensor_parallel", "sequence_parallel", "context_parallel"):
+        with pytest.raises(NotImplementedError, match=flag):
+            LlamaConfig(**{flag: True})
+    with pytest.raises(TypeError, match="Qwen2Config"):
+        Qwen2ForCausalLM(LlamaConfig(**LLAMA), device="cpu")
+    assert issubclass(Qwen2Model, torch.nn.Module)
+
+
+def test_qwen2_has_biases_llama_does_not():
+    q = dict(Qwen2ForCausalLM(Qwen2Config(**QWEN), device="cpu")
+             .named_parameters())
+    assert "llama.layers.0.self_attn.q_proj.bias" in q
+    assert "llama.layers.0.self_attn.o_proj.bias" not in q
+    assert "lm_head.bias" not in q
+    ll = dict(LlamaForCausalLM(LlamaConfig(**LLAMA), device="cpu")
+              .named_parameters())
+    assert "llama.layers.0.self_attn.q_proj.bias" not in ll
+
+
+def test_state_names_match_jax_and_linears_transpose(pair):
+    family, (jm, tm) = pair
+    arrays = {k: np.asarray(v) for k, v in jm.state_dict().items()}
+    assert sorted(arrays) == sorted(tm.state_dict())
+    sd = tm.state_dict()
+    # lm_head and every projection are Linears ([in, out] in JAX)
+    np.testing.assert_array_equal(sd["lm_head.weight"].numpy(),
+                                  arrays["lm_head.weight"].T)
+    np.testing.assert_array_equal(
+        sd["llama.layers.1.mlp.gate_proj.weight"].numpy(),
+        arrays["llama.layers.1.mlp.gate_proj.weight"].T)
+    # RMSNorm weights and the embedding are not
+    for name in ("llama.norm.weight", "llama.embed_tokens.weight",
+                 "llama.layers.0.input_layernorm.weight"):
+        np.testing.assert_array_equal(sd[name].numpy(), arrays[name])
+
+
+# ===================================================================
+# logits: dense, preallocated, concat
+# ===================================================================
+def test_dense_logits_match_jax(pair):
+    family, (jm, tm) = pair
+    ids = _ids(2, 16, vocab=tm.cfg.vocab_size)   # longer than the window
+    want = _np(jm(_j(ids)))
+    with torch.no_grad():
+        got = tm(_t(ids)).numpy()
+    np.testing.assert_allclose(got, want, **LOGIT_TOL)
+
+
+def test_window_changes_long_context_only():
+    """Mistral's band: identical logits up to the window, different
+    past it."""
+    _, base = _pair("llama", seed=4)
+    _, swa = _pair("mistral", seed=4)
+    with torch.no_grad():
+        short = _t(_ids(1, 6, seed=1))
+        torch.testing.assert_close(base(short), swa(short), rtol=1e-5,
+                                   atol=1e-6)
+        long = _t(_ids(1, 24, seed=1))
+        assert (base(long) - swa(long)).abs().max() > 1e-3
+
+
+# bfloat16: the JAX model promotes q and k to float32 at rope (and with
+# them the residual stream after the first attention) where the port
+# stays in bfloat16.  The logits here reach ~0.6, where a bfloat16 unit
+# in the last place is 2**-8: atol is 2 units (measured: under 3e-3)
+BF16_LOGIT_ATOL = 2 * 2 ** -8
+
+
+def test_dense_logits_match_jax_bfloat16(pair):
+    family, (_, tm) = pair
+    ids = _ids(2, 16, vocab=tm.cfg.vocab_size)
+    jm, tb = _pair(family)          # fresh: both are cast to bfloat16
+    jb = pt.amp.decorate(models=jm, dtype="bfloat16")
+    tb = tb.to(torch.bfloat16)
+    want = _bf16_np(jb(_j(ids))._array)
+    with torch.no_grad():
+        got = tb(_t(ids))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=BF16_LOGIT_ATOL)
+
+
+def test_prealloc_and_concat_decode_logits_match_jax(pair):
+    """Prefill then three single-token steps through the preallocated
+    cache (shared pos, then per-row pos) and the concat cache: every
+    step's logits against the JAX package's same caches (the window
+    bites for Mistral: 12 + 3 positions against a window of 6)."""
+    family, (jm, tm) = pair
+    V = tm.cfg.vocab_size
+    ids = _ids(2, 12, seed=2, vocab=V)
+    steps = _ids(2, 3, seed=3, vocab=V)
+    jc, tc = jm.new_caches(2, max_length=20), tm.new_caches(2, max_length=20)
+    jcc, tcc = jm.new_caches(2), tm.new_caches(2)
+    with pt.no_grad(), torch.no_grad():
+        for j_caches, t_caches in ((jc, tc), (jcc, tcc)):
+            np.testing.assert_allclose(tm(_t(ids), caches=t_caches).numpy(),
+                                       _np(jm(_j(ids), caches=j_caches)),
+                                       **LOGIT_TOL)
+        for i in range(3):
+            col = steps[:, i:i + 1]
+            pos = 12 + i
+            if i == 2:      # per-row offsets (the speculative path's form)
+                tpos = torch.full((2,), pos, dtype=torch.int32)
+                jpos = pt.to_tensor(np.full(2, pos, np.int32))
+            else:
+                tpos = torch.tensor(pos, dtype=torch.int32)
+                jpos = pt.to_tensor(np.int32(pos))
+            for c in tc:
+                c["pos"] = tpos
+            for c in jc:
+                c["pos"] = jpos
+            np.testing.assert_allclose(tm(_t(col), caches=tc).numpy(),
+                                       _np(jm(_j(col), caches=jc)),
+                                       **LOGIT_TOL)
+            np.testing.assert_allclose(tm(_t(col), caches=tcc).numpy(),
+                                       _np(jm(_j(col), caches=jcc)),
+                                       **LOGIT_TOL)
+    assert tc[0]["k"].shape == (2, 20, tm.cfg.num_kv_heads,
+                                tm.cfg.hidden_size // tm.cfg.num_heads)
+
+
+# ===================================================================
+# decoding: token identity with the JAX package in float32
+# ===================================================================
+@pytest.fixture(scope="module")
+def greedy_ref(pair):
+    family, (jm, tm) = pair
+    ids = _ids(2, 8, seed=5, vocab=tm.cfg.vocab_size)
+    out = _np(jax_decode.jit_generate(jm, _j(ids), max_new_tokens=10))
+    return ids, out, int(out[1, 8 + 3])
+
+
+def test_jit_generate_matches_jax(pair, greedy_ref):
+    family, (jm, tm) = pair
+    ids, want, eos = greedy_ref
+    np.testing.assert_array_equal(
+        tm.generate(_t(ids), max_new_tokens=10).numpy(), want)
+    jeos = _np(jax_decode.jit_generate(jm, _j(ids), max_new_tokens=10,
+                                       eos_token_id=eos))
+    np.testing.assert_array_equal(
+        tm.generate(_t(ids), max_new_tokens=10, eos_token_id=eos).numpy(),
+        jeos)
+
+
+def test_eager_and_bucketed_generate_match_jax(pair, greedy_ref):
+    family, (jm, tm) = pair
+    ids, want, eos = greedy_ref
+    jeager = _np(jax_generation.generate(jm, _j(ids), max_new_tokens=10))
+    np.testing.assert_array_equal(jeager, want)
+    for buckets in (None, "on", "16,24"):
+        got = tm.generate(_t(ids), max_new_tokens=10, use_jit=False,
+                          shape_buckets=buckets)
+        np.testing.assert_array_equal(got.numpy(), want)
+    jeos = _np(jax_generation.generate(jm, _j(ids), max_new_tokens=10,
+                                       eos_token_id=eos))
+    np.testing.assert_array_equal(
+        generate(tm, _t(ids), max_new_tokens=10, eos_token_id=eos,
+                 shape_buckets="on").numpy(), jeos)
+
+
+def test_teacher_forced_argmax_agrees(pair, greedy_ref):
+    """Each generated token is the argmax of the dense forward of its
+    prefix (the window bites for Mistral)."""
+    family, (jm, tm) = pair
+    ids, want, _ = greedy_ref
+    with torch.no_grad():
+        logits = tm(_t(want)).numpy()
+    for t in range(8, want.shape[1]):
+        assert logits[0, t - 1].argmax() == want[0, t], t
+
+
+def test_beam_search_matches_jax(pair):
+    family, (jm, tm) = pair
+    ids = _ids(2, 5, seed=6, vocab=tm.cfg.vocab_size)
+    want = _np(jax_generation.beam_search(jm, _j(ids), beam_size=3,
+                                          max_new_tokens=7,
+                                          length_penalty=0.8))
+    np.testing.assert_array_equal(
+        beam_search(tm, _t(ids), beam_size=3, max_new_tokens=7,
+                    length_penalty=0.8).numpy(), want)
+    np.testing.assert_array_equal(
+        decode.jit_beam_search(tm, _t(ids), beam_size=3, max_new_tokens=7,
+                               length_penalty=0.8).numpy(), want)
+
+
+def test_speculative_greedy_matches_jit_generate(pair, greedy_ref):
+    """The draft is the same family at 1 layer, its own weights; for
+    Mistral every verify runs under the per-row banded mask."""
+    family, (jm, tm) = pair
+    jd, td = _pair(family, seed=99, num_layers=1)
+    ids, want, eos = greedy_ref
+    got = decode.speculative_generate(tm, td, _t(ids), max_new_tokens=10,
+                                      num_speculative_tokens=3)
+    np.testing.assert_array_equal(got.numpy(), want)
+    jgot = _np(jax_decode.speculative_generate(
+        jm, jd, _j(ids), max_new_tokens=10, num_speculative_tokens=3,
+        eos_token_id=eos))
+    np.testing.assert_array_equal(
+        generate(tm, _t(ids), max_new_tokens=10, eos_token_id=eos,
+                 draft_model=td, num_speculative_tokens=3).numpy(), jgot)
+
+
+def test_sampled_decoding_shapes(pair):
+    family, (_, tm) = pair
+    ids = _t(_ids(2, 4, seed=7, vocab=tm.cfg.vocab_size))
+    g = torch.Generator().manual_seed(0)
+    for out in (tm.generate(ids, max_new_tokens=6, do_sample=True, top_k=8,
+                            generator=g),
+                tm.generate(ids, max_new_tokens=6, do_sample=True,
+                            top_p=0.9, use_jit=False, generator=g)):
+        assert out.shape == (2, 10)
+        assert torch.equal(out[:, :4], ids)
+
+
+# ===================================================================
+# recompute and the serving engine
+# ===================================================================
+def test_recompute_gives_the_same_loss_and_grads():
+    _, plain = _pair("mistral")
+    _, rec = _pair("mistral", use_recompute=True)
+    ids = _t(_ids(2, 16, seed=8))
+    grads = []
+    for m in (plain, rec):
+        m.train()
+        loss = PF.cross_entropy(m(ids)[:, :-1], ids[:, 1:])
+        loss.backward()
+        grads.append({n: p.grad.clone() for n, p in m.named_parameters()})
+    for n in grads[0]:
+        torch.testing.assert_close(grads[1][n], grads[0][n], rtol=1e-5,
+                                   atol=1e-7, msg=n)
+
+
+def _interleaved(eng, prompts, n):
+    reqs = [eng.add_request(p, max_new_tokens=n) for p in prompts[:2]]
+    for _ in range(2):
+        eng.step()
+    reqs += [eng.add_request(p, max_new_tokens=n) for p in prompts[2:]]
+    eng.run()
+    return [list(r.generated) for r in reqs]
+
+
+@pytest.mark.parametrize("family", ["llama", "qwen2"])
+def test_engine_parity_with_jax_gqa(family):
+    jm, tm = _pair(family)
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, 64, size=n).tolist() for n in (6, 10, 4, 13)]
+    want = _interleaved(JaxEngine(jm, num_blocks=24, block_size=8,
+                                  max_running=4), prompts, 5)
+    eng = LLMEngine(tm, num_blocks=24, block_size=8, max_running=4)
+    assert eng.pool.num_kv_heads == 2
+    assert _interleaved(eng, prompts, 5) == want
+    assert eng.pool.check_leaks() == ([], [])
+    # and the engine's tokens are the model's own greedy continuation
+    ref = decode.jit_generate(tm, _t([prompts[1]]), max_new_tokens=5)
+    assert want[1] == ref[0, len(prompts[1]):].tolist()
+
+
+def test_engine_refuses_sliding_window():
+    _, tm = _pair("mistral")
+    with pytest.raises(NotImplementedError, match="sliding_window"):
+        LLMEngine(tm, num_blocks=8, block_size=8)
+    # the paged branch of the attention refuses it too
+    from paddle_tpu_torch.serving import BlockPool
+    pool = BlockPool.for_model(tm, num_blocks=4, block_size=8)
+    caches = [{"k": pool.k[i], "v": pool.v[i],
+               "table": torch.tensor([[1]], dtype=torch.int32),
+               "pos": torch.zeros(1, dtype=torch.int32)}
+              for i in range(pool.num_layers)]
+    with torch.no_grad(), pytest.raises(NotImplementedError,
+                                        match="sliding_window"):
+        tm(_t([[1, 2]]), caches=caches)
