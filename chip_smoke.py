@@ -9,7 +9,8 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
 
 1. build         — times the nvcc build (one nvcc per source, in
                    parallel) and prints ptxas's registers, shared memory
-                   and spills for each sm90 flash kernel;
+                   and spills for each sm90 flash kernel and each decode
+                   kernel;
 2. kernels       — holds the paged decode kernel (context split across
                    blocks) against its plain PyTorch version on the card
                    at the serving path's shapes and at the split edges
@@ -26,10 +27,13 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    and the generation paths' bool masks (a prefill into
                    a longer buffer, per-row decode and speculative
                    verify masks, with and without a window band, at GQA
-                   32/8 and 28/4); every case through the route,
-                   asserting which family launched (sm90 forward, dK/dV
-                   and dQ for bf16 / fp16 without a mask), and each sm90
-                   case through sm80 as well;
+                   32/8 and 28/4); every case through the routes,
+                   asserting which family launched (forward: decode for
+                   Lq <= 16, sm90 for bf16 / fp16 masked or not, sm80
+                   for the rest; backward: sm90 for bf16 / fp16 without
+                   a mask), and through every other family that takes
+                   it (the decode kernel also against its own plain
+                   version, the same splits and merge);
 4. serve         — GPT-3 1.3B (full width, 24 layers, bf16, random weights
                    from a seed) served by LLMEngine: 16 requests, 32 greedy
                    tokens each; every request must finish, the pool must be
@@ -60,9 +64,10 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    tokens/s, step p50/p99, prefill ms, peak memory and a
                    profile of each; beam search (4 beams, batch 1) and
                    speculative decoding (k 4, a 2-layer draft); each
-                   path's flash launches by family, sdpa's plain calls,
-                   and each bf16 token against a dense float32 forward
-                   (`MARGIN_TOL`);
+                   path's flash launches by family (0 on sm80: decode
+                   steps on the decode kernel, masked prefills on sm90),
+                   sdpa's plain calls, and each bf16 token against a
+                   dense float32 forward (`MARGIN_TOL`);
 9. serve_llama   — Qwen2-7B (full width and depth, bf16, GQA 28/4) served
                    by LLMEngine with the serve phase's request mix:
                    tokens/s, decode step, TTFT, paged launches, and the
@@ -70,8 +75,9 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
 10. generate_e2e — Mistral width at 2 layers, float32, window 64: the
                    captured `jit_generate`, eager and bucketed
                    `generate`, speculative greedy and `jit_beam_search`
-                   on the card token for token against the CPU, and the
-                   captured step against the eager loop and the
+                   on the card token for token against the CPU (the
+                   decode steps through the decode kernel in float32),
+                   and the captured step against the eager loop and the
                    uncaptured step;
 11. timings      — paged kernel, plain version, library yardstick and the
                    memory bound at the phase-4 decode shapes; the one-pass
@@ -79,9 +85,12 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    split, one), and a sweep of split counts;
 12. flash_timings — the same for each flash kernel at the training shape,
                    the sm80 and sm90 forward, dK/dV and dQ in turns on the
-                   same inputs (sm80, sm90, sm90, sm80), and the sm80
-                   forward at the Mistral-7B decode shape against SDPA
-                   with the same mask.
+                   same inputs (sm80, sm90, sm90, sm80); the decode and
+                   sm80 forward at the Mistral-7B decode shape in turns
+                   with SDPA under the same mask, and a sweep of split
+                   counts; the sm90 and sm80 forward at generation's
+                   masked prefill (B 4, Lq 512, Lk 576) in turns, with
+                   SDPA under the same mask.
 
 Each phase prints one JSON line.  Then one {"kernels": [...]} line, the
 card's name and power limit from nvidia-smi, and last
@@ -109,13 +118,14 @@ TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1.6e-2, 1e-3),
 
 # flash kernels vs plain (the same as tests/test_torch_flash_kernel.py).
 # Forward o, (rtol, atol): both versions round p to the working type
-# before P.V but against another running maximum (the kernel's per 64-key
-# tile, the plain version's per row), and o rounds once: 2 units in the
-# last place of bf16 / fp16 at the scale of the unit-normal v.  lse is
-# float32 in every dtype: (1e-5, 1e-5).  Backward dq, dk, dv: the kernels
-# round p and dS to bf16 / fp16 before the tensor-core products where the
-# plain version keeps float32, and dS cancels, so the error is taken
-# against the largest element: max |kernel - plain| / max |plain|.
+# before P.V but against another running maximum (a kernel's per key
+# tile or token group, the plain version's per row), and o rounds once: 2
+# units in the last place of bf16 / fp16 at the scale of the unit-normal
+# v.  lse is float32 in every dtype: (1e-5, 1e-5).  Backward dq, dk, dv:
+# the kernels round p and dS to bf16 / fp16 before the tensor-core
+# products where the plain version keeps float32, and dS cancels, so the
+# error is taken against the largest element: max |kernel - plain| / max
+# |plain|.
 FLASH_FWD_TOL = {torch.float32: (1e-5, 1e-5),
                  torch.bfloat16: (1.6e-2, 1.6e-2),
                  torch.float16: (2e-3, 2e-3)}
@@ -196,6 +206,11 @@ SM90_KERNEL_NAMES = {   # (mangled kernel, dtype, D) -> short name
 PAGED_KERNEL = re.compile(r"paged_decode_kernelI(f|13__nv_bfloat16|6__half)"
                           r"Li(\d+)ELi(\d+)E")
 PAGED_DTYPES = {"f": "fp32", "13__nv_bfloat16": "bf16", "6__half": "fp16"}
+# the decode forward: float32 on the CUDA cores (query rows in registers),
+# bf16 and fp16 on the tensor cores (D tile)
+DECODE_KERNEL = re.compile(r"flash_decode_kernelILi(\d+)E")
+DECODE_MMA_KERNEL = re.compile(r"flash_decode_mma_kernelI"
+                               r"(13__nv_bfloat16|6__half)Li(\d+)E")
 
 
 def phase_build():
@@ -212,11 +227,17 @@ def phase_build():
         for (kern, dt, d), short in SM90_KERNEL_NAMES.items():
             if kern in name and dt in name and f"Li{d}E" in name:
                 sm90[short] = k
-    paged = {}
+    paged, decode = {}, {}
     for name, k in kernels.items():
         m = PAGED_KERNEL.search(name)
         if m:   # dtype, query heads in registers, vectors a lane
             paged[f"{PAGED_DTYPES[m[1]]}_g{m[2]}_vpl{m[3]}"] = k
+        m = DECODE_KERNEL.search(name)
+        if m:
+            decode[f"fp32_rows{m[1]}"] = k
+        m = DECODE_MMA_KERNEL.search(name)
+        if m:
+            decode[f"{PAGED_DTYPES[m[1]]}_mma_d{m[2]}"] = k
     # e.g. ptxas's notice that it serialized wgmma for want of registers
     warnings = sorted({line.strip() for log in logs.values()
                        for line in log.splitlines()
@@ -225,10 +246,13 @@ def phase_build():
           "compiled": sorted(logs), "kernels_compiled": len(regs),
           "max_registers": max(regs, default=None),
           "spill_store_bytes": spills, "sm90_kernels": sm90,
-          "paged_kernels": paged, "warnings": warnings})
+          "paged_kernels": paged, "decode_kernels": decode,
+          "warnings": warnings})
     if logs:
         assert len(sm90) == len(SM90_KERNEL_NAMES), \
             f"ptxas reported {sorted(sm90)} of the sm90 kernels"
+    if "flash_decode" in logs:
+        assert len(decode) == 8, f"ptxas reported {sorted(decode)}"
 
 
 def phase_kernels():
@@ -714,8 +738,8 @@ def read_counts():
 
 def flash_part(counts):
     """The flash kernels' counters of `counts` (as `ops.launch_counts()`
-    names them): {"fwd", "dkv", "dq", "fwd_sm90", "dkv_sm90",
-    "dq_sm90"}."""
+    names them): {"fwd", "dkv", "dq", "fwd_sm90", "dkv_sm90", "dq_sm90",
+    "fwd_decode"}."""
     return {k[len("flash_"):]: v for k, v in counts.items()
             if k.startswith("flash_")}
 
@@ -735,25 +759,59 @@ def bwd_error(pairs):
     return abs_err, rel
 
 
-def flash_errors(fa, q, k, v, do, mask, causal, window, families=(None,)):
+def fwd_family(grew):
+    """The forward family that launched, from the counters' growth."""
+    assert grew["fwd"] == 1, grew
+    assert grew["fwd_sm90"] + grew["fwd_decode"] <= 1, grew
+    return ("sm90" if grew["fwd_sm90"] else
+            "decode" if grew["fwd_decode"] else "sm80")
+
+
+def flash_errors(fa, q, k, v, do, mask, causal, window, fwd_families=(None,),
+                 bwd_families=(None,)):
     """Each kernel against its plain version on the same inputs: for each
-    family (None: the route's; "sm80" / "sm90" forced) {"fwd": (max abs,
-    max err, ok), "dkv": ..., "dq": ..., "lse_max_abs_err": x, "launched":
-    family}.  The backward kernels get the plain forward's lse and delta;
-    "launched" is the family the launch counters saw, one for all three
-    kernels."""
+    forward family (None: the route's; "sm80" / "sm90" / "decode" forced)
+    {"fwd": (max abs, max err, ok), "lse_max_abs_err": x, "launched":
+    family} under out["fwd"][family], the decode family against
+    `flash_decode_plain` (its own plain version, the same splits) and
+    `flash_fwd_plain` both; for each backward family {"dkv": ..., "dq":
+    ..., "launched": family} under out["bwd"][family], given the plain
+    forward's lse and delta.  "launched" is the family the launch counters
+    saw (one for dK/dV and dQ)."""
     dtype = q.dtype
     kw = dict(is_causal=causal, window=window)
     ref_o, ref_lse = fa.flash_fwd_plain(q, k, v, mask, **kw)
+    rtol, atol = FLASH_FWD_TOL[dtype]
+    finite = torch.isfinite(ref_lse)
+
+    def fwd_err(o, lse, want_o, want_lse):
+        d = (o.float() - want_o.float()).abs()
+        ok = bool((d <= atol + rtol * want_o.float().abs()).all())
+        fin = torch.isfinite(want_lse)
+        ok = ok and bool(torch.equal(fin, torch.isfinite(lse))) and bool(
+            ((lse - want_lse).abs()[fin]
+             <= 1e-5 + 1e-5 * want_lse.abs()[fin]).all())
+        return float(d.max()), float((lse - want_lse).abs()[fin].max()), ok
+
+    out = {"fwd": {}, "bwd": {}}
+    for fam in fwd_families:
+        before = flash_counts()
+        o, lse = fa.flash_fwd_cuda(q, k, v, mask, **kw, _impl=fam)
+        torch.cuda.synchronize()
+        after = flash_counts()
+        launched = fwd_family({n: after[n] - before[n] for n in after})
+        err, lse_err, ok = fwd_err(o, lse, ref_o, ref_lse)
+        if launched == "decode":     # and against its own plain version
+            e2, l2, ok2 = fwd_err(o, lse, *fa.flash_decode_plain(
+                q, k, v, mask, **kw))
+            err, lse_err, ok = max(err, e2), max(lse_err, l2), ok and ok2
+        out["fwd"][fam] = {"fwd": (err, err, ok), "lse_max_abs_err": lse_err,
+                           "launched": launched}
     delta = fa._delta(do, ref_o)
     ref_dq, ref_dk, ref_dv = fa.flash_bwd_plain(q, k, v, do, ref_lse, delta,
                                                 mask, **kw)
-    rtol, atol = FLASH_FWD_TOL[dtype]
-    finite = torch.isfinite(ref_lse)
-    out = {}
-    for fam in families:
+    for fam in bwd_families:
         before = flash_counts()
-        o, lse = fa.flash_fwd_cuda(q, k, v, mask, **kw, _impl=fam)
         dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, ref_lse, delta, mask,
                                        **kw, _impl=fam)
         dq = fa.flash_bwd_dq_cuda(q, k, v, do, ref_lse, delta, mask, **kw,
@@ -761,30 +819,24 @@ def flash_errors(fa, q, k, v, do, mask, causal, window, families=(None,)):
         torch.cuda.synchronize()
         after = flash_counts()
         grew = {n: after[n] - before[n] for n in after}
-        sm90 = (grew["fwd_sm90"], grew["dkv_sm90"], grew["dq_sm90"])
-        assert grew["fwd"] == grew["dkv"] == grew["dq"] == 1, grew
-        assert sm90 in ((0, 0, 0), (1, 1, 1)), sm90
-        do_ = (o.float() - ref_o.float()).abs()
-        fwd_ok = bool((do_ <= atol + rtol * ref_o.float().abs()).all())
-        lse_ok = bool(torch.equal(finite, torch.isfinite(lse))) and bool(
-            ((lse - ref_lse).abs()[finite]
-             <= 1e-5 + 1e-5 * ref_lse.abs()[finite]).all())
+        sm90 = (grew["dkv_sm90"], grew["dq_sm90"])
+        assert grew["dkv"] == grew["dq"] == 1 and grew["fwd"] == 0, grew
+        assert sm90 in ((0, 0), (1, 1)), sm90
         dkv_abs, dkv_rel = bwd_error(((dk, ref_dk), (dv, ref_dv)))
         dq_abs, dq_rel = bwd_error(((dq, ref_dq),))
-        out[fam] = {
-            "fwd": (float(do_.max()), float(do_.max()), fwd_ok and lse_ok),
-            "lse_max_abs_err": float((lse - ref_lse).abs()[finite].max()),
+        out["bwd"][fam] = {
             "dkv": (dkv_abs, dkv_rel, dkv_rel <= FLASH_BWD_TOL[dtype]),
             "dq": (dq_abs, dq_rel, dq_rel <= FLASH_BWD_TOL[dtype]),
-            "launched": "sm90" if sm90 == (1, 1, 1) else "sm80"}
+            "launched": "sm90" if sm90 == (1, 1) else "sm80"}
     return out
 
 
 def phase_flash_kernels():
-    """Every case through the route, asserting which family launched (the
-    sm90 forward, dK/dV and dQ for bf16 / fp16, D 64 or 128 and no mask;
-    sm80 for the rest); each case the route sends to sm90 runs through
-    the sm80 kernels too (`_impl="sm80"`)."""
+    """Every case through the routes, asserting which family launched
+    (forward: decode for Lq <= 16, sm90 for bf16 / fp16 at D 64 or 128,
+    masked or not, sm80 for the rest; backward: sm90 for bf16 / fp16
+    without a mask, sm80 for the rest), then through every other family
+    that takes it (`_impl`), each against its plain version."""
     from paddle_tpu_torch.ops import flash_attention as fa
     torch.backends.cuda.matmul.allow_tf32 = False    # full float32 plain
     torch.backends.cudnn.allow_tf32 = False
@@ -793,32 +845,42 @@ def phase_flash_kernels():
             dtype) in enumerate(FLASH_CASES):
         q, k, v, do, mask = flash_inputs(B, Lq, Lk, H, Hkv, D, kind, dtype,
                                          seed=200 + i)
-        route = fa._sm90_route(q, k, v, fa._normalize_mask(mask), dtype)
-        want = "sm80" if mask is not None or dtype == torch.float32 else \
-            "sm90"
-        assert route == want, f"{name}: routed to {route}, want {want}"
-        fams = (None, "sm80") if route == "sm90" else (None,)
-        err = flash_errors(fa, q, k, v, do, mask, causal, window, fams)
+        m4 = fa._normalize_mask(mask)
+        half = dtype != torch.float32
+        want_fwd = ("decode" if Lq <= fa.DECODE_MAX_LQ else
+                    "sm90" if half else "sm80")
+        want_bwd = "sm90" if half and mask is None else "sm80"
+        fwd_fams = fa._families(q, k, v, m4, dtype, True)
+        bwd_fams = fa._families(q, k, v, m4, dtype, False)
+        assert (fwd_fams[0], bwd_fams[0]) == (want_fwd, want_bwd), \
+            f"{name}: routed to {fwd_fams[0]} / {bwd_fams[0]}"
+        err = flash_errors(fa, q, k, v, do, mask, causal, window,
+                           (None,) + fwd_fams[1:], (None,) + bwd_fams[1:])
         rec = {"case": name, "dtype": str(dtype).split(".")[1],
                "shape": [B, Lq, Lk, H, Hkv, D], "causal": causal,
-               "window": window, "mask": kind, "route": route, "ok": True}
-        for fam in fams:
-            e = err[fam]
-            assert e["launched"] == (fam or route), (name, fam, e)
-            tag = fam or route
+               "window": window, "mask": kind, "route": want_fwd,
+               "bwd_route": want_bwd, "fwd_families": list(fwd_fams),
+               "bwd_families": list(bwd_fams), "ok": True}
+        for fam, e in err["fwd"].items():
+            assert e["launched"] == (fam or want_fwd), (name, fam, e)
+            tag = fam or want_fwd
             rec.update({f"{tag}_fwd_max_abs_err": e["fwd"][0],
-                        f"{tag}_lse_max_abs_err": e["lse_max_abs_err"],
-                        f"{tag}_dkv_max_abs_err": e["dkv"][0],
+                        f"{tag}_lse_max_abs_err": e["lse_max_abs_err"]})
+            rec["ok"] = rec["ok"] and e["fwd"][2]
+        for fam, e in err["bwd"].items():
+            assert e["launched"] == (fam or want_bwd), (name, fam, e)
+            tag = fam or want_bwd
+            rec.update({f"{tag}_dkv_max_abs_err": e["dkv"][0],
                         f"{tag}_dkv_max_err": e["dkv"][1],
                         f"{tag}_dq_max_abs_err": e["dq"][0],
                         f"{tag}_dq_max_err": e["dq"][1]})
-            rec["ok"] = (rec["ok"] and e["fwd"][2] and e["dkv"][2]
-                         and e["dq"][2])
+            rec["ok"] = rec["ok"] and e["dkv"][2] and e["dq"][2]
         results.append(rec)
         del q, k, v, do, mask
     emit({"phase": "flash_kernels",
           "kernels": ["flash_fwd", "flash_dkv", "flash_dq",
-                      "flash_fwd_sm90", "flash_dkv_sm90", "flash_dq_sm90"],
+                      "flash_fwd_sm90", "flash_dkv_sm90", "flash_dq_sm90",
+                      "flash_fwd_decode"],
           "fwd_tol": {str(d).split(".")[1]: t
                       for d, t in FLASH_FWD_TOL.items()},
           "bwd_tol": {str(d).split(".")[1]: t
@@ -826,6 +888,8 @@ def phase_flash_kernels():
           "cases": results})
     failed = [r["case"] for r in results if not r["ok"]]
     assert not failed, f"flash kernels disagree with plain: {failed}"
+    runs = {f for r in results for f in r["fwd_families"]}
+    assert runs == {"decode", "sm90", "sm80"}, runs
     torch.cuda.empty_cache()
 
 
@@ -985,7 +1049,8 @@ def phase_train_e2e(steps=3, batch=2, seq=128):
     counts = flash_counts()
     # float32: the sm80 kernels, 2 layers a step
     assert counts == {"fwd": steps * 2, "dkv": steps * 2, "dq": steps * 2,
-                      "fwd_sm90": 0, "dkv_sm90": 0, "dq_sm90": 0}, counts
+                      "fwd_sm90": 0, "dkv_sm90": 0, "dq_sm90": 0,
+                      "fwd_decode": 0}, counts
     assert ops.sdpa.plain_calls == 0
     t0 = time.perf_counter()
     cpu_losses = train(cpu, "cpu")
@@ -1019,17 +1084,19 @@ def phase_flash_timings(paths):
     with the L2 flushed, its plain version's, PyTorch's fused attention as
     the yardstick, and the least time the card could take.  The sm80 and
     sm90 forward, dK/dV and dQ are timed on the same inputs in turns:
-    sm80, sm90, sm90, sm80.  The sm80 forward is also timed at the
-    Mistral-7B decode shape, the launch every generated token pays a
-    layer.  `paths` maps each main path's run to its launch counts (as
+    sm80, sm90, sm90, sm80.  The decode forward is timed at the Mistral-7B
+    decode shape, the launch every generated token pays a layer, and the
+    sm90 forward at generation's masked prefill, each beside the sm80
+    forward.  `paths` maps each main path's run to its launch counts (as
     `flash_part` names them); each kernel's `launches` is their sum."""
     from paddle_tpu_torch.ops import flash_attention as fa
     B, L, H, D = (FLASH_SHAPE[k] for k in ("B", "L", "H", "D"))
     dtype = torch.bfloat16
     q, k, v, do, _ = flash_inputs(B, L, L, H, H, D, None, dtype, seed=9)
-    err = flash_errors(fa, q, k, v, do, None, True, 0, ("sm80", "sm90"))
-    assert all(err[f][n][2] for f in ("sm80", "sm90")
-               for n in ("fwd", "dkv", "dq")), err
+    err = flash_errors(fa, q, k, v, do, None, True, 0, ("sm80", "sm90"),
+                       ("sm80", "sm90"))
+    assert all(err["fwd"][f]["fwd"][2] and err["bwd"][f][n][2]
+               for f in ("sm80", "sm90") for n in ("dkv", "dq")), err
     o, lse = fa.flash_fwd_cuda(q, k, v, is_causal=True)
     delta = fa._delta(do, o)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
@@ -1108,7 +1175,8 @@ def phase_flash_timings(paths):
                       "library_ms": library_ms, "bytes": nbytes,
                       "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
                       "achieved_tflops": flops / (kernel_ms * 1e-3) / 1e12}
-        e = err["sm90" if kname.endswith("_sm90") else "sm80"][base]
+        fam = "sm90" if kname.endswith("_sm90") else "sm80"
+        e = (err["fwd"][fam] if base == "fwd" else err["bwd"][fam])[base]
         tol = ({"rtol": FLASH_FWD_TOL[dtype][0],
                 "atol": FLASH_FWD_TOL[dtype][1], "dtype": "bfloat16"}
                if base == "fwd" else
@@ -1116,9 +1184,9 @@ def phase_flash_timings(paths):
                 "dtype": "bfloat16"})
         if kname.endswith("_sm90"):
             by_path = {p: c[kname] for p, c in paths.items()}
-        else:   # sm80 launches: all launches less the sm90 ones
+        else:   # sm80 launches: all launches less the others' ones
             by_path = {p: c[base] - c[f"{base}_sm90"]
-                       for p, c in paths.items()}
+                       - c.get(f"{base}_decode", 0) for p, c in paths.items()}
         n = sum(by_path.values())
         record = kernel_record(
             f"flash_attention_{kname}", f"paddle_tpu_torch/csrc/{source}",
@@ -1126,11 +1194,25 @@ def phase_flash_timings(paths):
             e[1], tol, kernel_ms, plain_ms, bytes_ms, ops_ms, library_ms,
             lib)
         record["launches_by_path"] = by_path
-        if kname == "fwd":
-            record["decode_shape"] = rec["mistral_decode"] = \
-                decode_shape_timing(fa, flush, by_path)
+        if kname == "fwd_sm90":
+            record["masked_prefill"] = rec["masked_prefill"] = \
+                masked_prefill_timing(fa, flush)
         entries.append(record)
         assert n > 0, f"{kname} launched no time on the main paths"
+    decode = decode_shape_timing(fa, flush)
+    rec["mistral_decode"] = decode
+    by_path = {p: c["fwd_decode"] for p, c in paths.items()}
+    record = kernel_record(
+        "flash_fwd_decode", "paddle_tpu_torch/csrc/flash_decode.cu",
+        "paddle_tpu/ops/pallas/flash_attention.py:84",
+        sum(by_path.values()), decode["max_abs_err"], decode["max_abs_err"],
+        {"rtol": FLASH_FWD_TOL[dtype][0], "atol": FLASH_FWD_TOL[dtype][1],
+         "dtype": "bfloat16"}, decode["ms"], decode["plain_ms"],
+        decode["bytes_ms"], decode["ops_ms"], decode["library_ms"],
+        decode["library"])
+    record.update(launches_by_path=by_path, decode_shape=decode)
+    entries.append(record)
+    assert record["launches"] > 0, "the decode forward launched no time"
     rec["plain_note"] = ("dkv and dq share one plain backward (dq, dk and "
                          "dv together)")
     emit(rec)
@@ -1339,8 +1421,10 @@ def phase_generate(batch=4, prompt=512, new=64, beams=4, beam_new=16,
     margins["beam"] = margin(lm_logits(model, beam, prompt), beam, prompt,
                              beam=beams)
     del bf16_logits
-    families = {name: {"flash_fwd_sm80": c["flash_fwd"] - c["flash_fwd_sm90"],
+    families = {name: {"flash_fwd_sm80": c["flash_fwd"] - c["flash_fwd_sm90"]
+                       - c["flash_fwd_decode"],
                        "flash_fwd_sm90": c["flash_fwd_sm90"],
+                       "flash_fwd_decode": c["flash_fwd_decode"],
                        "sdpa_plain_calls": c["sdpa_plain"]}
                 for name, c in paths.items()}
     tok = batch * new
@@ -1383,6 +1467,12 @@ def phase_generate(batch=4, prompt=512, new=64, beams=4, beam_new=16,
     for name, c in paths.items():
         assert c["sdpa_plain"] == 0, f"{name}: sdpa took its plain path"
         assert c["flash_fwd"] > 0, f"{name}: no flash launch"
+        # bf16: every decode / verify attention on the decode kernel, every
+        # masked prefill on the sm90 forward, none on sm80
+        fam = families[name]
+        assert fam["flash_fwd_sm80"] == 0, (name, fam)
+        assert fam["flash_fwd_decode"] > 0 and fam["flash_fwd_sm90"] > 0, \
+            (name, fam)
     # prefill and each of the new - 1 steps: once a layer
     assert paths["captured"]["flash_fwd"] == new * cfg.num_layers, paths
     assert paths["eager"]["flash_fwd"] == new * cfg.num_layers, paths
@@ -1529,16 +1619,20 @@ def phase_generate_e2e(batch=2, prompt=128, new=32):
     assert torch.equal(on_card["jit_generate"], static)
     assert torch.equal(on_card["jit_generate"], on_card["eager"])
     assert counts["sdpa_plain"] == 0 and counts["flash_fwd"] > 0, counts
+    # float32: the decode steps on the decode kernel, the prefills on sm80
+    assert counts["flash_fwd_decode"] > 0, counts
     del card, dcard, cpu, dcpu
     torch.cuda.empty_cache()
     return flash_part(counts)
 
 
-def decode_shape_timing(fa, flush, launches):
+def decode_shape_timing(fa, flush):
     """The flash forward at the Mistral-7B decode shape: Lq 1, a per-row
-    [4, 1, 1, 576] bool mask, GQA 32 / 8, D 128, bf16 (the sm80 kernel,
-    which takes masks); its plain version, PyTorch's SDPA with the same
-    mask as a yardstick, and the bound."""
+    [4, 1, 1, 576] bool mask, GQA 32 / 8, D 128, bf16.  The decode kernel
+    (the route's family) and the sm80 kernel forced, in turns on the same
+    inputs (sm80, decode, decode, sm80), PyTorch's SDPA with the same mask
+    as a yardstick between them, the decode kernel's plain version, a
+    sweep of forced split counts, and the bound."""
     B, Lk, H, Hkv, D = 4, 576, 32, 8, 128
     dtype = torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(11)
@@ -1548,21 +1642,42 @@ def decode_shape_timing(fa, flush, launches):
     lens = torch.tensor([576, 560, 544, 530], device="cuda")
     mask = (torch.arange(Lk, device="cuda")[None, :]
             < lens[:, None])[:, None, None, :]
-    assert fa._sm90_route(q, k, v, fa._normalize_mask(mask), dtype) == "sm80"
-    o, _ = fa.flash_fwd_cuda(q, k, v, mask)
-    ref, _ = fa.flash_fwd_plain(q, k, v, mask)
-    err = float((o.float() - ref.float()).abs().max())
+    route = fa._fwd_route(q, k, v, fa._normalize_mask(mask), dtype)
+    assert route == "decode", route
     rtol, atol = FLASH_FWD_TOL[dtype]
-    assert bool(((o.float() - ref.float()).abs()
-                 <= atol + rtol * ref.float().abs()).all()), err
-    kernel_ms = cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, mask), flush)
-    plain_ms = cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, mask), flush,
-                       iters=20)
+    ref, _ = fa.flash_fwd_plain(q, k, v, mask)
+    errs = {}
+    for impl in ("decode", "sm80"):
+        o, _ = fa.flash_fwd_cuda(q, k, v, mask, _impl=impl)
+        for want in ((ref, fa.flash_decode_plain(q, k, v, mask)[0])
+                     if impl == "decode" else (ref,)):
+            d = (o.float() - want.float()).abs()
+            errs[impl] = max(errs.get(impl, 0.0), float(d.max()))
+            assert bool((d <= atol + rtol * want.float().abs()).all()), \
+                (impl, errs)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def run(impl):
+        if impl == "sdpa":
+            return lambda: sdpa(qh, kh, vh, attn_mask=mask, enable_gqa=True)
+        return lambda: fa.flash_fwd_cuda(q, k, v, mask, _impl=impl)
+
     with torch.no_grad():
-        library_ms = cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask,
-                                          enable_gqa=True), flush)
+        turns = [(impl, cuda_ms(run(impl), flush))
+                 for impl in ("sm80", "decode", "sdpa", "decode", "sm80",
+                              "sdpa")]
+    ms = {i: sum(t for j, t in turns if j == i) / 2
+          for i in ("sm80", "decode", "sdpa")}
+    splits, keys = fa.decode_split_plan(Lk)
+    sweep = [{"splits": fa.decode_split_plan(Lk, n)[0],
+              "split_keys": fa.decode_split_plan(Lk, n)[1],
+              "ms": cuda_ms(lambda: fa.flash_fwd_cuda(
+                  q, k, v, mask, _impl="decode", _splits=n), flush,
+                  iters=25)}
+             for n in (1, 3, 5, 18, 36)]
+    plain_ms = cuda_ms(lambda: fa.flash_decode_plain(q, k, v, mask), flush,
+                       iters=20)
     visible = int(lens.sum())
     nbytes = (q.numel() * 2 + 2 * k.numel() * 2 + mask.numel()
               + q.numel() * 2 + B * H * 4)   # q, k, v, mask; o, lse
@@ -1572,14 +1687,71 @@ def decode_shape_timing(fa, flush, launches):
     return {"shape": {"B": B, "Lq": 1, "Lk": Lk, "H": H, "Hkv": Hkv, "D": D,
                       "mask": "[4, 1, 1, 576] bool, lens 576/560/544/530",
                       "dtype": "bfloat16"},
-            "family": "sm80", "ms": kernel_ms, "plain_ms": plain_ms,
+            "family": route, "splits": splits, "split_keys": keys,
+            "turns_ms": turns, "ms": ms["decode"], "sm80_ms": ms["sm80"],
+            "sm80_over_decode": ms["sm80"] / ms["decode"],
+            "split_sweep": sweep, "plain_ms": plain_ms,
+            "library_ms": ms["sdpa"],
+            "library": "torch SDPA, the same bool mask, enable_gqa",
+            "max_abs_err": errs["decode"], "sm80_max_abs_err": errs["sm80"],
+            "bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "achieved_bytes_per_s": nbytes / (ms["decode"] * 1e-3)}
+
+
+def masked_prefill_timing(fa, flush):
+    """The flash forward of generation's masked prefill: B 4, Lq 512, Lk
+    576 (the preallocated buffer), GQA 32 / 8, D 128, bf16, the
+    `prefill_buffer` mask [1, 1, 512, 576].  The sm90 kernel (the route's
+    family) and the sm80 kernel forced, in turns (sm80, sm90, sm90, sm80),
+    SDPA with the same mask, and the bound."""
+    B, Lq, Lk, H, Hkv, D = 4, 512, 576, 32, 8, 128
+    dtype = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q = torch.randn(B, Lq, H, D, generator=g, device="cuda").to(dtype)
+    k = torch.randn(B, Lk, Hkv, D, generator=g, device="cuda").to(dtype)
+    v = torch.randn(B, Lk, Hkv, D, generator=g, device="cuda").to(dtype)
+    mask = generation_mask("prefill_buffer", B, Lq, Lk, g)
+    route = fa._fwd_route(q, k, v, fa._normalize_mask(mask), dtype)
+    assert route == "sm90", route
+    rtol, atol = FLASH_FWD_TOL[dtype]
+    ref, _ = fa.flash_fwd_plain(q, k, v, mask)
+    errs = {}
+    for impl in ("sm90", "sm80"):
+        d = (fa.flash_fwd_cuda(q, k, v, mask, _impl=impl)[0].float()
+             - ref.float()).abs()
+        errs[impl] = float(d.max())
+        assert bool((d <= atol + rtol * ref.float().abs()).all()), \
+            (impl, errs)
+    del ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    turns = [(impl, cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, mask,
+                                                      _impl=impl), flush,
+                            iters=20))
+             for impl in ("sm80", "sm90", "sm90", "sm80")]
+    ms = {i: sum(t for j, t in turns if j == i) / 2 for i in ("sm80", "sm90")}
+    with torch.no_grad():
+        library_ms = cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask,
+                                          enable_gqa=True), flush, iters=20)
+    visible = B * H * Lq * (Lq + 1) // 2     # row r sees cols 0 .. r
+    nbytes = (2 * q.numel() * 2 + 2 * k.numel() * 2 + mask.numel()
+              + B * H * Lq * 4)              # q, o; k, v; mask; lse
+    flops = 4 * visible * D
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS * 1e3
+    return {"shape": {"B": B, "Lq": Lq, "Lk": Lk, "H": H, "Hkv": Hkv,
+                      "D": D, "mask": "prefill_buffer [1, 1, 512, 576] bool",
+                      "dtype": "bfloat16"},
+            "family": route, "turns_ms": turns, "ms": ms["sm90"],
+            "sm80_ms": ms["sm80"], "sm80_over_sm90": ms["sm80"] / ms["sm90"],
             "library_ms": library_ms,
             "library": "torch SDPA, the same bool mask, enable_gqa",
-            "max_abs_err": err, "bytes": nbytes, "flops": flops,
+            "max_abs_err": errs["sm90"], "sm80_max_abs_err": errs["sm80"],
+            "bytes": nbytes, "flops": flops,
             "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "achieved_bytes_per_s": nbytes / (kernel_ms * 1e-3),
-            "launches": launches}
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def main():

@@ -76,10 +76,23 @@
 //    the most rows).  cudaFuncSetAttribute runs once per kernel and
 //    device.
 //
+//  * The forward takes the additive float32 mask of flash_attention.cu
+//    (element (b, h, r, c) at mask[b*m_sb + h*m_sh + r*m_sr + c], strides
+//    of 0 broadcasting): scores are in units of log2, so it adds mask *
+//    log2(e).  A consumer thread loads its 64 elements of a tile from
+//    global memory (through L2; pairs of columns as one 8-byte load where
+//    the rows are 8-byte aligned), with no branch per element, right after
+//    issuing the tile's S = Q K^T, so the loads travel while the product
+//    runs; with a mask every tile takes the per-element branch,
+//    since tile_full and key_range know only causal and the window.
+//    Loading mask tiles by TMA is later work.
+//
 // Not taken (the wrapper routes these to flash_attention.cu before any
-// launch): an additive or bool mask, float32, D other than 64 or 128, and
-// operands whose base or (batch, row, head) strides are not 16-byte
-// aligned.  The C entries return cudaErrorInvalidValue for them.
+// launch): a mask in the backward kernels (no card path trains with one,
+// and lse does not depend on the family that made it), float32, D other
+// than 64 or 128, and operands whose base or (batch, row, head) strides
+// are not 16-byte aligned.  The C entries return cudaErrorInvalidValue for
+// them.
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
@@ -630,14 +643,57 @@ __device__ __forceinline__ void release(uint32_t empty_bar) {
 constexpr int FWD_BC = 128;    // keys per stage
 constexpr int FWD_STAGES = 2;
 
-// one key tile of the online softmax: mask (edge tiles only), running
-// maximum m (in units of log2), row sums l (this thread's columns; the
-// quad sums them in the epilogue), p = exp2(s c - m) in place, corr the
-// factor that rescales the earlier output
-template <bool MASK, int N>
+// this thread's elements of the additive mask for the key tile at k0:
+// mv[i] is the element of accumulator element i (row rows[(i >> 1) & 1],
+// column k0 + 8 (i >> 2) + 2t + (i & 1)), from the mask of this (batch,
+// head) mg (element (row, col) at mg[row * m_sr + col]).  The caller
+// issues them all before the S product retires, so the loads travel
+// (through L2: every head and batch that broadcasts the mask reads the same
+// lines) while it runs; none waits on a branch.  Inside the key length
+// the two columns of an element pair are one 8-byte load where the mask's
+// rows are 8-byte aligned (`vec`); at the ragged edge the column is
+// clamped into the mask, as a row past Lq always is, so every load is
+// valid: such an element is never visible, and its value is never used.
+template <int N>
+__device__ __forceinline__ void load_mask(float (&mv)[N],
+                                          const float* __restrict__ mg,
+                                          const FlashParams& p,
+                                          const int (&rows)[2], int k0,
+                                          int t, bool vec) {
+  const float* base[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    base[r] = mg + (int64_t)min(rows[r], p.Lq - 1) * p.m_sr + k0 + 2 * t;
+  if (vec && k0 + 2 * N <= p.Lk) {
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float2 v = __ldg(reinterpret_cast<const float2*>(base[r] +
+                                                               8 * j));
+        mv[4 * j + 2 * r] = v.x;
+        mv[4 * j + 2 * r + 1] = v.y;
+      }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int col = min(k0 + 8 * (i >> 2) + 2 * t + (i & 1), p.Lk - 1);
+      mv[i] = __ldg(base[(i >> 1) & 1] - k0 - 2 * t + col);
+    }
+  }
+}
+
+// one key tile of the online softmax: mask (edge tiles, and every tile
+// when there is an additive mask), running maximum m (in units of log2),
+// row sums l (this thread's columns; the quad sums them in the epilogue),
+// p = exp2(s c - m) in place, corr the factor that rescales the earlier
+// output.  With ADD, mv holds the additive mask's elements (`load_mask`),
+// added in units of log2
+template <bool MASK, bool ADD, int N>
 __device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2],
                                              float (&l)[2], float (&corr)[2],
                                              const FlashParams& p,
+                                             const float (&mv)[N],
                                              const int (&rows)[2], int k0,
                                              int t, float c) {
   float mx[2] = {m[0], m[1]};
@@ -645,6 +701,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2],
   for (int i = 0; i < N; ++i) {
     const int r = (i >> 1) & 1;
     s[i] *= c;
+    if (ADD) s[i] = fmaf(mv[i], LOG2E, s[i]);
     if (MASK && !visible(p, rows[r], acc_col(k0, i, t))) s[i] = -INFINITY;
     mx[r] = fmaxf(mx[r], s[i]);
   }
@@ -699,6 +756,13 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int r0 = q0 + wg * 64;
     const int rows[2] = {r0 + warp * 16 + g, r0 + warp * 16 + g + 8};
     const float c = p.scale * LOG2E;
+    // tile_full and key_range know causal and the window only: with a
+    // mask every tile takes the per-element branch
+    const float* mg =
+        p.mask == nullptr ? nullptr : p.mask + b * p.m_sb + h * p.m_sh;
+    // the mask's rows 8-byte aligned: its pairs of columns load as float2
+    const bool mvec = reinterpret_cast<uintptr_t>(p.mask) % 8 == 0 &&
+                      p.m_sb % 2 == 0 && p.m_sh % 2 == 0 && p.m_sr % 2 == 0;
     float o[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
@@ -716,13 +780,17 @@ __global__ void __launch_bounds__(THREADS, 1)
         Wgmma<T, BC>::ss(s, desc_k<BR>(sm.q(0), wg * 64, kk),
                          desc_k<BC>(sm.k(st), 0, kk), kk > 0);
       wgmma_commit();
+      float mv[BC / 2];
+      if (mg != nullptr) load_mask(mv, mg, p, rows, k0, t, mvec);
       wgmma_wait();
       fence_regs(s);
       float corr[2];
-      if (tile_full<BC>(p, r0, k0))
-        softmax_tile<false>(s, m, l, corr, p, rows, k0, t, c);
+      if (mg != nullptr)
+        softmax_tile<true, true>(s, m, l, corr, p, mv, rows, k0, t, c);
+      else if (tile_full<BC>(p, r0, k0))
+        softmax_tile<false, false>(s, m, l, corr, p, mv, rows, k0, t, c);
       else
-        softmax_tile<true>(s, m, l, corr, p, rows, k0, t, c);
+        softmax_tile<true, false>(s, m, l, corr, p, mv, rows, k0, t, c);
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
       // O += P V: P from registers, V [keys, D] MN-major
@@ -1258,7 +1326,8 @@ int run(const FlashParams* p, Which which, int dtype, int device,
       p->H < p->Hkv || p->H % p->Hkv || p->H > 65535 || p->Lq < 1 ||
       p->Lk < 1 || (p->Lq + BR - 1) / BR > 65535 ||
       (p->Lk + BKV - 1) / BKV > 65535 || (p->D != 64 && p->D != 128) ||
-      p->window < 0 || p->mask != nullptr || (dtype != 1 && dtype != 2) ||
+      p->window < 0 || (bwd && p->mask != nullptr) ||
+      (dtype != 1 && dtype != 2) ||
       !operand_ok(p->q, p->q_sb, p->q_sl, p->q_sh) ||
       !operand_ok(p->k, p->k_sb, p->k_sl, p->k_sh) ||
       !operand_ok(p->v, p->v_sb, p->v_sl, p->v_sh) ||

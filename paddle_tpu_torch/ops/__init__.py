@@ -76,7 +76,8 @@ def _counters():
     """name -> (object, attribute) of each launch counter."""
     f = _flash.flash_attention
     out = {f"flash_{k}": (f, f"launches_{k}") for k in (
-        "fwd", "dkv", "dq", "fwd_sm90", "dkv_sm90", "dq_sm90")}
+        "fwd", "dkv", "dq", "fwd_sm90", "dkv_sm90", "dq_sm90",
+        "fwd_decode")}
     out["paged_decode"] = (paged_decode_attention, "launches")
     out["sdpa_plain"] = (sdpa, "plain_calls")
     return out

@@ -1,4 +1,4 @@
-"""Flash attention: two families of hand-written CUDA kernels, their
+"""Flash attention: three families of hand-written CUDA kernels, their
 wrappers, their plain PyTorch versions, and the autograd Function that
 joins them.
 
@@ -10,19 +10,31 @@ kernels `_fwd_kernel` (`:84`), `_dkv_kernel` (`:262`) and `_dq_kernel`
 
 Kernel families (each source note says what bounds its kernels and how
 they are laid out):
-- "sm80", `csrc/flash_attention.cu`: forward, dK/dV and dQ on mma.sync
-  tiles of 64 rows; every dtype (float32 too), masks, D a multiple of 8
-  up to 128.
+- "decode", `csrc/flash_decode.cu`: the forward alone, for short queries
+  (Lq <= `DECODE_MAX_LQ`: a decode step, a speculative verify step);
+  keys split across blocks (`decode_split_plan`, from Lk alone), one
+  block per (kv head, batch, split) covering the g * Lq query rows of
+  the kv head, partials merged by a second launch; every dtype, masks,
+  causal, window, D a multiple of 8 up to 128.
 - "sm90", `csrc/flash_attention_sm90.cu`: forward, dK/dV and dQ
   redesigned for Hopper (TMA ring, wgmma, warp specialisation; the
   forward and dQ q-stationary, dK/dV kv-stationary); bfloat16 / float16,
-  D 64 or 128, no mask, 16-byte aligned operands.
-`_sm90_route(q, k, v, m4, dtype)` picks the family from the arguments
-before any launch, one family for all three kernels: "sm90" for what
-that family takes, "sm80" for the rest.  There is no fallback on
-failure: a failed launch raises.  The keyword `_impl` of
-`flash_fwd_cuda`, `flash_bwd_dkv_cuda` and `flash_bwd_dq_cuda` forces a
-family, for A/B timing and the card tests only.
+  D 64 or 128, 16-byte aligned operands; the forward takes masks, the
+  backward kernels do not.
+- "sm80", `csrc/flash_attention.cu`: forward, dK/dV and dQ on mma.sync
+  tiles of 64 rows; every dtype (float32 too), masks, D a multiple of 8
+  up to 128: the rest.
+The families are picked from the arguments before any launch:
+`_fwd_route(q, k, v, m4, dtype)` gives "decode" for short queries,
+"sm90" for what that forward takes, "sm80" for the rest;
+`_sm90_route(q, k, v, m4, dtype)` gives the backward's family, one for
+dK/dV and dQ: "sm90" without a mask where it takes the rest, "sm80"
+otherwise (lse does not depend on the family that made it).  There is no
+fallback on failure: a failed build or launch raises.  The keyword
+`_impl` of `flash_fwd_cuda`, `flash_bwd_dkv_cuda` and
+`flash_bwd_dq_cuda` forces a family, for A/B timing and the card tests
+only; forcing one on arguments it does not take raises ValueError
+before any launch ("sm80" takes everything).
 
 Layout is (B, L, H, D), GQA reads kv head h // (H // Hkv) without a
 repeat, causal masking is bottom-right aligned over the real lengths
@@ -31,16 +43,19 @@ repeat, causal masking is bottom-right aligned over the real lengths
 batch, head and row broadcasts kept as strides of 0.  A row that sees
 nothing gives o = 0 and lse = -inf (XLA's softmax gives NaN there).
 The training path (bf16, D 128, causal, no mask, the q/k/v views of a
-fused qkv projection) takes the sm90 forward, dK/dV and dQ.
+fused qkv projection) takes the sm90 forward, dK/dV and dQ; generation's
+decode steps take the decode forward and its masked prefills the sm90
+forward.
 
 Tensors on the CPU take the plain versions; tensors on a CUDA device
 launch the kernels or raise — there is no fallback.  The kernels take D a
 multiple of 8 from 8 to 128 (the TPU kernel pads any D to 128 lanes);
 `supports()` is the JAX gate narrowed to that.
 `flash_attention.launches_fwd`, `.launches_dkv` and `.launches_dq` count
-every launch of each kernel, of either family; `.launches_fwd_sm90`,
+every launch of each kernel, of any family; `.launches_fwd_sm90`,
 `.launches_dkv_sm90` and `.launches_dq_sm90` count those of the sm90
-kernels.
+kernels, and `.launches_fwd_decode` those of the decode forward (one per
+call, its merge launch included).
 """
 from __future__ import annotations
 
@@ -56,6 +71,15 @@ _NEG_INF = float("-inf")
 _MAX_D = 128
 _SM90_DTYPES = (torch.bfloat16, torch.float16)
 _SM90_HEAD_DIMS = (64, 128)
+# queries of at most this many rows take the decode forward: a decode step
+# (1) and a speculative verify step (k + 1)
+DECODE_MAX_LQ = 16
+# keys a decode block walks (one 64-key tile, 16 a warp; at Mistral-7B's
+# decode shape 64 to 116 keys a split measured alike and 32 or fewer
+# slower, PERF.md), and the most splits a call takes (longer contexts take
+# longer splits)
+DECODE_SPLIT_KEYS = 64
+DECODE_MAX_SPLITS = 64
 
 
 class _Params(ctypes.Structure):
@@ -73,13 +97,21 @@ class _Params(ctypes.Structure):
         + [("scale", ctypes.c_float)])
 
 
-# source -> its launch entries
+# (params, dtype, device, stream); the decode entry takes its partials, the
+# split count and the keys a split after the params
+_ARGS = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_int,
+         ctypes.c_void_p]
+_DECODE_ARGS = _ARGS[:1] + [ctypes.c_void_p, ctypes.c_int,
+                            ctypes.c_int] + _ARGS[1:]
+# source -> {launch entry: its argtypes}
 _ENTRIES = {
-    "flash_attention": ("flash_attention_fwd", "flash_attention_bwd_dkv",
-                        "flash_attention_bwd_dq"),
-    "flash_attention_sm90": ("flash_attention_sm90_fwd",
-                             "flash_attention_sm90_bwd_dkv",
-                             "flash_attention_sm90_bwd_dq"),
+    "flash_attention": {n: _ARGS for n in (
+        "flash_attention_fwd", "flash_attention_bwd_dkv",
+        "flash_attention_bwd_dq")},
+    "flash_attention_sm90": {n: _ARGS for n in (
+        "flash_attention_sm90_fwd", "flash_attention_sm90_bwd_dkv",
+        "flash_attention_sm90_bwd_dq")},
+    "flash_decode": {"flash_decode_fwd": _DECODE_ARGS},
 }
 _libs = {}
 
@@ -89,10 +121,9 @@ def _kernel(source):
     lib = _libs.get(source)
     if lib is None:
         lib = _build.load(source)
-        for name in _ENTRIES[source]:
+        for name, argtypes in _ENTRIES[source].items():
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int,
-                           ctypes.c_int, ctypes.c_void_p]
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         getattr(lib, f"{source}_params_size").restype = ctypes.c_int
         err = getattr(lib, f"{source}_error_string")
@@ -134,8 +165,9 @@ def _normalize_mask(mask):
     elif m.dim() == 3:
         m = m[:, None]
     if m.dtype == torch.bool:
-        m = torch.zeros(m.shape, dtype=torch.float32,
-                        device=m.device).masked_fill_(~m, _NEG_INF)
+        # log(True) = 0 and log(False) = -inf exactly, in one elementwise
+        # launch (a fill and a masked fill take three on the card)
+        m = torch.log(m)
     return m.float().contiguous()
 
 
@@ -187,6 +219,56 @@ def flash_fwd_plain(q, k, v, mask=None, is_causal=False, scale=None,
     o = o.reshape(B, H, Lq, D).transpose(1, 2).to(q.dtype)
     lse = (m + torch.log(l_safe)).reshape(B, H, Lq)
     return o, lse
+
+
+def decode_split_plan(Lk, splits=None):
+    """(splits, keys a split) for the decode forward over Lk keys: splits
+    of `DECODE_SPLIT_KEYS` keys, at most `DECODE_MAX_SPLITS` of them (the
+    splits of a longer context grow instead), or `splits` of about equal
+    length when given.  No split is empty.  It reads Lk alone, never the
+    mask, so a captured graph keeps its shape."""
+    if splits is None:
+        n = min(-(-Lk // DECODE_SPLIT_KEYS), DECODE_MAX_SPLITS)
+    elif splits < 1:
+        raise ValueError(f"_splits must be >= 1, got {splits}")
+    else:
+        n = min(int(splits), Lk)
+    keys = -(-Lk // n)
+    return -(-Lk // keys), keys
+
+
+def flash_decode_plain(q, k, v, mask=None, is_causal=False, scale=None,
+                       window=None, splits=None):
+    """The decode forward's math in plain PyTorch -> (o, lse) as
+    `flash_fwd_plain` gives them: the keys cut as `decode_split_plan`
+    cuts them, each split's partial state (m, l, p.V with p rounded to v's
+    dtype against the split's maximum) in float32, and the partials merged
+    by their maxima; a split that sees nothing merges as empty.  For the
+    tests and `chip_smoke.py`; CPU tensors take `flash_fwd_plain`."""
+    B, Lq, H, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    window = _window(window, is_causal)
+    n, keys = decode_split_plan(Lk, splits)
+    s, _, _ = _scores(q, k, _normalize_mask(mask), is_causal,
+                      _scale(scale, D), window)       # [B, Hkv, g, Lq, Lk]
+    pad = n * keys - Lk
+    s = torch.nn.functional.pad(s, (0, pad), value=_NEG_INF)
+    s = s.unflatten(-1, (n, keys))                    # [.., Lq, n, keys]
+    vf = torch.nn.functional.pad(v.float().permute(0, 2, 1, 3),
+                                 (0, 0, 0, pad)).unflatten(2, (n, keys))
+    m = s.amax(dim=-1)                                # [.., Lq, n]
+    zero = torch.zeros_like(m)
+    p = torch.exp(s - torch.where(m == _NEG_INF, zero, m)[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgqnc,bkncd->bkgqnd", p.to(v.dtype).float(), vf)
+    mx = m.amax(dim=-1, keepdim=True)                 # [.., Lq, 1]
+    w = torch.exp(m - torch.where(mx == _NEG_INF, torch.zeros_like(mx), mx))
+    l = (w * l).sum(dim=-1)
+    acc = (w[..., None] * acc).sum(dim=-2)
+    l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    o = (acc / l_safe[..., None]).reshape(B, H, Lq, D).transpose(1, 2)
+    lse = (mx[..., 0] + torch.log(l_safe)).reshape(B, H, Lq)
+    return o.to(q.dtype), lse
 
 
 def flash_bwd_plain(q, k, v, do, lse, delta, mask=None, is_causal=False,
@@ -254,25 +336,53 @@ def _tma_strides(x):
             for s, c in zip(x.stride()[:3], (L * H * D, H * D, D))]
 
 
+def _sm90_takes(q, k, v, dtype):
+    """Whether the sm90 kernels take these operands: bfloat16 / float16,
+    D 64 or 128, and q, k, v that the tensor maps read as they are
+    (`_tma_ready`).  The forward takes a mask besides; the backward
+    kernels do not."""
+    return (dtype in _SM90_DTYPES and q.shape[-1] in _SM90_HEAD_DIMS
+            and all(_tma_ready(x) for x in (q, k, v)))
+
+
+def _families(q, k, v, m4, dtype, fwd):
+    """The families that take these arguments, the route's first: for the
+    forward "decode" (Lq <= DECODE_MAX_LQ), "sm90", "sm80"; for the
+    backward "sm90" (no mask), "sm80"."""
+    out = []
+    if fwd and q.shape[1] <= DECODE_MAX_LQ:
+        out.append("decode")
+    if (fwd or m4 is None) and _sm90_takes(q, k, v, dtype):
+        out.append("sm90")
+    return tuple(out) + ("sm80",)
+
+
+def _fwd_route(q, k, v, m4, dtype):
+    """The forward's family for these arguments, decided before any
+    launch: "decode" for short queries, "sm90" where those kernels take
+    the operands (masked or not), "sm80" otherwise."""
+    return _families(q, k, v, m4, dtype, True)[0]
+
+
 def _sm90_route(q, k, v, m4, dtype):
-    """The kernel family for these arguments, decided before any launch:
-    "sm90" for bfloat16 / float16, D 64 or 128, no mask, and q, k, v that
-    the tensor maps read as they are (`_tma_ready`); "sm80" otherwise."""
-    if m4 is not None or dtype not in _SM90_DTYPES:
-        return "sm80"
-    if q.shape[-1] not in _SM90_HEAD_DIMS:
-        return "sm80"
-    return "sm90" if all(_tma_ready(x) for x in (q, k, v)) else "sm80"
+    """The backward's family (dK/dV and dQ together) for these arguments,
+    decided before any launch: "sm90" without a mask where those kernels
+    take the operands, "sm80" otherwise."""
+    return _families(q, k, v, m4, dtype, False)[0]
 
 
-def _family(q, k, v, m4, impl):
-    """The route, or the family `impl` forces ("sm80" always can; "sm90"
-    only where the route takes it)."""
-    route = _sm90_route(q, k, v, m4, q.dtype)
-    if impl is None or impl == route or impl == "sm80":
-        return impl or route
-    raise ValueError(f"the {impl} flash kernels do not take these "
-                     f"arguments (the route gives {route})")
+def _family(q, k, v, m4, impl, fwd=False):
+    """The route of the forward (`fwd`) or the backward, or the family
+    `impl` forces; a family that does not take the arguments raises
+    ValueError ("sm80" takes everything)."""
+    fams = _families(q, k, v, m4, q.dtype, fwd)
+    if impl is None:
+        return fams[0]
+    if impl in fams:
+        return impl
+    raise ValueError(f"the {impl} flash {'forward' if fwd else 'backward'} "
+                     f"kernels do not take these arguments (the route "
+                     f"gives {fams[0]})")
 
 
 def _check(q, k, v, m4, extra=()):
@@ -331,9 +441,9 @@ def _set(p, name, x, strides):
         setattr(p, f"{name}_{s}", v)
 
 
-def _launch(source, fn, p, q):
+def _launch(source, fn, p, q, *extra):
     lib = _kernel(source)
-    rc = getattr(lib, fn)(ctypes.byref(p), _DTYPE_CODES[q.dtype],
+    rc = getattr(lib, fn)(ctypes.byref(p), *extra, _DTYPE_CODES[q.dtype],
                           q.device.index or 0,
                           torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
@@ -343,8 +453,8 @@ def _launch(source, fn, p, q):
 
 def _operands(p, impl, named):
     """Point p at each (name, tensor): as the tensor maps read it (sm90,
-    tensors already `_tma_ready`), or as `_operand` returns it (sm80, which
-    may copy).  Returns the tensors launched on."""
+    tensors already `_tma_ready`), or as `_operand` returns it (sm80 and
+    decode, which may copy).  Returns the tensors launched on."""
     out = []
     for name, x in named:
         if impl == "sm90":
@@ -357,15 +467,18 @@ def _operands(p, impl, named):
 
 
 def flash_fwd_cuda(q, k, v, mask=None, is_causal=False, scale=None,
-                   window=None, *, _impl=None):
+                   window=None, *, _impl=None, _splits=None):
     """Launch a forward kernel -> (o (B, Lq, H, D), lse (B, H, Lq)
-    float32): the family `_sm90_route` picks, or the one `_impl` forces
-    (A/B timing and card tests only).  CUDA tensors only; raises on what
-    the kernel does not take."""
+    float32): the family `_fwd_route` picks, or the one `_impl` forces,
+    and for the decode family the split count `decode_split_plan` gives
+    or `_splits` forces (A/B timing and card tests only).  CUDA tensors
+    only; raises on what the kernel does not take."""
     window = _window(window, is_causal)
     m4 = _normalize_mask(mask)
     _check(q, k, v, m4)
-    impl = _family(q, k, v, m4, _impl)
+    impl = _family(q, k, v, m4, _impl, fwd=True)
+    if _splits is not None and impl != "decode":
+        raise ValueError(f"_splits is for the decode family, not {impl}")
     B, Lq, H, D = q.shape
     p = _params(q, k, v, m4, is_causal, _scale(scale, D), window)
     q, k, v = _operands(p, impl, (("q", q), ("k", k), ("v", v)))
@@ -373,7 +486,17 @@ def flash_fwd_cuda(q, k, v, mask=None, is_causal=False, scale=None,
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     _set(p, "o", o, _operand(o)[1])
     p.lse_out = lse.data_ptr()
-    if impl == "sm90":
+    if impl == "decode":
+        splits, keys = decode_split_plan(k.shape[1], _splits)
+        # partials per call: inside a captured graph they come from the
+        # graph's pool (csrc/flash_decode.cu says why)
+        part = None if splits == 1 else torch.empty(
+            B * H * Lq * splits * (D + 2), dtype=torch.float32,
+            device=q.device)
+        _launch("flash_decode", "flash_decode_fwd", p, q,
+                None if part is None else part.data_ptr(), splits, keys)
+        flash_attention.launches_fwd_decode += 1
+    elif impl == "sm90":
         _launch("flash_attention_sm90", "flash_attention_sm90_fwd", p, q)
         flash_attention.launches_fwd_sm90 += 1
     else:
@@ -413,8 +536,9 @@ def _bwd_params(q, k, v, do, lse, delta, mask, is_causal, scale, window,
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, mask=None, is_causal=False,
                        scale=None, window=None, *, _impl=None):
     """Launch a dK/dV kernel -> (dk, dv), given lse and delta (B, H, Lq)
-    float32: the family `_sm90_route` picks, or the one `_impl` forces
-    (A/B timing and card tests only).  CUDA tensors only."""
+    float32 (from any forward family): the family `_sm90_route` picks, or
+    the one `_impl` forces (A/B timing and card tests only).  CUDA tensors
+    only."""
     p, held, impl = _bwd_params(q, k, v, do, lse, delta, mask, is_causal,
                                 scale, window, _impl)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
@@ -525,6 +649,7 @@ flash_attention.launches_fwd = 0
 flash_attention.launches_dkv = 0
 flash_attention.launches_dq = 0
 flash_attention.launches_fwd_sm90 = 0
+flash_attention.launches_fwd_decode = 0
 flash_attention.launches_dkv_sm90 = 0
 flash_attention.launches_dq_sm90 = 0
 

@@ -15,7 +15,8 @@ valid.  Slots are created at the first step on each parameter's device
 (`init_state`, `:95-119`): float32, plus a float32 `master` copy of a
 bfloat16 / float16 parameter when master weights are on (AMP O2), which
 then carries the update while the parameter gets its rounded value.
-Parameters that do not require grad get no slots.  The learning rate is
+Parameters that do not require grad get no slots; one unfrozen after
+that raises at the next update until the state is rebuilt.  The learning rate is
 a float (LR schedulers are a later slice); clipping runs on the `.grad`
 tensors first.  Nothing waits for the card.
 """
@@ -121,6 +122,16 @@ class Optimizer:
                                   self._state):
             if p.grad is None or not p.requires_grad:
                 continue
+            if not slots:
+                # every optimizer here gives a trainable parameter at least
+                # one slot: an empty dict is a parameter that was frozen
+                # when the slots were made (the reference raises a bare
+                # KeyError from its rule here)
+                raise RuntimeError(
+                    f"parameter {name!r} has a grad but no optimizer "
+                    f"state: it was frozen when the state was made. "
+                    f"Rebuild the optimizer (or call init_state()) after "
+                    f"unfreezing it")
             dec = self._decayed(name)
             gf = p.grad.float()
             pf = slots["master"] if "master" in slots else p.detach().float()

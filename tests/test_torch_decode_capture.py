@@ -95,7 +95,8 @@ def test_launch_counts_add_and_read():
     before = ops.launch_counts()
     assert set(before) == {"flash_fwd", "flash_dkv", "flash_dq",
                            "flash_fwd_sm90", "flash_dkv_sm90",
-                           "flash_dq_sm90", "paged_decode", "sdpa_plain"}
+                           "flash_dq_sm90", "flash_fwd_decode",
+                           "paged_decode", "sdpa_plain"}
     ops.add_launch_counts({"flash_fwd": 2, "paged_decode": 1}, times=3)
     after = ops.launch_counts()
     assert after["flash_fwd"] == before["flash_fwd"] + 6

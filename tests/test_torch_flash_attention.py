@@ -228,3 +228,92 @@ def test_flash_window_matches_plain_sdpa_window():
         tfa.flash_attention(q, k, v, is_causal=True, window=9).numpy(),
         nn_kernels.sdpa(q, k, v, is_causal=True, sliding_window=9).numpy(),
         **TOL)
+
+
+# ------------------------------------------------------ the decode family
+# The decode forward's plain version (the split partials and their merge,
+# what csrc/flash_decode.cu computes) against the JAX kernel and against
+# the port's flash_fwd_plain, at the generation paths' short queries.
+# name: (B, Lq, Lk, H, Hkv, D, causal, window, mask kind)
+DECODE_CASES = {
+    # key padding that leaves the last splits wholly masked, GQA 4
+    "decode_gqa4_padding": (2, 1, 96, 8, 2, 16, False, 0, "short_rows"),
+    # a window that bites: the left splits see nothing, GQA 7
+    "decode_gqa7_window": (2, 1, 80, 14, 2, 16, True, 12, None),
+    # a verify step (Lq 5) under causal, a window and a padding mask
+    "verify_gqa4_window_mask": (2, 5, 90, 8, 2, 16, True, 20,
+                                "bool_padding"),
+    # a verify step with a row that sees nothing, GQA 7
+    "verify_gqa7_dead_row": (2, 5, 70, 7, 1, 16, False, 0, "dead_row"),
+}
+
+
+def _decode_case(name, dtype):
+    B, Lq, Lk, H, Hkv, D, causal, window, kind = DECODE_CASES[name]
+    rng = np.random.default_rng(11)
+    q, k, v = (rng.standard_normal(s).astype(np.float32) for s in
+               ((B, Lq, H, D), (B, Lk, Hkv, D), (B, Lk, Hkv, D)))
+    mask = None
+    if kind == "short_rows":            # (B, 1, 1, Lk): rows of 20 and 45
+        mask = (np.arange(Lk)[None, :]
+                < np.array([20, 45])[:, None])[:, None, None, :]
+    elif kind == "bool_padding":
+        mask = _mask(kind, B, Lq, Lk, H, rng)
+    elif kind == "dead_row":            # (B, Lq, Lk), row 2 of batch 1 empty
+        mask = rng.random((B, Lq, Lk)) < 0.7
+        mask[1, 2] = False
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    ref = _jax(jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+               None if mask is None else jnp.asarray(mask), causal, window)
+    ref = np.asarray(jnp.asarray(ref, jnp.float32))
+    t = [torch.from_numpy(x).to(dtype) for x in (q, k, v)]
+    tm = None if mask is None else torch.from_numpy(mask)
+    return t, tm, causal, window, ref
+
+
+_DECODE_REFS = {}
+
+
+def _decode_ref(name, dtype):
+    """The case's inputs and the JAX output, made once per case and dtype
+    (the JAX reference does not depend on the split count)."""
+    if (name, dtype) not in _DECODE_REFS:
+        _DECODE_REFS[name, dtype] = _decode_case(name, dtype)
+    return _DECODE_REFS[name, dtype]
+
+
+# float32: both sides float32, summed in another order (JAX blockwise, the
+# plain version per split then merged): 1e-5.  bfloat16: both round p to
+# bfloat16 before P.V but against other maxima (a JAX key block's running
+# maximum, a split's), and o rounds once: 2 units in the last place of
+# bfloat16 at the scale of the unit-normal v, 1.6e-2 (chip_smoke.py's
+# FLASH_FWD_TOL).  lse is float32 in both dtypes: 1e-5.
+DECODE_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+              torch.bfloat16: dict(rtol=1.6e-2, atol=1.6e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("splits", range(1, 9))
+@pytest.mark.parametrize("name", sorted(DECODE_CASES))
+def test_decode_plain_matches_jax_and_flash_plain(name, splits, dtype):
+    (q, k, v), mask, causal, window, ref = _decode_ref(name, dtype)
+    n, keys = tfa.decode_split_plan(k.shape[1], splits)
+    assert n == splits and (n - 1) * keys < k.shape[1] <= n * keys
+    o, lse = tfa.flash_decode_plain(q, k, v, mask, causal, None, window,
+                                    splits)
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    np.testing.assert_allclose(o.float().numpy(), ref, **DECODE_TOL[dtype])
+    want_o, want_lse = tfa.flash_fwd_plain(q, k, v, mask, causal, None,
+                                           window)
+    np.testing.assert_allclose(o.float().numpy(), want_o.float().numpy(),
+                               **DECODE_TOL[dtype])
+    # lse: -inf exactly where a row sees nothing, else float32 close
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(want_lse))
+    fin = torch.isfinite(want_lse)
+    np.testing.assert_allclose(lse[fin].numpy(), want_lse[fin].numpy(),
+                               rtol=1e-5, atol=1e-5)
+    if name == "verify_gqa7_dead_row":
+        assert not o[1, 2].float().any() and torch.isneginf(lse[1, :, 2]).all()
+    if name in ("decode_gqa4_padding", "decode_gqa7_window") and splits > 2:
+        assert torch.isfinite(lse).all()    # empty splits merged as empty

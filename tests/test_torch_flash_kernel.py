@@ -8,10 +8,13 @@ setup of tests/conftest.py:
 
 On the CPU the `cuda` tests skip; the rest hold the plain versions (what
 the wrappers run for CPU tensors) against float64 dense attention and its
-autograd gradients, and the route that picks a kernel family.  The card
-tests run each case through both families: "sm80" (csrc/flash_attention.cu)
-and "sm90" (csrc/flash_attention_sm90.cu, forward, dK/dV and dQ), forced
-with the wrappers' `_impl`.  The parity of this op with the JAX package is in
+autograd gradients, and the routes that pick a kernel family.  The card
+tests run each case through the families that take it: "sm80"
+(csrc/flash_attention.cu), "sm90" (csrc/flash_attention_sm90.cu: forward,
+masked or not, dK/dV and dQ without a mask) and, for short queries,
+"decode" (csrc/flash_decode.cu, the forward at every split count), forced
+with the wrappers' `_impl` and `_splits`; and the decode forward inside
+captured CUDA graphs.  The parity of this op with the JAX package is in
 tests/test_torch_flash_attention.py.
 """
 import numpy as np
@@ -41,6 +44,13 @@ CASES = {
     "d8": (1, 33, 33, 2, 2, 8, True, 0, None),
     "d72": (1, 65, 65, 2, 1, 72, True, 0, None),
     "d128": (1, 130, 130, 2, 2, 128, True, 0, None),
+    # short queries (the decode family): a window that bites at GQA 4, a
+    # verify step (Lq 5) under a padding mask at GQA 7, an additive mask
+    # at GQA 8 and D 128
+    "decode_gqa4_window": (2, 1, 300, 8, 2, 64, True, 50, None),
+    "verify_gqa7_padding": (2, 5, 150, 14, 2, 128, True, 0, "bool_padding"),
+    "decode_gqa8_additive": (3, 1, 129, 16, 2, 128, False, 0,
+                             "additive_full"),
 }
 
 
@@ -219,12 +229,13 @@ def _bwd_args(q):
     return (torch.ones_like(q), torch.zeros(B, H, L), torch.zeros(B, H, L))
 
 
-# name, the family of the forward and dQ, the family of dK/dV
+# name, the family of the forward, the family of dK/dV and dQ (Lq 64: no
+# case here is short enough for the decode forward)
 @pytest.mark.parametrize("name, family, dkv_family", [
     ("bf16_d128_causal_fused_qkv", "sm90", "sm90"),
     ("fp16_d64_gqa_window", "sm90", "sm90"),
     ("float32", "sm80", "sm80"),
-    ("additive_mask", "sm80", "sm80"),
+    ("additive_mask", "sm90", "sm80"),
     ("d96", "sm80", "sm80"),
     ("misaligned_view", "sm80", "sm80"),
     ("batch1", "sm90", "sm90"),
@@ -232,15 +243,23 @@ def _bwd_args(q):
 def test_sm90_route(name, family, dkv_family):
     q, k, v, mask = _route_case(name)
     m4 = fa._normalize_mask(mask)
-    assert fa._sm90_route(q, k, v, m4, q.dtype) == family
-    assert fa._family(q, k, v, m4, None) == family
+    assert fa._fwd_route(q, k, v, m4, q.dtype) == family
+    assert fa._family(q, k, v, m4, None, fwd=True) == family
+    assert fa._sm90_route(q, k, v, m4, q.dtype) == dkv_family
+    assert fa._family(q, k, v, m4, None) == dkv_family
     assert fa._family(q, k, v, m4, "sm80") == "sm80"
+    assert fa._family(q, k, v, m4, "sm80", fwd=True) == "sm80"
+    with pytest.raises(ValueError):
+        fa._family(q, k, v, m4, "decode", fwd=True)
     # a backward launch's parameters take the route too (no launch here)
     _, _, impl = fa._bwd_params(q, k, v, *_bwd_args(q), mask, True, None, 0)
     assert impl == dkv_family
-    if family == "sm80":
+    if dkv_family == "sm80":
         with pytest.raises(ValueError):
             fa._family(q, k, v, m4, "sm90")
+    if family == "sm80":
+        with pytest.raises(ValueError):
+            fa._family(q, k, v, m4, "sm90", fwd=True)
         return
     # the tensor maps take the tensors' own strides: a fused view's row
     # stride is 3 H D, and a size-1 batch keeps the stride torch gives it
@@ -265,6 +284,72 @@ def test_dkv_forced_to_sm90_raises_before_any_launch(name):
                               _impl="sm90")
     assert (fa.flash_attention.launches_dkv,
             fa.flash_attention.launches_dkv_sm90) == before
+
+
+def _short(Lq, dtype=torch.bfloat16, D=128, mask=False):
+    """q (2, Lq, 8, D), k and v (2, 96, 2, D) on the CPU, and a bool
+    mask (2, 1, Lq, 96) or None."""
+    g = torch.Generator().manual_seed(Lq)
+    q = torch.randn(2, Lq, 8, D, generator=g).to(dtype)
+    k, v = (torch.randn(2, 96, 2, D, generator=g).to(dtype)
+            for _ in range(2))
+    m = torch.rand(2, 1, Lq, 96, generator=g) < 0.8 if mask else None
+    return q, k, v, m
+
+
+@pytest.mark.parametrize("Lq", [1, 5, 16, 17])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask", [False, True])
+def test_decode_route(Lq, dtype, mask):
+    """Short queries (Lq <= DECODE_MAX_LQ), masked or not, in any dtype,
+    take the decode forward; the backward keeps its own route; "sm90" and
+    "sm80" may be forced on a short query where they take it, "decode"
+    never on a longer one nor on the backward."""
+    q, k, v, m = _short(Lq, dtype, mask=mask)
+    m4 = fa._normalize_mask(m)
+    short = Lq <= fa.DECODE_MAX_LQ
+    sm90 = dtype == torch.bfloat16
+    want = "decode" if short else "sm90" if sm90 else "sm80"
+    assert fa._fwd_route(q, k, v, m4, dtype) == want
+    assert fa._family(q, k, v, m4, None, fwd=True) == want
+    assert fa._families(q, k, v, m4, dtype, True) == (
+        ("decode",) * short + ("sm90",) * sm90 + ("sm80",))
+    assert fa._sm90_route(q, k, v, m4, dtype) == (
+        "sm90" if sm90 and not mask else "sm80")
+    with pytest.raises(ValueError, match="backward"):
+        fa._family(q, k, v, m4, "decode")
+    if not short:
+        with pytest.raises(ValueError, match="decode"):
+            fa._family(q, k, v, m4, "decode", fwd=True)
+
+
+@pytest.mark.parametrize("impl, splits, Lq", [
+    ("decode", None, 17), ("sm90", None, 1), ("sm80", 2, 1), (None, 2, 17),
+    ("decode", 0, 1), ("paged", None, 1)])
+def test_forward_forced_wrongly_raises_before_any_launch(impl, splits, Lq):
+    """Forcing a forward family (or a split count) on arguments it does
+    not take raises ValueError in the wrapper, before a library is loaded
+    or a kernel launched: float32 for sm90, Lq 17 for decode, `_splits`
+    outside the decode family or below 1 (these tensors are on the CPU,
+    so any launch would fail otherwise)."""
+    q, k, v, m = _short(Lq, torch.float32, mask=True)
+    before = _counts()
+    with pytest.raises(ValueError):
+        fa.flash_fwd_cuda(q, k, v, m, _impl=impl, _splits=splits)
+    assert _counts() == before
+
+
+@pytest.mark.parametrize("Lk, want", [
+    (1, (1, 1)), (64, (1, 64)), (65, (2, 33)), (576, (9, 64)),
+    (581, (10, 59)), (4096, (64, 64)), (4097, (64, 65)),
+    (64 * 64 * 8, (64, 512))])
+def test_decode_split_plan(Lk, want):
+    """Splits of 64 keys, at most 64 of them, from Lk alone; none empty."""
+    assert fa.decode_split_plan(Lk) == want
+    for forced in range(1, 10):
+        n, keys = fa.decode_split_plan(Lk, forced)
+        assert n == min(forced, Lk) or (n < forced and n * keys >= Lk)
+        assert (n - 1) * keys < Lk <= n * keys
 
 
 def test_tma_strides_replace_a_zero_stride_of_a_size1_dim():
@@ -310,15 +395,18 @@ FWD_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
 BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 4e-3}
 
 
+def _counts():
+    f = fa.flash_attention
+    return (f.launches_fwd, f.launches_dkv, f.launches_dq,
+            f.launches_fwd_sm90, f.launches_dkv_sm90, f.launches_dq_sm90,
+            f.launches_fwd_decode)
+
+
 def bwd_error(got, want):
     return float((got.float() - want.float()).abs().max()
                  / want.float().abs().max().clamp(min=1e-30))
 
 
-def _counts():
-    f = fa.flash_attention
-    return (f.launches_fwd, f.launches_dkv, f.launches_dq,
-            f.launches_fwd_sm90, f.launches_dkv_sm90, f.launches_dq_sm90)
 
 
 @pytest.mark.cuda
@@ -328,11 +416,13 @@ def _counts():
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_kernels_match_plain_on_card(card, name, dtype, family):
     """Each case through one kernel family.  A case the sm90 kernels do
-    not take (float32, a mask, D other than 64 or 128) must be routed to
-    sm80, and forcing sm90 on it must raise before any launch."""
+    not take (float32, D other than 64 or 128) must be routed elsewhere,
+    and forcing sm90 on it must raise before any launch; the sm90 forward
+    takes a mask, its backward kernels do not (forcing them raises)."""
     q, k, v, do, mask, kw = make_inputs(name, dtype=dtype, device=card)
     m4 = fa._normalize_mask(mask)
-    if family == "sm90" and fa._sm90_route(q, k, v, m4, dtype) != "sm90":
+    if family == "sm90" and "sm90" not in fa._families(q, k, v, m4, dtype,
+                                                       True):
         before = _counts()
         with pytest.raises(ValueError):
             fa.flash_fwd_cuda(q, k, v, mask, **kw, _impl="sm90")
@@ -342,23 +432,94 @@ def test_kernels_match_plain_on_card(card, name, dtype, family):
     before = _counts()
     o, lse = fa.flash_fwd_cuda(q, k, v, mask, **kw, _impl=family)
     torch.cuda.synchronize()
-    assert _counts() == tuple(c + d for c, d in zip(before,
-                                                     (1, 0, 0, sm90, 0, 0)))
+    assert _counts() == tuple(c + d for c, d in zip(
+        before, (1, 0, 0, sm90, 0, 0, 0)))
     ref_o, ref_lse = fa.flash_fwd_plain(q, k, v, mask, **kw)
     torch.testing.assert_close(o.float(), ref_o.float(), **FWD_TOL[dtype])
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
 
     delta = fa._delta(do, ref_o)
+    if family == "sm90" and m4 is not None:
+        before = _counts()
+        with pytest.raises(ValueError):
+            fa.flash_bwd_dkv_cuda(q, k, v, do, ref_lse, delta, mask, **kw,
+                                  _impl="sm90")
+        assert _counts() == before
+        return
     dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, ref_lse, delta, mask, **kw,
                                    _impl=family)
     dq = fa.flash_bwd_dq_cuda(q, k, v, do, ref_lse, delta, mask, **kw,
                               _impl=family)
     torch.cuda.synchronize()
-    assert _counts()[4:] == (before[4] + sm90, before[5] + sm90)
+    assert _counts()[4:6] == (before[4] + sm90, before[5] + sm90)
     want = fa.flash_bwd_plain(q, k, v, do, ref_lse, delta, mask, **kw)
     for nm, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert bwd_error(a, b) <= BWD_TOL[dtype], (nm, bwd_error(a, b))
+
+
+DECODE_NAMES = sorted(n for n, c in CASES.items()
+                      if c[1] <= fa.DECODE_MAX_LQ)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("name", DECODE_NAMES)
+def test_decode_kernel_matches_plain_on_card(card, name, dtype, splits):
+    """Each short-query case through the decode forward at every split
+    count (None: the plan's), against its plain version (the same splits
+    and merge) and against flash_fwd_plain, with the forward tolerances;
+    the route takes it there without forcing."""
+    q, k, v, _, mask, kw = make_inputs(name, dtype=dtype, device=card)
+    assert fa._fwd_route(q, k, v, fa._normalize_mask(mask),
+                         dtype) == "decode"
+    before = _counts()
+    o, lse = fa.flash_fwd_cuda(q, k, v, mask, **kw, _impl="decode",
+                               _splits=splits)
+    torch.cuda.synchronize()
+    assert _counts() == tuple(c + d for c, d in zip(
+        before, (1, 0, 0, 0, 0, 0, 1)))
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    for ref_o, ref_lse in (
+            fa.flash_decode_plain(q, k, v, mask, splits=splits, **kw),
+            fa.flash_fwd_plain(q, k, v, mask, **kw)):
+        torch.testing.assert_close(o.float(), ref_o.float(), **FWD_TOL[dtype])
+        torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_in_captured_graphs(card):
+    """Two captured programs of different Lk (one split, and ten with a
+    wholly masked tail), replayed in turns on fresh inputs: each replay
+    equals the plain version.  The partials come from each graph's own
+    pool, so neither replay reads memory the other freed or shares."""
+    progs = []
+    for Lk, lens in ((60, (60, 33)), (620, (600, 301))):
+        q = torch.empty(2, 1, 32, 128, device=card, dtype=torch.bfloat16)
+        k = torch.empty(2, Lk, 8, 128, device=card, dtype=torch.bfloat16)
+        v = torch.empty_like(k)
+        mask = (torch.arange(Lk, device=card)[None, :]
+                < torch.tensor(lens, device=card)[:, None])[:, None, None]
+        for x in (q, k, v):
+            x.normal_()
+        fa.flash_fwd_cuda(q, k, v, mask)         # built and loaded
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            o, lse = fa.flash_fwd_cuda(q, k, v, mask)
+        progs.append((graph, (q, k, v, mask), (o, lse)))
+    for turn in range(6):
+        graph, (q, k, v, mask), (o, lse) = progs[turn % 2]
+        for x in (q, k, v):
+            x.normal_()
+        graph.replay()
+        torch.cuda.synchronize()
+        ref_o, ref_lse = fa.flash_fwd_plain(q, k, v, mask)
+        torch.testing.assert_close(o.float(), ref_o.float(),
+                                   **FWD_TOL[torch.bfloat16])
+        torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -387,7 +548,7 @@ def test_autograd_on_card_takes_the_sm90_forward_and_dq(card):
     before = _counts()
     fa.flash_attention(q, k, v, is_causal=True).backward(do)
     torch.cuda.synchronize()
-    assert _counts() == tuple(c + 1 for c in before)
+    assert _counts() == tuple(c + 1 for c in before[:6]) + before[6:]
     assert qkv.grad is not None and bool(torch.isfinite(qkv.grad).all())
 
 

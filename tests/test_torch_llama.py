@@ -261,6 +261,44 @@ def test_dense_logits_match_jax_bfloat16(pair):
                                atol=BF16_LOGIT_ATOL)
 
 
+# The bfloat16 error against float32 of each package, on a Mistral-shaped
+# model (GQA 4, a window that bites) at 4 layers.  The JAX model runs the
+# residual stream in float32 after layer 0 (rope promotes q and k), the
+# port keeps every activation in bfloat16 and so rounds once more per
+# residual add, rope and attention input: its error may exceed the
+# reference's, but by less than 2x (measured on the CPU: 1.4x to 1.6x
+# over seeds 0 to 2).  A larger factor would be a fault in the port's
+# bfloat16 path, not rounding.
+BF16_ERR_FACTOR = 2.0
+MISTRAL_4L = dict(vocab_size=256, hidden_size=128, num_layers=4, num_heads=8,
+                  num_kv_heads=2, intermediate_size=448,
+                  max_position_embeddings=128, sliding_window=16)
+
+
+def test_bfloat16_error_in_line_with_the_reference():
+    ids = _ids(2, 48, vocab=256)
+    errs = {}
+    for name, cast in (("float32", None), ("bfloat16", torch.bfloat16)):
+        pt.seed(0)
+        jm = JaxLlama(JaxLlamaConfig(tensor_parallel=False, **MISTRAL_4L))
+        jm.eval()
+        tm = LlamaForCausalLM(LlamaConfig(**MISTRAL_4L), device="cpu")
+        load_paddle_tpu_state(tm, {k: np.asarray(v)
+                                   for k, v in jm.state_dict().items()})
+        if cast is not None:
+            jm = pt.amp.decorate(models=jm, dtype="bfloat16")
+            tm = tm.to(cast)
+        with torch.no_grad():
+            errs[name] = (_bf16_np(jm(_j(ids))._array),
+                          tm.eval()(_t(ids)).float().numpy())
+    (jf, tf), (jb, tb) = errs["float32"], errs["bfloat16"]
+    np.testing.assert_allclose(tf, jf, **LOGIT_TOL)
+    ref_err = float(np.abs(jb - jf).max())
+    port_err = float(np.abs(tb - tf).max())
+    assert 0 < ref_err and port_err <= BF16_ERR_FACTOR * ref_err, \
+        (port_err, ref_err)
+
+
 def test_prealloc_and_concat_decode_logits_match_jax(pair):
     """Prefill then three single-token steps through the preallocated
     cache (shared pos, then per-row pos) and the concat cache: every

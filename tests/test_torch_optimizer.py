@@ -159,3 +159,27 @@ def test_step_clips_then_updates_and_clear_grad():
     assert p.grad is None
     assert opt.get_lr() == 0.1
 
+
+
+def test_parameter_unfrozen_after_init_raises_until_rebuilt():
+    """A parameter frozen when the slots were made and unfrozen later has
+    no slots: the update raises a RuntimeError naming it (the reference
+    raises a bare KeyError from its rule), and `init_state()` after
+    unfreezing makes its slots."""
+    rng = np.random.default_rng(3)
+    a, b = (torch.nn.Parameter(torch.from_numpy(
+        rng.standard_normal((4, 3)).astype(np.float32))) for _ in range(2))
+    b.requires_grad_(False)
+    opt = topt.AdamW(learning_rate=0.1, parameters=[a, b])
+    opt._param_names = ["a", "b"]
+    a.grad = torch.ones_like(a)
+    opt.step()
+    b.requires_grad_(True)
+    a.grad, b.grad = torch.ones_like(a), torch.ones_like(b)
+    frozen = b.detach().clone()
+    with pytest.raises(RuntimeError, match="'b'.*init_state"):
+        opt.step()
+    assert torch.equal(b.detach(), frozen)
+    opt.init_state()
+    opt.step()
+    assert not torch.equal(b.detach(), frozen)
