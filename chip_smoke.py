@@ -90,13 +90,48 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    with SDPA under the same mask, and a sweep of split
                    counts; the sm90 and sm80 forward at generation's
                    masked prefill (B 4, Lq 512, Lk 576) in turns, with
-                   SDPA under the same mask.
+                   SDPA under the same mask;
+13. train_llama  — LLaMA as bench.py::run_llama trains it on one card
+                   (hidden 2048, 16 layers, 16 heads, intermediate 5504,
+                   vocab 32000, seq 1024, batch 4, recompute, AMP O2 bf16
+                   without master weights, Adafactor(1e-4), TrainStep):
+                   3 warm-up and 10 timed steps, tokens/s, step p50/p99,
+                   MFU, peak memory, losses; recompute launches the flash
+                   forward twice a layer a step and dK/dV and dQ once,
+                   all on sm90, and sdpa its plain path no time;
+14. train_llama_e2e — 2 layers, hidden 512, GQA 4/2, recompute, float32,
+                   AdamW, 3 steps: card against CPU (losses, parameters);
+15. lora         — LLaMA-7B (full size, bf16) with LoRA r 16 / alpha 32
+                   on q/k/v/o, AdamW(1e-4) with float32 masters of the
+                   adapters only, seq 1024, batch 4, recompute: tokens/s,
+                   step p50, peak memory, the optimizer's state bytes
+                   (the adapters' slots only), the base bit-identical and
+                   every lora_B moved; then captured jit_generate ->
+                   merge() -> jit_generate, in bf16 (the program rebuilt,
+                   equal to the uncaptured step) and in float32 (tokens
+                   identical before and after the merge);
+16. weight_only  — Mistral-7B (the generate phase's shape) in bf16, then
+                   converted to weight-only int8 and int4 (lm_head kept):
+                   captured generate of each, tokens/s, step p50/p99,
+                   weight bytes, peak memory; every quantized token
+                   within MARGIN_TOL under a float32 forward of its
+                   dequantized weights;
+17. resnet       — ResNet-50 as bench.py::run_resnet trains it (batch 256,
+                   s2d_stem, bf16 O2 without master weights,
+                   Momentum(0.1, 0.9), TrainStep), NCHW then NHWC:
+                   images/s, step p50/p99, MFU, peak memory, losses;
+18. resnet_e2e   — resnet18 in float32, NCHW and NHWC: an eval forward,
+                   then 3 steps with batch norm in train mode, card
+                   against CPU (logits, losses, parameters, running
+                   statistics).
 
+The kernels line counts the flash launches of phases 6-10 and 13-16.
 Each phase prints one JSON line.  Then one {"kernels": [...]} line, the
 card's name and power limit from nvidia-smi, and last
 {"ok": true, "device": {...}}.  Any failure raises and exits nonzero
 before the last line; without a CUDA device it exits 1 at once.
 """
+import gc
 import json
 import re
 import subprocess
@@ -1252,6 +1287,13 @@ def step_ms(step, n):
     return out
 
 
+def release():
+    """Collect reference cycles first (a model can sit in one until the
+    collector runs), then hand the cached blocks back to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def pct(xs):
     return {"p50": float(np.percentile(xs, 50)),
             "p99": float(np.percentile(xs, 99))}
@@ -1626,6 +1668,545 @@ def phase_generate_e2e(batch=2, prompt=128, new=32):
     return flash_part(counts)
 
 
+# --------------------------------------------------- training families
+def ce_loss(model, x, labels):
+    """bench.py's loss for run_llama and run_resnet: cross entropy of the
+    model's logits, mean."""
+    from paddle_tpu_torch.nn import functional as PF
+    return PF.cross_entropy(model(x), labels)
+
+
+def phase_train_llama(steps=10, warmup=3, batch=4, seq=1024):
+    """LLaMA trained as bench.py::run_llama trains it on one card (every
+    fleet degree 1, so the harness is TrainStep): hidden 2048, 16 layers,
+    16 heads, intermediate 5504, vocab 32000, seq 1024, batch 4,
+    recompute, AMP O2 bf16 without master weights, Adafactor(1e-4).
+    Recompute runs each block's forward twice a step (once in the
+    forward, once again in the backward), so the flash forward launches
+    2 x layers times a step and dK/dV and dQ once a layer."""
+    from paddle_tpu_torch import amp, ops
+    from paddle_tpu_torch.jit import train_step
+    from paddle_tpu_torch.optimizer import Adafactor
+    from paddle_tpu_torch.text import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(vocab_size=32000, hidden_size=2048, num_layers=16,
+                      num_heads=16, intermediate_size=5504,
+                      max_position_embeddings=seq, use_recompute=True)
+    model = LlamaForCausalLM(
+        cfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    opt = Adafactor(learning_rate=1e-4, parameters=model.parameters())
+    model, opt = amp.decorate(models=model, optimizers=opt,
+                              dtype="bfloat16", master_weight=False)
+    step = train_step(model, ce_loss, opt)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
+                        device="cuda")
+    labels = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
+                           device="cuda")
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, times = [], []
+    for _ in range(warmup + steps):
+        t0 = time.perf_counter()
+        losses.append(step(ids, labels).item())     # waits for the card
+        times.append(time.perf_counter() - t0)
+    counts = flash_counts()
+    plain_calls = ops.sdpa.plain_calls
+    timed = np.array(times[warmup:])
+    n_params = sum(p.numel() for p in model.parameters())
+    flops = train_flops(n_params, cfg, batch, seq)
+    total = warmup + steps
+    want = {"fwd": 2 * cfg.num_layers * total,
+            "dkv": cfg.num_layers * total, "dq": cfg.num_layers * total}
+    emit({"phase": "train_llama", "model": "llama (bench.py::run_llama)",
+          "hidden": cfg.hidden_size, "layers": cfg.num_layers,
+          "heads": cfg.num_heads, "intermediate": cfg.intermediate_size,
+          "vocab": cfg.vocab_size, "seq": seq, "batch": batch,
+          "recompute": True, "dtype": "bfloat16",
+          "amp": "O2, master_weight=False", "optimizer": "Adafactor(1e-4)",
+          "n_params": n_params, "warmup_steps": warmup, "timed_steps": steps,
+          "tokens_per_s": steps * batch * seq / float(timed.sum()),
+          "step_p50_ms": float(np.percentile(timed, 50)) * 1e3,
+          "step_p99_ms": float(np.percentile(timed, 99)) * 1e3,
+          "step_ms": [t * 1e3 for t in times],
+          "flops_per_step": flops,
+          "mfu": flops / float(timed.mean()) / BF16_FLOPS,
+          "mfu_formula": "train_flops (6 N tokens + 6 layers seq hidden "
+                         "tokens; recompute not counted) / mean step / "
+                         "989e12",
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "losses": losses, "flash_launches": counts,
+          "flash_launches_expected": want, "sdpa_plain_calls": plain_calls})
+    assert all(np.isfinite(losses)), f"nonfinite loss in {losses}"
+    assert abs(losses[0] - np.log(cfg.vocab_size)) < 1.0, losses[0]
+    for k, n in want.items():
+        assert counts[k] == counts[f"{k}_sm90"] == n, \
+            f"flash {k}: {counts}, want {n} each on sm90"
+    assert counts["fwd_decode"] == 0, counts
+    assert plain_calls == 0, f"sdpa took its plain path {plain_calls} times"
+    del step, opt, model
+    release()
+    return counts
+
+
+def param_error(card, cpu, init):
+    """The card's parameters' distance from the CPU's, relative to how far
+    the updates moved the CPU's from `init`."""
+    num = den = 0.0
+    card_params = dict(card.named_parameters())
+    for n, p in cpu.named_parameters():
+        num += float((card_params[n].detach().cpu() - p.detach())
+                     .double().square().sum())
+        den += float((p.detach() - init[n]).double().square().sum())
+    return (num / den) ** 0.5
+
+
+def phase_train_llama_e2e(steps=3, batch=2, seq=128):
+    """The LLaMA training step on the card against the same on the CPU: 2
+    layers, hidden 512, GQA 4 / 2, recompute, float32, AdamW, the same
+    weights and batch.  The card runs the flash kernels (float32: sm80),
+    the CPU the plain versions."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.jit import train_step
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text import LlamaConfig, LlamaForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = LlamaConfig(vocab_size=32000, hidden_size=512, num_layers=2,
+                      num_heads=4, num_kv_heads=2, intermediate_size=1376,
+                      max_position_embeddings=seq, use_recompute=True)
+    card = LlamaForCausalLM(
+        cfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(2))
+    cpu = LlamaForCausalLM(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    init = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    rng = np.random.default_rng(2)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)))
+
+    def train(model, dev):
+        step = train_step(model, ce_loss,
+                          AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                parameters=model.parameters()))
+        return [step(ids.to(dev), labels.to(dev)).item()
+                for _ in range(steps)]
+
+    zero_counts()
+    card_losses = train(card, "cuda")
+    counts = flash_counts()
+    L = cfg.num_layers
+    assert counts == {"fwd": 2 * L * steps, "dkv": L * steps,
+                      "dq": L * steps, "fwd_sm90": 0, "dkv_sm90": 0,
+                      "dq_sm90": 0, "fwd_decode": 0}, counts
+    assert ops.sdpa.plain_calls == 0
+    t0 = time.perf_counter()
+    cpu_losses = train(cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses,
+                                                       cpu_losses))
+    perr = param_error(card, cpu, init)
+    emit({"phase": "train_llama_e2e",
+          "model": "llama, hidden 512, 2 layers, GQA 4/2, recompute",
+          "dtype": "float32", "optimizer": "AdamW(1e-4, wd 0.01)",
+          "batch": batch, "seq": seq, "steps": steps,
+          "card_losses": card_losses, "cpu_losses": cpu_losses,
+          "loss_max_rel_err": loss_err, "loss_tol": 1e-5,
+          "param_rel_err": perr, "param_tol": 1e-3,
+          "cpu_seconds": cpu_s, "flash_launches": counts})
+    assert loss_err <= 1e-5, f"card and CPU losses differ by {loss_err}"
+    assert perr <= 1e-3, f"card and CPU parameters differ: {perr}"
+    del card, cpu
+    release()
+    return counts
+
+
+LLAMA_LORA_TARGETS = [".*q_proj", ".*k_proj", ".*v_proj", ".*o_proj"]
+
+
+def lora_merge_check(lora, ids, new):
+    """Greedy jit_generate (captured) -> merge() -> jit_generate again, and
+    the same step uncaptured after the merge; unmerges at the end.
+    Returns (before, after, uncaptured after, graphs captured)."""
+    from paddle_tpu_torch.text import decode
+    lora.__dict__.pop("_jit_decode_cache", None)
+    before = decode.jit_generate(lora, ids, max_new_tokens=new)
+    built = next(iter(lora._jit_decode_cache.values()))
+    lora.merge()
+    after = decode.jit_generate(lora, ids, max_new_tokens=new)
+    rebuilt = next(iter(lora._jit_decode_cache.values()))
+    plain = decode.jit_generate(lora, ids, max_new_tokens=new,
+                                _capture=False)
+    lora.unmerge()
+    lora.__dict__.pop("_jit_decode_cache")
+    return (before, after, plain,
+            built.graph is not None and rebuilt.graph is not None
+            and rebuilt is not built)
+
+
+def phase_lora(warmup=2, steps=5, batch=4, seq=1024, prompt=128, new=32):
+    """LoRA fine-tuning of LLaMA-7B (full width and depth, bf16, random
+    base weights from seed 0): r 16, alpha 32 on q/k/v/o, AdamW(1e-4) on
+    the adapters (AMP O2, float32 master copies of the adapters only),
+    seq 1024, batch 4, recompute.  The base must stay bit-identical and
+    the adapters must move.  Then eval: captured jit_generate, merge(),
+    captured jit_generate again.  In bfloat16 a merged weight is rounded
+    once where the unmerged layer adds the adapter's product, which flips
+    near-tied greedy tokens of random weights (as the generate phase's
+    captured-vs-eager share shows), so bf16 reports the share of equal
+    tokens and holds the captured program after the merge to the
+    uncaptured step; the model is then cast to float32 (TF32 off) and
+    the tokens before and after the merge must be identical."""
+    from paddle_tpu_torch import amp, ops
+    from paddle_tpu_torch.jit import train_step
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.text.peft import LoRAConfig, get_peft_model
+
+    cfg = LlamaConfig.from_preset("llama-7b", max_position_embeddings=seq,
+                                  use_recompute=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             generator=gen)
+    lora = get_peft_model(model, LoRAConfig(
+        r=16, lora_alpha=32, target_modules=LLAMA_LORA_TARGETS),
+        generator=gen)
+    opt = AdamW(learning_rate=1e-4, parameters=lora.trainable_parameters())
+    lora, opt = amp.decorate(models=lora, optimizers=opt, dtype="bfloat16")
+    step = train_step(lora, ce_loss, opt)
+    base = {n: p.detach().cpu() for n, p in lora.named_parameters()
+            if not p.requires_grad}       # on the host: peak memory is ours
+    g = torch.Generator(device="cuda").manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
+                        device="cuda")
+    labels = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
+                           device="cuda")
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, times = [], []
+    for _ in range(warmup + steps):
+        t0 = time.perf_counter()
+        losses.append(step(ids, labels).item())
+        times.append(time.perf_counter() - t0)
+    train_counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    timed = np.array(times[warmup:])
+    adapters = lora.adapter_state_dict()
+    names = {id(p): n for n, p in lora.model.named_parameters()}
+    slotted = {names[id(p)]: slots for p, slots in
+               zip(opt._parameters, opt._state) if slots}
+    state_bytes = sum(t.numel() * t.element_size()
+                      for slots in opt._state for t in slots.values())
+    n_adapter = sum(p.numel() for p in adapters.values())
+    frozen_equal = all(torch.equal(p.cpu(), base[n])
+                       for n, p in lora.named_parameters()
+                       if not p.requires_grad)
+    moved = sum(bool(torch.count_nonzero(p)) for n, p in adapters.items()
+                if "lora_B" in n)
+    del step, opt, base
+    release()
+
+    lora.eval()
+    gids = ids[:, :prompt]
+    zero_counts()
+    before, after, plain, captured = lora_merge_check(lora, gids, new)
+    gen_counts = read_counts()
+    bf16 = {"captured_rebuilt_after_merge": captured,
+            "after_equals_uncaptured": bool(torch.equal(after, plain)),
+            "before_vs_after_share": float((before == after).float().mean())}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lora.float()
+    before, after, plain, captured = lora_merge_check(lora, gids, new)
+    f32 = {"captured_rebuilt_after_merge": captured,
+           "after_equals_uncaptured": bool(torch.equal(after, plain)),
+           "before_equals_after": bool(torch.equal(before, after))}
+    tokens = batch * seq
+    emit({"phase": "lora", "model": "llama-7b", "dtype": "bfloat16",
+          "layers": cfg.num_layers, "r": 16, "alpha": 32,
+          "targets": LLAMA_LORA_TARGETS, "seq": seq, "batch": batch,
+          "recompute": True, "optimizer": "AdamW(1e-4), master copies of "
+          "the adapters", "warmup_steps": warmup, "timed_steps": steps,
+          "tokens_per_s": steps * tokens / float(timed.sum()),
+          "step_p50_ms": float(np.percentile(timed, 50)) * 1e3,
+          "step_ms": [t * 1e3 for t in times],
+          "peak_memory_gib": peak, "losses": losses,
+          "adapter_params": n_adapter,
+          "optimizer_state_bytes": state_bytes,
+          "optimizer_state_bytes_per_adapter_param": state_bytes / n_adapter,
+          "slotted_params": len(slotted), "adapter_tensors": len(adapters),
+          "base_bit_identical": frozen_equal, "lora_B_moved": moved,
+          "train_launches": train_counts, "generate_launches": gen_counts,
+          "generate": {"prompt_tokens": prompt, "new_tokens": new,
+                       "batch": batch, "bfloat16": bf16, "float32": f32}})
+    assert all(np.isfinite(losses)), losses
+    assert set(slotted) == set(adapters), "slots beyond the adapters"
+    assert state_bytes == 3 * 4 * n_adapter, state_bytes   # m1, m2, master
+    assert frozen_equal, "a frozen base weight changed"
+    assert moved == len(lora.replaced), f"{moved} lora_B tensors moved"
+    assert train_counts["sdpa_plain"] == 0, train_counts
+    assert train_counts["flash_fwd_sm90"] == 2 * cfg.num_layers * (
+        warmup + steps), train_counts
+    assert bf16["captured_rebuilt_after_merge"] and \
+        bf16["after_equals_uncaptured"], bf16
+    assert all(f32.values()), f32
+    del lora, model
+    release()
+    return {"lora_train": flash_part(train_counts),
+            "lora_generate": flash_part(gen_counts)}
+
+
+def weight_bytes(model):
+    return sum(t.numel() * t.element_size()
+               for t in list(model.parameters()) + list(model.buffers()))
+
+
+def captured_decode(model, ids, new):
+    """Captured greedy jit_generate twice (the first call builds and
+    captures), then the step alone, then a profile of 8 steps: (tokens,
+    record, launches of the second call).  The peak memory is read after
+    the two calls, as the generate phase reads it."""
+    first, build_s = sync_time(lambda: model.generate(ids,
+                                                      max_new_tokens=new))
+    zero_counts()
+    out, wall_s = sync_time(lambda: model.generate(ids, max_new_tokens=new))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30   # as `generate` reads
+    prog = next(iter(model._jit_decode_cache.values()))
+    assert prog.graph is not None, "the decode step was not captured"
+    assert torch.equal(first, out)
+    _, prefill_s = sync_time(lambda: prog.prefill(ids))
+    steps = step_ms(prog.step, new - 1)
+    prog.prefill(ids)
+    prof = busy(prog.step, min(8, new - 1), pct(steps)["p50"])
+    b = ids.shape[0]
+    return out, {"tokens_per_s": b * new / wall_s, "wall_s": wall_s,
+                 "first_call_s": build_s, "prefill_ms": prefill_s * 1e3,
+                 "decode_tokens_per_s": b * 1e3 / pct(steps)["p50"],
+                 "step_ms": pct(steps), "profile": prof,
+                 "peak_memory_gib": peak,
+                 "weight_bytes": weight_bytes(model)}, counts
+
+
+def phase_weight_only(batch=4, prompt=512, new=64):
+    """Mistral-7B (full width and depth, random weights from seed 0, the
+    generate phase's shape) in bf16, then built again from the same seed
+    and converted to weight-only int8, then int4 (lm_head kept bf16):
+    captured generate of each, with tokens/s, step p50/p99, a profile,
+    weight bytes and peak memory (one model alive at a time); each
+    quantized model's tokens against a float32 forward over its own
+    dequantized weights (`weight_only_linear` in float32, TF32 off)."""
+    from paddle_tpu_torch.nn.quant import convert_to_weight_only
+    from paddle_tpu_torch.text import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.from_preset("mistral-7b")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g,
+                        device="cuda")
+    rec = {"phase": "weight_only", "model": "mistral-7b", "batch": batch,
+           "prompt_tokens": prompt, "new_tokens": new,
+           "skip": "lm_head", "margin_tol": MARGIN_TOL}
+    paths = {}
+    for algo in (None, "weight_only_int8", "weight_only_int4"):
+        name = algo[len("weight_only_"):] if algo else "bfloat16"
+        model = LlamaForCausalLM(
+            cfg, device="cuda", dtype=torch.bfloat16,
+            generator=torch.Generator(device="cuda").manual_seed(0))
+        if algo:
+            convert_to_weight_only(model, algo=algo,
+                                   skip=lambda n, layer: n == "lm_head")
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        seqs, r, counts = captured_decode(model, ids, new)
+        r["launches"] = counts
+        paths[f"weight_only/{name}"] = flash_part(counts)
+        model._jit_decode_cache.clear()
+        if algo:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            model.float()
+            r["margin"] = margin(lm_logits(model, seqs, prompt), seqs,
+                                 prompt)
+            r["step_p50_vs_bf16"] = (r["step_ms"]["p50"]
+                                     / rec["bfloat16"]["step_ms"]["p50"])
+            r["weight_bytes_vs_bf16"] = (r["weight_bytes"]
+                                         / rec["bfloat16"]["weight_bytes"])
+        rec[name] = r
+        del model, seqs
+        release()
+    emit(rec)
+    for name in ("bfloat16", "int8", "int4"):
+        c = rec[name]["launches"]
+        assert c["sdpa_plain"] == 0, (name, c)
+        assert c["flash_fwd"] == new * cfg.num_layers, (name, c)
+        assert c["flash_fwd"] == c["flash_fwd_decode"] + \
+            c["flash_fwd_sm90"], (name, c)
+        if name != "bfloat16":
+            assert rec[name]["margin"] <= MARGIN_TOL, \
+                f"{name}: a token sits {rec[name]['margin']} below the max"
+    return paths
+
+
+# ResNet-50 model flops a training image: 4.09 GFLOP a forward at 224 x
+# 224 (multiply-adds counted as 2), the backward twice that
+RESNET50_FWD_FLOPS = 4.09e9
+
+
+def phase_resnet(batch=256, steps=10, warmup=3):
+    """ResNet-50 trained as bench.py::run_resnet trains it: batch 256 at
+    224 x 224, s2d_stem, AMP O2 bf16 without master weights,
+    Momentum(0.1, 0.9), cross entropy, TrainStep; NCHW, then NHWC
+    (channels-last).  cuDNN's autotuner is on (the warm-up steps pay for
+    it), as XLA autotunes its convolutions."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import train_step
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    rec = {"phase": "resnet", "model": "resnet50", "batch": batch,
+           "image": 224, "s2d_stem": True, "dtype": "bfloat16",
+           "amp": "O2, master_weight=False",
+           "optimizer": "Momentum(0.1, 0.9)", "warmup_steps": warmup,
+           "timed_steps": steps,
+           "mfu_formula": "3 x 4.09e9 flop an image x images/s / 989e12"}
+    for fmt in ("NCHW", "NHWC"):
+        model = resnet50(num_classes=1000, s2d_stem=True, data_format=fmt,
+                         device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(0))
+        opt = Momentum(learning_rate=0.1, momentum=0.9,
+                       parameters=model.parameters())
+        model, opt = amp.decorate(models=model, optimizers=opt,
+                                  dtype="bfloat16", master_weight=False)
+        step = train_step(model, ce_loss, opt)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        shape = (batch, 3, 224, 224) if fmt == "NCHW" else (batch, 224, 224,
+                                                            3)
+        x = torch.randn(shape, generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        y = torch.randint(0, 1000, (batch,), generator=g, device="cuda")
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for _ in range(warmup + steps):
+            t0 = time.perf_counter()
+            losses.append(step(x, y).item())
+            times.append(time.perf_counter() - t0)
+        timed = np.array(times[warmup:])
+        ips = steps * batch / float(timed.sum())
+        rec[fmt] = {"images_per_s": ips,
+                    "step_p50_ms": float(np.percentile(timed, 50)) * 1e3,
+                    "step_p99_ms": float(np.percentile(timed, 99)) * 1e3,
+                    "step_ms": [t * 1e3 for t in times],
+                    "mfu": 3 * RESNET50_FWD_FLOPS * ips / BF16_FLOPS,
+                    "peak_memory_gib":
+                        torch.cuda.max_memory_allocated() / 2**30,
+                    "losses": losses,
+                    "running_mean_dtype": str(model.bn1._mean.dtype)}
+        assert all(np.isfinite(losses)), (fmt, losses)
+        assert abs(losses[0] - np.log(1000)) < 2.0, (fmt, losses[0])
+        assert model.bn1._mean.dtype == torch.float32
+        del step, opt, model, x
+        release()
+    torch.backends.cudnn.benchmark = bench
+    rec["nhwc_speedup"] = (rec["NHWC"]["images_per_s"]
+                           / rec["NCHW"]["images_per_s"])
+    emit(rec)
+
+
+def phase_resnet_e2e(steps=3, batch=8, image=64):
+    """resnet18 (10 classes, s2d_stem) in float32, NCHW and NHWC, on the
+    card (cuDNN, TF32 off) and on the CPU, both held to a float64 run of
+    the same weights and batch on the CPU: an eval forward (logits), then
+    3 steps with batch norm in train mode and Momentum(0.01, 0.9) (the
+    losses, the parameters' distance relative to how far the steps moved
+    them, every running statistic).  A float32 gradient of this network
+    is ill-conditioned where a ReLU or max-pool input sits within
+    rounding of its kink: the CPU's own float32 run strays from float64
+    by up to several percent in some tensors at some seeds.  So the
+    card's error must be within 4x the CPU's float32 error, or under the
+    stated floor."""
+    import copy
+
+    from paddle_tpu_torch.jit import train_step
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet18
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((batch, 3, image, image)).astype(np.float32)
+    y = torch.from_numpy(rng.integers(0, 10, batch))
+    floors = {"logits": 1e-4, "losses": 1e-4, "params": 1e-3,
+              "running_stats": 1e-3}
+    rec = {"phase": "resnet_e2e", "model": "resnet18, 10 classes",
+           "dtype": "float32", "reference": "CPU float64",
+           "optimizer": "Momentum(0.01, 0.9)", "batch": batch,
+           "image": image, "steps": steps, "floors": floors,
+           "rule": "card error <= max(floor, 4 x CPU float32 error)"}
+    for fmt in ("NCHW", "NHWC"):
+        xf = torch.from_numpy(x if fmt == "NCHW"
+                              else x.transpose(0, 2, 3, 1).copy())
+        card = resnet18(num_classes=10, s2d_stem=True, data_format=fmt,
+                        device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(6))
+        cpu = resnet18(num_classes=10, s2d_stem=True, data_format=fmt,
+                       device="cpu")
+        cpu.load_state_dict(card.state_dict())
+        ref = copy.deepcopy(cpu).double()
+        init = {n: p.detach().double().clone()
+                for n, p in ref.named_parameters()}
+        runs = {"card": (card, "cuda", torch.float32),
+                "cpu": (cpu, "cpu", torch.float32),
+                "ref": (ref, "cpu", torch.float64)}
+        out = {}
+        for name, (model, dev, dt) in runs.items():
+            with torch.no_grad():
+                logits = model.eval()(xf.to(dev, dt)).double().cpu()
+            model.train()
+            step = train_step(model, ce_loss,
+                              Momentum(learning_rate=0.01, momentum=0.9,
+                                       parameters=model.parameters()))
+            losses = [step(xf.to(dev, dt), y.to(dev)).item()
+                      for _ in range(steps)]
+            out[name] = (logits, losses,
+                         {n: p.detach().double().cpu()
+                          for n, p in model.named_parameters()},
+                         {n: b.double().cpu()
+                          for n, b in model.named_buffers()})
+        rl, rloss, rp, rb = out["ref"]
+        moved = sum(float((rp[n] - init[n]).square().sum()) for n in rp)
+        errs = {}
+        for name in ("card", "cpu"):
+            lg, ls, ps, bs = out[name]
+            errs[name] = {
+                "logits": float((lg - rl).abs().max() / rl.abs().max()),
+                "losses": max(abs(a - b) / abs(b) for a, b in zip(ls,
+                                                                  rloss)),
+                "params": (sum(float((ps[n] - rp[n]).square().sum())
+                               for n in rp) / moved) ** 0.5,
+                "running_stats": max(float((bs[n] - b).abs().max()
+                                           / b.abs().max().clamp(min=1e-6))
+                                     for n, b in rb.items())}
+        rec[fmt] = {"card_losses": out["card"][1],
+                    "cpu_losses": out["cpu"][1], "ref_losses": rloss,
+                    "card_vs_float64": errs["card"],
+                    "cpu_float32_vs_float64": errs["cpu"]}
+        del card, cpu, ref, runs, out
+    emit(rec)
+    release()
+    for fmt in ("NCHW", "NHWC"):
+        card, cpu = (rec[fmt]["card_vs_float64"],
+                     rec[fmt]["cpu_float32_vs_float64"])
+        for k, floor in floors.items():
+            assert card[k] <= max(floor, 4 * cpu[k]), (fmt, k, card, cpu)
+
+
 def decode_shape_timing(fa, flush):
     """The flash forward at the Mistral-7B decode shape: Lq 1, a per-row
     [4, 1, 1, 576] bool mask, GQA 32 / 8, D 128, bf16.  The decode kernel
@@ -1769,6 +2350,12 @@ def main():
                   for name, counts in phase_generate().items()})
     serve_llama = phase_serve_llama()
     paths["generate_e2e"] = phase_generate_e2e()
+    paths["train_llama"] = phase_train_llama()
+    paths["train_llama_e2e"] = phase_train_llama_e2e()
+    paths.update(phase_lora())
+    paths.update(phase_weight_only())
+    phase_resnet()
+    phase_resnet_e2e()
     paged = phase_timings(launches + serve_llama["paged_decode"], lens)
     paged["launches_by_path"] = {"serve": launches,
                                  "serve_llama": serve_llama["paged_decode"]}

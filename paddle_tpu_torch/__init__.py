@@ -14,7 +14,11 @@ training step: the flash-attention forward and backward kernels in CUDA
 (`optimizer`), and `TrainStep` (`jit`); and generation with the LLaMA
 family: `text.decode.jit_generate` (the decode step captured as a CUDA
 graph), eager `text.generate`, beam search and speculative decoding, and
-`LlamaForCausalLM` / `Qwen2ForCausalLM` (LLaMA, Mistral, Qwen2).
+`LlamaForCausalLM` / `Qwen2ForCausalLM` (LLaMA, Mistral, Qwen2); and the
+training families: LoRA (`text.peft`), weight-only int8 / int4
+(`nn.quant`), HF checkpoint conversion (`text.convert`), and ResNet
+(`vision.models`) over `nn.Conv2D`, `nn.BatchNorm2D`, the pooling layers
+and `optimizer.Momentum`.
 """
 from .device import generator, resolve_device, seed
 

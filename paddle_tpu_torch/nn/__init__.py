@@ -4,10 +4,15 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from . import functional
+from . import functional, quant
 from .clip import ClipGradByGlobalNorm
+from .conv import Conv2D
+from .norm import BatchNorm, BatchNorm2D
+from .pooling import AdaptiveAvgPool2D, AvgPool2D, MaxPool2D
 
-__all__ = ["ClipGradByGlobalNorm", "Dropout", "RMSNorm", "functional"]
+__all__ = ["AdaptiveAvgPool2D", "AvgPool2D", "BatchNorm", "BatchNorm2D",
+           "ClipGradByGlobalNorm", "Conv2D", "Dropout", "MaxPool2D",
+           "RMSNorm", "functional", "quant"]
 
 
 class Dropout(nn.Module):

@@ -6,8 +6,13 @@ Counterpart: `paddle_tpu/nn/functional.py` — `dropout` (`:117-129`),
 Ported here: what the GPT training step runs — upscale-in-train dropout,
 attention with dropout on its output, and hard-label cross entropy with
 `ignore_index` — and what the LLaMA family adds: `silu` (`:19`) and
-`rms_norm` (`rms_norm_k`, `paddle_tpu/ops/nn_kernels.py:266-272`).
-Weighted, soft-label and smoothed cross entropy are not ported yet.
+`rms_norm` (`rms_norm_k`, `paddle_tpu/ops/nn_kernels.py:266-272`); and
+what ResNet runs: `conv2d` (`:146-154`), `batch_norm` (`:354-382`),
+`max_pool2d`, `avg_pool2d` and `adaptive_avg_pool2d` (`:183-213`), each
+in NCHW or NHWC.  NHWC tensors [b, H, W, c] run as NCHW-shaped views
+with channels-last strides (`torch.channels_last`), so no layout copy is
+made around the op.  Weighted, soft-label and smoothed cross entropy are
+not ported yet.
 
 Randomness goes through an explicit `torch.Generator` (None: PyTorch's
 default generator of the tensor's device).  The JAX package draws from
@@ -82,3 +87,143 @@ def cross_entropy(input, label, ignore_index=-100, reduction="mean"):
                          f"{reduction!r}")
     valid = (label != ignore_index).to(loss.dtype)
     return loss.sum() / valid.sum().clamp(min=1e-12)
+
+
+# ------------------------------------------------------------ vision ops
+def _pair(v):
+    return tuple(int(x) for x in v) if isinstance(v, (list, tuple)) \
+        else (int(v), int(v))
+
+
+def _pads(padding):
+    """((top, bottom), (left, right)) from an int, a pair or a 4-list
+    (`_conv_padding` of the JAX package)."""
+    if isinstance(padding, int):
+        return ((padding, padding), (padding, padding))
+    p = [int(v) for v in padding]
+    if len(p) == 2:
+        return ((p[0], p[0]), (p[1], p[1]))
+    if len(p) == 4:
+        return ((p[0], p[1]), (p[2], p[3]))
+    raise ValueError(f"bad padding {padding}")
+
+
+def _nchw(x, data_format):
+    """x as NCHW: an NHWC tensor becomes a channels-last view."""
+    if data_format == "NHWC":
+        return x.permute(0, 3, 1, 2)
+    if data_format != "NCHW":
+        raise ValueError(f"data_format must be NCHW or NHWC, not "
+                         f"{data_format!r}")
+    return x
+
+
+def _back(out, data_format):
+    return out.permute(0, 2, 3, 1) if data_format == "NHWC" else out
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW"):
+    """2-D convolution with an OIHW weight; `padding` an int, a pair, a
+    4-list (top, bottom, left, right) or "SAME" / "VALID"."""
+    xc = _nchw(x, data_format)
+    if isinstance(padding, str):
+        pad = padding.lower()
+    else:
+        (t, b), (l, r) = _pads(padding)
+        if t != b or l != r:
+            xc = F.pad(xc, (l, r, t, b))
+            t = l = 0
+        pad = (t, l)
+    out = F.conv2d(xc, weight, bias, _pair(stride), pad, _pair(dilation),
+                   groups)
+    return _back(out, data_format)
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-5,
+               data_format="NCHW"):
+    """Batch norm over every axis but the channel one.  Training
+    normalises by the batch statistics and updates the float32 running
+    statistics IN PLACE with the JAX package's convention, running =
+    momentum * running + (1 - momentum) * batch, the variance unbiased
+    (torch's `momentum` is the weight of the batch: 1 - momentum here).
+    Eval normalises by the running statistics.  The scale and shift take
+    part in the statistics' dtype (float32), so a bfloat16 x meets float32
+    statistics and returns bfloat16."""
+    channels_last = data_format in ("NHWC", "NLC", "NDHWC") and x.dim() > 2
+    xc = x.movedim(-1, 1) if channels_last else x
+    dt = running_mean.dtype
+    out = F.batch_norm(xc, running_mean, running_var,
+                       None if weight is None else weight.to(dt),
+                       None if bias is None else bias.to(dt),
+                       training=training, momentum=1.0 - momentum,
+                       eps=epsilon)
+    return out.movedim(1, -1) if channels_last else out
+
+
+def _ceil_extra(size, k, s, p):
+    """Extra bottom / right padding that gives ceil_mode's output size
+    (`_ceil_extra` of the JAX package)."""
+    eff = size + p[0] + p[1]
+    return (-(-(eff - k) // s) - (eff - k) // s) * s
+
+
+def _pool_geometry(x, kernel_size, stride, padding, ceil_mode):
+    k = _pair(kernel_size)
+    s = _pair(stride if stride is not None else kernel_size)
+    p = _pads(padding)
+    if ceil_mode:
+        p = tuple((p[i][0], p[i][1] + _ceil_extra(x.shape[2 + i], k[i], s[i],
+                                                  p[i])) for i in range(2))
+    return k, s, p
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, data_format="NCHW"):
+    """Max pooling, padding counting as -inf.  `return_mask` (NCHW, and
+    padding torch's pooling takes: symmetric, at most half the window,
+    no ceil_mode) also returns each maximum's flat index into its input
+    map."""
+    if return_mask and data_format == "NHWC":
+        raise NotImplementedError("return_mask with NHWC pooling")
+    xc = _nchw(x, data_format)
+    k, s, ((t, b), (l, r)) = _pool_geometry(xc, kernel_size, stride,
+                                            padding, ceil_mode)
+    if t == b and l == r and t <= k[0] // 2 and l <= k[1] // 2:
+        out = F.max_pool2d(xc, k, s, (t, l), return_indices=return_mask)
+        return out if return_mask else _back(out, data_format)
+    if return_mask:
+        raise NotImplementedError(
+            "return_mask with asymmetric, ceil_mode or wide padding")
+    low = float("-inf") if xc.is_floating_point() else \
+        torch.iinfo(xc.dtype).min
+    out = F.max_pool2d(F.pad(xc, (l, r, t, b), value=low), k, s)
+    return _back(out, data_format)
+
+
+def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, data_format="NCHW"):
+    """Average pooling over zero padding; with `exclusive` and any
+    padding (ceil_mode's included) each window divides by the input
+    elements it covers, else by the window size."""
+    xc = _nchw(x, data_format)
+    k, s, p = _pool_geometry(xc, kernel_size, stride, padding, ceil_mode)
+    (t, b), (l, r) = p
+    summed = F.avg_pool2d(F.pad(xc, (l, r, t, b)), k, s, divisor_override=1)
+    if exclusive and any(pi != (0, 0) for pi in p):
+        ones = torch.ones((1, 1) + tuple(xc.shape[2:]), dtype=xc.dtype,
+                          device=xc.device)
+        counts = F.avg_pool2d(F.pad(ones, (l, r, t, b)), k, s,
+                              divisor_override=1)
+        out = summed / counts.clamp(min=1.0)
+    else:
+        out = summed / (k[0] * k[1])
+    return _back(out, data_format)
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
+    """Mean over adaptive bins: bin i of n over a size h covers
+    [floor(i h / n), ceil((i + 1) h / n))."""
+    return _back(F.adaptive_avg_pool2d(_nchw(x, data_format),
+                                       _pair(output_size)), data_format)

@@ -15,8 +15,9 @@ Counterpart: `paddle_tpu/ops/pallas/__init__.py`, which overrides the
   outside the gate runs the plain version, as the JAX package sends it to
   XLA, and adds 1 to `sdpa.plain_calls`.  CPU tensors run the plain
   version.
-* `paged_write`, `dyn_update_seq` and `rms_norm` — plain on every
-  device, as in the JAX package (no Pallas kernel there either).
+* `paged_write`, `dyn_update_seq`, `rms_norm` and the ResNet stem
+  (`s2d_stem_conv`, `s2d_stem_conv_nhwc`) — plain on every device, as in
+  the JAX package (no Pallas kernel there either).
 
 `launch_counts()` reads every kernel launch counter and
 `sdpa.plain_calls` at once; `add_launch_counts` adds a captured CUDA
@@ -33,12 +34,13 @@ import torch
 
 from . import flash_attention as _flash
 from . import nn_kernels
-from .nn_kernels import dyn_update_seq, paged_write, rms_norm
+from .nn_kernels import (dyn_update_seq, paged_write, rms_norm,
+                         s2d_stem_conv, s2d_stem_conv_nhwc)
 from .paged_decode import paged_decode_attention
 
 __all__ = ["add_launch_counts", "dyn_update_seq", "launch_counts",
            "paged_attention", "paged_decode_attention", "paged_write",
-           "rms_norm", "sdpa"]
+           "rms_norm", "s2d_stem_conv", "s2d_stem_conv_nhwc", "sdpa"]
 
 
 def paged_attention(q, k_pool, v_pool, tables, pos, scale=None):

@@ -1,13 +1,18 @@
-"""Plain PyTorch versions of the ops the serving and generation paths use.
+"""Plain PyTorch versions of the ops the serving, generation and vision
+paths use.
 
 Counterpart: `paddle_tpu/ops/nn_kernels.py` — `sdpa_k`, `paged_write_k`,
-`paged_attention_k` and `rms_norm_k` — and `dyn_update_seq_k`
+`paged_attention_k`, `rms_norm_k` and the space-to-depth ResNet stem
+(`s2d_stem_conv_k` `:51`, `s2d_stem_conv_nhwc_k` `:707`, XLA ops there,
+not Pallas kernels) — and `dyn_update_seq_k`
 (`paddle_tpu/ops/kernels.py:459-474`).  Layouts follow the JAX package:
-activations are (B, L, H, D) and the paged KV pool is [N, bs, Hkv, D].
+activations are (B, L, H, D), the paged KV pool is [N, bs, Hkv, D], and
+conv weights are OIHW in either data format.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def sdpa(q, k, v, mask=None, is_causal=False, scale=None,
@@ -116,3 +121,38 @@ def rms_norm(x, weight=None, eps=1e-6):
     ms = xf.square().mean(dim=-1, keepdim=True)
     out = (xf * torch.rsqrt(ms + eps)).to(x.dtype)
     return out * weight if weight is not None else out
+
+
+def _s2d_stem_weight(w, channels_last):
+    """The 7x7 stem weight [o, c, 7, 7] as the 4x4 kernel over the
+    space-to-depth input: padded top-left to 8x8, each spatial axis split
+    into (tap, parity), the parities packed into the input channels in
+    the order the input packs them ((c, hp, wp) for NCHW, (hp, wp, c) for
+    NHWC)."""
+    o, c = w.shape[:2]
+    w4 = F.pad(w, (1, 0, 1, 0)).reshape(o, c, 4, 2, 4, 2)
+    order = (0, 3, 5, 1, 2, 4) if channels_last else (0, 1, 3, 5, 2, 4)
+    return w4.permute(*order).reshape(o, 4 * c, 4, 4)
+
+
+def s2d_stem_conv(x, w):
+    """The 7x7 / stride-2 / pad-3 stem conv computed as space-to-depth(2)
+    followed by a 4x4 stride-1 conv (pad 2 before, 1 after): the same sum
+    of products, over 12 input channels at half the resolution.
+    x [b, c, H, W] with H and W even; w [o, c, 7, 7]."""
+    b, c, H, W = x.shape
+    z = x.reshape(b, c, H // 2, 2, W // 2, 2).permute(0, 1, 3, 5, 2, 4)
+    z = F.pad(z.reshape(b, 4 * c, H // 2, W // 2), (2, 1, 2, 1))
+    return F.conv2d(z, _s2d_stem_weight(w, False))
+
+
+def s2d_stem_conv_nhwc(x, w):
+    """`s2d_stem_conv` on channels-last input: x [b, H, W, c] (H, W
+    even), w [o, c, 7, 7] (the same OIHW weight); returns [b, H/2, W/2,
+    o].  The conv runs on an NCHW-shaped view with channels-last
+    strides, which is what `torch.channels_last` is."""
+    b, H, W, c = x.shape
+    z = x.reshape(b, H // 2, 2, W // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    z = F.pad(z.reshape(b, H // 2, W // 2, 4 * c), (0, 0, 2, 1, 2, 1))
+    out = F.conv2d(z.permute(0, 3, 1, 2), _s2d_stem_weight(w, True))
+    return out.permute(0, 2, 3, 1)

@@ -1,5 +1,5 @@
 """Optimizers of the port (counterpart: `paddle_tpu/optimizer`)."""
 from .optimizer import Optimizer
-from .optimizers import Adafactor, Adam, AdamW
+from .optimizers import Adafactor, Adam, AdamW, Momentum
 
-__all__ = ["Adafactor", "Adam", "AdamW", "Optimizer"]
+__all__ = ["Adafactor", "Adam", "AdamW", "Momentum", "Optimizer"]

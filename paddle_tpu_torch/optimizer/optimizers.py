@@ -1,7 +1,8 @@
-"""Adam, AdamW and Adafactor.
+"""Momentum, Adam, AdamW and Adafactor.
 
-Counterpart: `paddle_tpu/optimizer/optimizers.py` — `Adam` (`:113-131`),
-`AdamW` (`:134-145`) and `Adafactor` (`:190-237`), with the same rules on
+Counterpart: `paddle_tpu/optimizer/optimizers.py` — `Momentum` (`:18-35`),
+`Adam` (`:113-131`), `AdamW` (`:134-145`) and `Adafactor` (`:190-237`),
+with the same rules on
 float32 tensors.  Scalars that the JAX rules compute in float32 (the
 bias corrections 1 - beta ** step, Adafactor's decay 1 - step ** -rate)
 are rounded to float32 here too.
@@ -12,6 +13,28 @@ import numpy as np
 import torch
 
 from .optimizer import Optimizer, f32
+
+
+class Momentum(Optimizer):
+    """Heavy-ball momentum: v = momentum * v + g, then p - lr * v (or,
+    with `use_nesterov`, p - lr * (g + momentum * v)); weight decay is
+    coupled L2 (g + wd * p)."""
+    SLOTS = ("velocity",)
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 **kw):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         **kw)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def _rule(self, g, p, slots, lr, step):
+        v = self._momentum * slots["velocity"] + g
+        slots["velocity"] = v
+        if self._nesterov:
+            return p - lr * (g + self._momentum * v), slots
+        return p - lr * v, slots
 
 
 class Adam(Optimizer):

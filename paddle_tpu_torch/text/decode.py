@@ -227,10 +227,16 @@ class _StaticDecode:
 
 
 def _fingerprint(model, generator, capture):
-    """What a built program is tied to besides its key: the parameters'
-    storage (a captured graph reads them by address), the generator its
-    graph registered, and whether it captures."""
+    """What a built program is tied to besides its key: the storage of
+    the parameters and buffers (a captured graph reads them by address;
+    a weight-only layer's codes are a buffer), the `merged` flag of every
+    layer that has one (a LoRA layer's captured step replays its adapter
+    product unless it was merged at capture, and merge() changes the
+    weights in place, not their address), the generator its graph
+    registered, and whether it captures."""
     return (tuple(p.data_ptr() for p in model.parameters()),
+            tuple(b.data_ptr() for b in model.buffers()),
+            tuple(m.merged for m in model.modules() if hasattr(m, "merged")),
             id(generator), bool(capture))
 
 

@@ -3,11 +3,17 @@
 `load_paddle_tpu_state(model, arrays)` takes the `{name: np.ndarray}`
 that a `paddle_tpu` model's `state_dict()` gives (each value through
 `np.asarray`) and copies it into the port's model of the same
-architecture (GPT, LLaMA, Mistral, Qwen2), name for name.  The JAX
+architecture (GPT, LLaMA, Mistral, Qwen2, ResNet, and any of them
+wrapped by LoRA or converted to weight-only), name for name.  The JAX
 package keeps a Linear weight as [in, out] (`paddle_tpu/nn/common.py::
 Linear`); `torch.nn.Linear` keeps [out, in], so those weights (every
-projection and LLaMA's untied `lm_head`) are transposed on the way;
-embeddings, LayerNorm and RMSNorm weights and biases are not.
+projection, LLaMA's untied `lm_head`, a ResNet's `fc`, and the
+`*.base.weight` of a LoRA layer) are transposed on the way.  The rest
+keeps its layout: embeddings, norm weights and biases, OIHW conv
+weights, batch-norm running statistics, LoRA's `lora_A` [in, r] and
+`lora_B` [r, out] (the port keeps the JAX layout for them), and a
+weight-only layer's int8 `quant_weight` [in, out] and `weight_scale`,
+which are copied bit for bit.
 
 `load_paddle_tpu_optimizer_state(optimizer, model, state)` does the same
 for the JAX optimizer's per-parameter slots.

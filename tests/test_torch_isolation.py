@@ -18,11 +18,14 @@ import paddle_tpu_torch
 from paddle_tpu_torch.device import generator, resolve_device
 from paddle_tpu_torch.jit import train_step
 from paddle_tpu_torch.ops.flash_attention import flash_attention
-from paddle_tpu_torch.optimizer import Adafactor
+from paddle_tpu_torch.nn.quant import WeightOnlyLinear, convert_to_weight_only
+from paddle_tpu_torch.optimizer import Adafactor, Momentum
 from paddle_tpu_torch.serving import BlockPool
 from paddle_tpu_torch.text import (GPTConfig, GPTForCausalLM, LlamaConfig,
                                    LlamaForCausalLM, Qwen2Config,
                                    Qwen2ForCausalLM, gpt_loss_fn)
+from paddle_tpu_torch.text.peft import LoRAConfig, get_peft_model
+from paddle_tpu_torch.vision.models import resnet18, resnet50
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "paddle_tpu", "paddle"}
@@ -66,9 +69,13 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.amp, paddle_tpu_torch.optimizer, "
             "paddle_tpu_torch.jit, paddle_tpu_torch.distributed, "
             "paddle_tpu_torch.text.decode, paddle_tpu_torch.text.generation, "
-            "paddle_tpu_torch.text.llama, paddle_tpu_torch.text.qwen\n"
+            "paddle_tpu_torch.text.llama, paddle_tpu_torch.text.qwen, "
+            "paddle_tpu_torch.text.peft, paddle_tpu_torch.text.convert, "
+            "paddle_tpu_torch.nn.quant, paddle_tpu_torch.nn.conv, "
+            "paddle_tpu_torch.nn.norm, paddle_tpu_torch.nn.pooling, "
+            "paddle_tpu_torch.vision, paddle_tpu_torch.vision.models\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            f"{sorted(FORBIDDEN)!r})\n"
+            f"{sorted(FORBIDDEN | {'transformers'})!r})\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -122,4 +129,30 @@ def test_training_entry_points_stay_on_the_named_device(monkeypatch):
     loss = step(ids, ids)
     assert loss.device == torch.device("cpu")
     assert {t.device for slots in opt._state for t in slots.values()} == \
+        {torch.device("cpu")}
+
+
+def test_training_family_entry_points_stay_on_the_named_device(monkeypatch):
+    """resnet50 raises without a card unless the CPU is named; LoRA
+    adapters, weight-only layers and Momentum's slots land on the device
+    of the model they were given, so a model built on the CPU stays
+    there and nothing reaches for a card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resnet50()
+    model = resnet18(num_classes=4, device="cpu")
+    opt = Momentum(learning_rate=0.1, parameters=model.parameters())
+    x = torch.zeros(2, 3, 16, 16)
+    step = train_step(model, lambda m, a, b: (m(a).float() ** 2).mean(), opt)
+    assert step(x, None).device == torch.device("cpu")
+    assert {t.device for slots in opt._state for t in slots.values()} == \
+        {torch.device("cpu")}
+    cfg = LlamaConfig(vocab_size=16, hidden_size=8, num_layers=1,
+                      num_heads=2, intermediate_size=16)
+    lora = get_peft_model(LlamaForCausalLM(cfg, device="cpu"),
+                          LoRAConfig(r=2))
+    assert {p.device for p in lora.parameters()} == {torch.device("cpu")}
+    wo = convert_to_weight_only(LlamaForCausalLM(cfg, device="cpu"))
+    layers = [m for m in wo.modules() if isinstance(m, WeightOnlyLinear)]
+    assert layers and {m.quant_weight.device for m in layers} == \
         {torch.device("cpu")}
