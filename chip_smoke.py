@@ -123,9 +123,41 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
 18. resnet_e2e   — resnet18 in float32, NCHW and NHWC: an eval forward,
                    then 3 steps with batch norm in train mode, card
                    against CPU (logits, losses, parameters, running
-                   statistics).
+                   statistics);
+19. bert         — BERT-base fine-tuned as bench.py::run_bert runs it
+                   (BertConfig(), 2 classes, AdamW(2e-5), AMP O2 bf16
+                   without master weights, TrainStep, batch 32, seq 128):
+                   3 warm-up and 20 timed steps, sequences/s, tokens/s,
+                   step p50/p99, MFU, peak memory, losses, a profile;
+                   each flash kernel 12 times a step, all sm90, no plain
+                   sdpa; then padded rows (64-128 tokens) under
+                   LinearWarmup(PolynomialDecay) and two parameter groups
+                   (the sm90 forward under the mask, dK/dV and dQ on
+                   sm80); then float16 with a GradScaler whose first
+                   scale overflows (skipped steps move nothing, the scale
+                   halves until steps go through);
+20. bert_e2e     — 2 layers at BERT width, float32, AdamW, padded rows,
+                   3 steps: card against CPU (losses, parameters);
+21. ernie_infer  — ERNIE-3.0-medium as bench.py::run_ernie_infer runs it
+                   (float32, batch 32, seq 128): save_inference ->
+                   create_predictor -> copy_from_cpu / run /
+                   copy_to_cpu, 5 warm-up and 30 timed runs, sequences/s,
+                   run p50, a profile; the exported graph holds the flash
+                   operator once a layer, each run launches the forward
+                   6 times (sm80), the logits equal the eager model's;
+                   then the same in bf16 (sm90), logits near float32's;
+22. ernie_e2e    — 2 layers, float32: the predictor on the card against
+                   the eager model on the CPU, logits within 1e-4, at two
+                   batch sizes of one dynamic-batch program.
 
-The kernels line counts the flash launches of phases 6-10 and 13-16.
+flash_kernels also holds BERT's shape (B 32, L 128, H 12, D 64,
+non-causal; unmasked and under its additive padding mask) in bf16, fp16
+and fp32 through every family that takes it, and flash_timings times
+the sm90 and sm80 forward and dK/dV and dQ there (masked: sm80 alone),
+in turns with SDPA under the same mask, each beside its bound.
+
+The kernels line counts the flash launches of phases 6-10, 13-16 and
+19-22.
 Each phase prints one JSON line.  Then one {"kernels": [...]} line, the
 card's name and power limit from nvidia-smi, and last
 {"ok": true, "device": {...}}.  Any failure raises and exits nonzero
@@ -703,6 +735,18 @@ FLASH_CASES = [
      "decode_rows", torch.float16),
     ("verify_rows_gqa7_bf16", 4, 5, 549, 28, 4, 128, False, 0,
      "verify_rows", torch.bfloat16),
+    # BERT-base's fine-tune shape (batch 32, seq 128, 12 heads of 64),
+    # non-causal, unmasked and under its additive key-padding mask [32, 1,
+    # 1, 128] ((1 - m) * -1e4, rows 64 to 128 long)
+    ("bert_bf16", 32, 128, 128, 12, 12, 64, False, 0, None, torch.bfloat16),
+    ("bert_fp16", 32, 128, 128, 12, 12, 64, False, 0, None, torch.float16),
+    ("bert_fp32", 32, 128, 128, 12, 12, 64, False, 0, None, torch.float32),
+    ("bert_padding_bf16", 32, 128, 128, 12, 12, 64, False, 0, "bert_padding",
+     torch.bfloat16),
+    ("bert_padding_fp16", 32, 128, 128, 12, 12, 64, False, 0, "bert_padding",
+     torch.float16),
+    ("bert_padding_fp32", 32, 128, 128, 12, 12, 64, False, 0, "bert_padding",
+     torch.float32),
 ]
 
 
@@ -724,6 +768,8 @@ def flash_inputs(B, Lq, Lk, H, Hkv, D, kind, dtype, seed):
         mask = torch.rand(B, H, Lq, Lk, generator=g, device="cuda") < 0.9
     elif kind == "additive_row1":           # (1, 1, 1, Lk): batch broadcast
         mask = torch.randn(1, 1, 1, Lk, generator=g, device="cuda")
+    elif kind == "bert_padding":            # (B, 1, 1, Lk) additive, dtype
+        mask = bert_padding_mask(B, Lk, dtype, g)
     elif kind == "key_padding":             # (B, 1, 1, Lk)
         lens = torch.randint(1, Lk + 1, (B,), generator=g, device="cuda")
         mask = (torch.arange(Lk, device="cuda")[None, :]
@@ -736,6 +782,16 @@ def flash_inputs(B, Lq, Lk, H, Hkv, D, kind, dtype, seed):
             "prefill_buffer", "decode_rows", "verify_rows"):
         mask = generation_mask(kind, B, Lq, Lk, g)
     return q, k, v, do, mask
+
+
+def bert_padding_mask(B, L, dtype, g):
+    """BERT's additive key-padding mask [B, 1, 1, L] in `dtype`, as
+    `text.bert.additive_mask` builds it: 0 for the first 64 to L keys of
+    a row, -1e4 (-9984 in bfloat16) for the rest."""
+    from paddle_tpu_torch.text.bert import additive_mask
+    lens = torch.randint(L // 2, L + 1, (B,), generator=g, device="cuda")
+    keep = torch.arange(L, device="cuda")[None, :] < lens[:, None]
+    return additive_mask(keep, dtype)
 
 
 def generation_mask(kind, B, Lq, Lk, g):
@@ -1171,6 +1227,10 @@ def phase_flash_timings(paths):
     out = sdpa(qh, kh, vh, is_causal=True)
     lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
         out, (qh, kh, vh), doh, retain_graph=True), flush)
+    # after the training shape's yardsticks: run before them, its masked
+    # SDPA calls left SDPA's causal backward at the training shape 2.7x
+    # slower on an H100
+    bert = bert_shape_timing(fa, flush)
 
     esize = 2
     tensor = B * L * H * D * esize                   # one bf16 operand
@@ -1229,6 +1289,15 @@ def phase_flash_timings(paths):
             e[1], tol, kernel_ms, plain_ms, bytes_ms, ops_ms, library_ms,
             lib)
         record["launches_by_path"] = by_path
+        record["bert_shape"] = {
+            "unmasked_ms": bert["unmasked"]["ms"][base][fam],
+            "masked_ms": bert["masked"]["ms"][base].get(fam),
+            "bound_ms": {k: bert[k]["bounds"][base]["bound_ms"]
+                         for k in ("unmasked", "masked")},
+            "library_ms": {k: bert[k]["ms"]["fwd" if base == "fwd" else
+                                            "dkv"]["sdpa" if base == "fwd"
+                                                   else "sdpa_bwd"]
+                           for k in ("unmasked", "masked")}}
         if kname == "fwd_sm90":
             record["masked_prefill"] = rec["masked_prefill"] = \
                 masked_prefill_timing(fa, flush)
@@ -1248,6 +1317,7 @@ def phase_flash_timings(paths):
     record.update(launches_by_path=by_path, decode_shape=decode)
     entries.append(record)
     assert record["launches"] > 0, "the decode forward launched no time"
+    rec["bert_shape"] = bert
     rec["plain_note"] = ("dkv and dq share one plain backward (dq, dk and "
                          "dv together)")
     emit(rec)
@@ -1751,12 +1821,15 @@ def phase_train_llama(steps=10, warmup=3, batch=4, seq=1024):
     return counts
 
 
-def param_error(card, cpu, init):
+def param_error(card, cpu, init, skip=None, only=None):
     """The card's parameters' distance from the CPU's, relative to how far
-    the updates moved the CPU's from `init`."""
+    the updates moved the CPU's from `init`; without the names ending in
+    `skip`, or over those ending in `only` alone."""
     num = den = 0.0
     card_params = dict(card.named_parameters())
     for n, p in cpu.named_parameters():
+        if (skip and n.endswith(skip)) or (only and not n.endswith(only)):
+            continue
         num += float((card_params[n].detach().cpu() - p.detach())
                      .double().square().sum())
         den += float((p.detach() - init[n]).double().square().sum())
@@ -2207,6 +2280,543 @@ def phase_resnet_e2e(steps=3, batch=8, image=64):
             assert card[k] <= max(floor, 4 * cpu[k]), (fmt, k, card, cpu)
 
 
+# ------------------------------------------------------- BERT and ERNIE
+# ERNIE's exported program against the eager model on the same card: the
+# same operators in the same order on the same inputs (float32 and
+# bfloat16 logits are compared in float32)
+ERNIE_EAGER_TOL = 1e-5
+# bf16 logits against float32 logits of the same random weights: logits
+# have a magnitude of about 1 (tanh-pooled, Xavier classifier), and 6
+# layers of bf16 rounding (2**-8 relative each) move them by hundredths
+ERNIE_BF16_TOL = 0.1
+
+
+def linear_params(model):
+    """Parameters of the model's Linear layers (the matrix products a
+    token pays for; BERT's embeddings are looked up, not multiplied)."""
+    return sum(m.weight.numel() + m.bias.numel() for m in model.modules()
+               if isinstance(m, torch.nn.Linear))
+
+
+def encoder_train_flops(model, cfg, batch, seq):
+    """Model flops of one encoder training step: 6 * (Linear parameters)
+    * tokens, plus non-causal attention, 12 * layers * seq * hidden per
+    token (QK^T and PV, 2 flops a product, forward and twice backward)."""
+    tokens = batch * seq
+    return (6 * linear_params(model) * tokens
+            + 12 * cfg.num_hidden_layers * seq * cfg.hidden_size * tokens)
+
+
+def bert_batch(cfg, batch, seq, seed):
+    """ids, segment ids (zeros, as run_bert's), labels and a padding mask
+    of rows 64 to 128 tokens long, on the card from a seed."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
+                        device="cuda")
+    seg = torch.zeros_like(ids)
+    labels = torch.randint(0, 2, (batch,), generator=g, device="cuda")
+    lens = torch.randint(seq // 2, seq + 1, (batch,), generator=g,
+                         device="cuda")
+    mask = (torch.arange(seq, device="cuda")[None, :]
+            < lens[:, None]).long()
+    return ids, seg, labels, mask
+
+
+def masked_loss(model, ids, seg, mask, labels):
+    """run_bert's loss on padded rows."""
+    from paddle_tpu_torch.nn import functional as PF
+    return PF.cross_entropy(model(ids, seg, attention_mask=mask), labels,
+                            reduction="mean")
+
+
+def phase_bert(steps=20, warmup=3, batch=32, seq=128, padded_steps=8,
+               fp16_iters=40):
+    """BERT-base fine-tuned as bench.py::run_bert runs it: BertConfig()
+    (hidden 768, 12 layers, 12 heads, intermediate 3072, vocab 30522,
+    dropout 0.1), BertForSequenceClassification(num_classes=2),
+    AdamW(2e-5), AMP O2 bf16 without master weights, TrainStep, cross
+    entropy, batch 32, seq 128: 3 warm-up and 20 timed steps, each flash
+    kernel 12 times a step on sm90, no plain sdpa; then a profile.  Then
+    the same model on padded rows (64 to 128 tokens) under
+    LinearWarmup(PolynomialDecay) and two parameter groups (biases and
+    norms without decay): the sm90 forward takes the mask, dK/dV and dQ
+    run on sm80.  Then a fresh model decorated to float16 (float32
+    masters) with a GradScaler whose first scale overflows: the first
+    steps are skipped without moving a parameter, the scale halves each
+    time, until steps go through.  Returns {path: flash launch counts}."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import train_step
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import lr as lr_sched
+    from paddle_tpu_torch.text import (BertConfig,
+                                       BertForSequenceClassification,
+                                       bert_loss_fn)
+
+    cfg = BertConfig(hidden_dropout_prob=0.1)
+    model = BertForSequenceClassification(
+        cfg, num_classes=2, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    opt = AdamW(learning_rate=2e-5, parameters=model.parameters())
+    model, opt = amp.decorate(models=model, optimizers=opt,
+                              dtype="bfloat16", master_weight=False)
+    step = train_step(model, bert_loss_fn, opt)
+    ids, seg, labels, mask = bert_batch(cfg, batch, seq, 1)
+    L = cfg.num_hidden_layers
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, times = [], []
+    for _ in range(warmup + steps):
+        t0 = time.perf_counter()
+        losses.append(step(ids, seg, labels).item())   # waits for the card
+        times.append(time.perf_counter() - t0)
+    counts = read_counts()
+    timed = np.array(times[warmup:])
+    p50 = float(np.percentile(timed, 50))
+    flops = encoder_train_flops(model, cfg, batch, seq)
+    rec = {"phase": "bert", "model": "bert-base (BertConfig())",
+           "layers": L, "batch": batch, "seq": seq, "dtype": "bfloat16",
+           "amp": "O2, master_weight=False", "optimizer": "AdamW(2e-5)",
+           "n_params": sum(p.numel() for p in model.parameters()),
+           "linear_params": linear_params(model),
+           "warmup_steps": warmup, "timed_steps": steps,
+           "sequences_per_s": steps * batch / float(timed.sum()),
+           "tokens_per_s": steps * batch * seq / float(timed.sum()),
+           "step_p50_ms": p50 * 1e3,
+           "step_p99_ms": float(np.percentile(timed, 99)) * 1e3,
+           "step_ms": [t * 1e3 for t in times], "flops_per_step": flops,
+           "mfu": flops / float(timed.mean()) / BF16_FLOPS,
+           "mfu_peak_flops": BF16_FLOPS,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "losses": losses, "launches": counts}
+    n = L * (warmup + steps)
+    fl = flash_part(counts)
+    assert all(np.isfinite(losses)), losses
+    assert abs(losses[0] - np.log(2)) < 0.5, losses[0]
+    assert (fl["fwd"], fl["dkv"], fl["dq"]) == (n, n, n), fl
+    assert (fl["fwd_sm90"], fl["dkv_sm90"], fl["dq_sm90"]) == (n, n, n), fl
+    assert counts["sdpa_plain"] == 0, counts
+    rec["profile"] = busy(lambda: step(ids, seg, labels), 3, p50 * 1e3)
+    paths = {"bert": fl}
+
+    # padded rows, a schedule the caller steps, two parameter groups
+    named = list(model.named_parameters())
+    decayed = [p for name, p in named
+               if name.endswith("weight") and "norm" not in name]
+    rest = [p for name, p in named
+            if not (name.endswith("weight") and "norm" not in name)]
+    sched = lr_sched.LinearWarmup(
+        lr_sched.PolynomialDecay(2e-5, decay_steps=padded_steps,
+                                 end_lr=2e-6),
+        warmup_steps=2, start_lr=0.0, end_lr=2e-5)
+    opt2 = AdamW(learning_rate=sched, weight_decay=0.01,
+                 parameters=[{"params": decayed},
+                             {"params": rest, "weight_decay": 0.0}])
+    model, opt2 = amp.decorate(models=model, optimizers=opt2,
+                               dtype="bfloat16", master_weight=False)
+    step2 = train_step(model, masked_loss, opt2)
+    zero_counts()
+    rates, losses2, times2 = [], [], []
+    for _ in range(2 + padded_steps):
+        rates.append(opt2.get_lr())
+        t0 = time.perf_counter()
+        losses2.append(step2(ids, seg, mask, labels).item())
+        times2.append(time.perf_counter() - t0)
+        sched.step()
+    counts2 = read_counts()
+    fl2 = flash_part(counts2)
+    n2 = L * (2 + padded_steps)
+    rec["padded"] = {
+        "rows": mask.sum(1).tolist(),
+        "schedule": "LinearWarmup(PolynomialDecay(2e-5, 8, 2e-6), 2, 0, "
+                    "2e-5)",
+        "groups": {"decayed": len(decayed),
+                   "biases_and_norms_no_decay": len(rest)},
+        "rates": rates, "losses": losses2,
+        "step_ms": [t * 1e3 for t in times2],
+        "step_p50_ms": float(np.percentile(times2[2:], 50)) * 1e3,
+        "unmasked_step_p50_ms": p50 * 1e3, "launches": counts2}
+    assert all(np.isfinite(losses2)), losses2
+    assert rates[0] == 0.0 and rates[2] == 2e-5, rates
+    assert (fl2["fwd"], fl2["fwd_sm90"], fl2["dkv"], fl2["dq"]) == \
+        (n2, n2, n2, n2), fl2
+    assert (fl2["dkv_sm90"], fl2["dq_sm90"]) == (0, 0), fl2
+    assert counts2["sdpa_plain"] == 0, counts2
+    paths["bert_padded"] = fl2
+    del step, step2, opt, opt2, model
+    release()
+
+    # float16 under a loss scale that overflows at first
+    model16 = BertForSequenceClassification(
+        cfg, num_classes=2, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    opt16 = AdamW(learning_rate=2e-5, parameters=model16.parameters())
+    model16, opt16 = amp.decorate(models=model16, optimizers=opt16,
+                                  dtype="float16")
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 32)
+    watch = [model16.classifier.weight,
+             model16.bert.encoder.layers[0].self_attn.q_proj.weight]
+    zero_counts()
+    series, taken = [], 0
+    for _ in range(fp16_iters):
+        before = [w.detach().clone() for w in watch]
+        scale = scaler.get_loss_scaling()
+        loss = bert_loss_fn(model16, ids, seg, labels)
+        scaler.scale(loss).backward()
+        count = opt16._step_count
+        scaler.step(opt16)
+        scaler.update()
+        opt16.clear_grad()
+        stepped = opt16._step_count == count + 1
+        moved = any(not torch.equal(w, b) for w, b in zip(watch, before))
+        series.append({"scale": scale, "loss": loss.item(),
+                       "stepped": stepped, "moved": moved})
+        assert moved == stepped, series
+        taken += stepped
+        if taken == 3:
+            break
+    counts16 = read_counts()
+    skipped = [r for r in series if not r["stepped"]]
+    rec["fp16_grad_scaler"] = {
+        "init_loss_scaling": 2.0 ** 32, "iterations": len(series),
+        "skipped": len(skipped),
+        "first_step_scale": next((r["scale"] for r in series
+                                  if r["stepped"]), None),
+        "series": series, "optimizer_steps": opt16._step_count,
+        "launches": counts16}
+    emit(rec)
+    assert skipped and not series[0]["stepped"], series
+    assert all(b["scale"] == a["scale"] / 2
+               for a, b in zip(skipped, skipped[1:])), series
+    assert taken == 3 and opt16._step_count == 3, series
+    assert all(np.isfinite(r["loss"]) for r in series), series
+    assert counts16["sdpa_plain"] == 0, counts16
+    paths["bert_fp16"] = flash_part(counts16)
+    del model16, opt16
+    release()
+    return paths
+
+
+def phase_bert_e2e(steps=3, batch=8, seq=128, layers=2):
+    """BERT at full width and 2 layers, float32, AdamW, padded rows: the
+    training step on the card (flash kernels; float32 takes sm80) against
+    the same on the CPU (plain versions), same weights and batch: losses
+    within 1e-5, parameters within 1e-3 of how far they moved.  The key
+    projection's bias is reported apart and left out of that distance:
+    its gradient is zero in exact arithmetic (it shifts every score of a
+    row alike), so each side moves it by its own rounding noise."""
+    from paddle_tpu_torch.jit import train_step
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text import (BertConfig,
+                                       BertForSequenceClassification)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = BertConfig(num_hidden_layers=layers, hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
+    card = BertForSequenceClassification(
+        cfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(3))
+    cpu = BertForSequenceClassification(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    init = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    rng = np.random.default_rng(3)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)))
+    seg = torch.from_numpy(rng.integers(0, 2, (batch, seq)))
+    lens = rng.integers(seq // 2, seq + 1, batch)
+    mask = torch.from_numpy((np.arange(seq)[None, :]
+                             < lens[:, None]).astype(np.int64))
+    labels = torch.from_numpy(rng.integers(0, 2, batch))
+
+    def train(model, dev):
+        step = train_step(model, masked_loss,
+                          AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                parameters=model.parameters()))
+        batch_ = [t.to(dev) for t in (ids, seg, mask, labels)]
+        return [step(*batch_).item() for _ in range(steps)]
+
+    zero_counts()
+    card_losses = train(card, "cuda")
+    counts = read_counts()
+    n = layers * steps
+    assert flash_part(counts) == {"fwd": n, "dkv": n, "dq": n,
+                                  "fwd_sm90": 0, "dkv_sm90": 0,
+                                  "dq_sm90": 0, "fwd_decode": 0}, counts
+    assert counts["sdpa_plain"] == 0, counts
+    t0 = time.perf_counter()
+    cpu_losses = train(cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses,
+                                                       cpu_losses))
+    perr = param_error(card, cpu, init, skip="k_proj.bias")
+    emit({"phase": "bert_e2e", "model": f"bert-base width, {layers} layers",
+          "dtype": "float32", "optimizer": "AdamW(1e-4, wd 0.01)",
+          "batch": batch, "seq": seq, "steps": steps,
+          "rows": lens.tolist(), "card_losses": card_losses,
+          "cpu_losses": cpu_losses, "loss_max_rel_err": loss_err,
+          "loss_tol": 1e-5, "param_rel_err": perr, "param_tol": 1e-3,
+          "k_proj_bias_rel_err": param_error(card, cpu, init,
+                                             only="k_proj.bias"),
+          "cpu_seconds": cpu_s, "launches": counts})
+    assert loss_err <= 1e-5, f"card and CPU losses differ by {loss_err}"
+    assert perr <= 1e-3, f"card and CPU parameters differ: {perr}"
+    del card, cpu
+    release()
+    return flash_part(counts)
+
+
+def flash_nodes(program):
+    """The flash operator's nodes in an exported program's graph."""
+    return [nd for nd in program.graph.nodes if nd.op == "call_function"
+            and "paddle_tpu_torch.flash_fwd" in str(nd.target)]
+
+
+def export_predictor(model, spec):
+    """save_inference into a temporary directory -> create_predictor;
+    (predictor, export seconds)."""
+    import tempfile
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.jit import save_inference
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_inference(model, tmp, spec)
+        secs = time.perf_counter() - t0
+        return inference.create_predictor(inference.Config(tmp)), secs
+
+
+def phase_ernie_infer(steps=30, warmup=5, batch=32, seq=128):
+    """ERNIE-3.0-medium inference as bench.py::run_ernie_infer runs it:
+    ernie_config_from_preset("ernie-3.0-medium-zh", hidden_dropout_prob=
+    0.0), ErnieForSequenceClassification, eval, save_inference over
+    InputSpec([32, 128], "int64", "input_ids"), create_predictor,
+    copy_from_cpu, 5 warm-up and 30 timed run()s, copy_to_cpu; float32
+    (run_ernie_infer never decorates), so the forward takes the sm80
+    kernel.  Asserts: the exported graph holds the flash operator once a
+    layer, each run launches the forward 6 times, and the logits equal
+    the eager model's on the card (ERNIE_EAGER_TOL).  Then the same in
+    bf16 (AMP O2 before the export): sm90 launches, logits within
+    ERNIE_BF16_TOL of the float32 run's.  Returns {path: flash launch
+    counts}."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import InputSpec
+    from paddle_tpu_torch.text import (ErnieForSequenceClassification,
+                                       ernie_config_from_preset)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ernie_config_from_preset("ernie-3.0-medium-zh",
+                                   hidden_dropout_prob=0.0)
+    model = ErnieForSequenceClassification(
+        cfg, num_classes=2, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    model.eval()
+    ids = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (batch, seq)).astype("int64")
+    L = cfg.num_hidden_layers
+    rec = {"phase": "ernie_infer", "model": "ernie-3.0-medium-zh",
+           "layers": L, "batch": batch, "seq": seq,
+           "n_params": sum(p.numel() for p in model.parameters()),
+           "eager_tol": ERNIE_EAGER_TOL, "bf16_tol": ERNIE_BF16_TOL}
+    paths, logits = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        if dtype == "bfloat16":
+            amp.decorate(models=model, dtype="bfloat16")
+        predictor, export_s = export_predictor(
+            model, [InputSpec([batch, seq], "int64", "input_ids")])
+        nodes = len(flash_nodes(predictor._layer.program))
+        h = predictor.get_input_handle(predictor.get_input_names()[0])
+        h.copy_from_cpu(ids)
+        out = predictor.get_output_handle(predictor.get_output_names()[0])
+        for _ in range(warmup):
+            predictor.run()
+        out.copy_to_cpu()                              # waits for the card
+        zero_counts()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            predictor.run()
+        got = out.copy_to_cpu()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        run_ms = step_ms(predictor.run, steps)
+        with torch.no_grad():
+            eager = model(torch.from_numpy(ids).cuda()).float().cpu().numpy()
+        diff = float(np.abs(got - eager).max())
+        fl = flash_part(counts)
+        rec[dtype] = {
+            "export_s": export_s, "graph_flash_ops": nodes,
+            "sequences_per_s": batch * steps / wall,
+            "run_p50_ms": pct(run_ms)["p50"], "run_p99_ms": pct(run_ms)["p99"],
+            "run_ms": run_ms, "logits_equal_eager": bool(np.array_equal(
+                got, eager)), "eager_max_abs_diff": diff,
+            "logit0": float(got.reshape(-1)[0]), "launches": counts,
+            "profile": busy(predictor.run, 3, pct(run_ms)["p50"])}
+        sm90 = L * steps if dtype == "bfloat16" else 0
+        assert nodes == L, (dtype, nodes)
+        assert (fl["fwd"], fl["fwd_sm90"], fl["dkv"], fl["dq"]) == \
+            (L * steps, sm90, 0, 0), (dtype, fl)
+        assert counts["sdpa_plain"] == 0, counts
+        assert diff <= ERNIE_EAGER_TOL, (dtype, diff)
+        logits[dtype] = got
+        paths[f"ernie_infer_{'bf16' if sm90 else 'fp32'}"] = fl
+        del predictor
+    gap = float(np.abs(logits["bfloat16"] - logits["float32"]).max())
+    rec.update(bf16_vs_fp32_max_abs=gap,
+               fp32_logit_max_abs=float(np.abs(logits["float32"]).max()))
+    emit(rec)
+    assert gap <= ERNIE_BF16_TOL, gap
+    del model
+    release()
+    return paths
+
+
+def phase_ernie_e2e(batch=8, seq=128, layers=2):
+    """ERNIE-3.0-medium width at 2 layers, float32: the predictor of the
+    program exported on the card (the sm80 forward) against the eager
+    model on the CPU (the plain version), same weights, padded rows fed
+    as ids only (the deployment input): logits within 1e-4."""
+    from paddle_tpu_torch.jit import InputSpec
+    from paddle_tpu_torch.text import (ErnieForSequenceClassification,
+                                       ernie_config_from_preset)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ernie_config_from_preset("ernie-3.0-medium-zh",
+                                   num_hidden_layers=layers,
+                                   hidden_dropout_prob=0.0)
+    card = ErnieForSequenceClassification(
+        cfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(4))
+    cpu = ErnieForSequenceClassification(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    card.eval()
+    cpu.eval()
+    ids = np.random.default_rng(4).integers(0, cfg.vocab_size,
+                                            (batch, seq)).astype(np.int64)
+    predictor, _ = export_predictor(
+        card, [InputSpec([None, seq], "int64", "input_ids")])
+    h = predictor.get_input_handle("input_ids")
+    zero_counts()
+    h.copy_from_cpu(ids)
+    predictor.run()
+    got = predictor.get_output_handle("output_0").copy_to_cpu()
+    h.copy_from_cpu(ids[:3])                      # the dynamic batch dim
+    predictor.run()
+    got3 = predictor.get_output_handle("output_0").copy_to_cpu()
+    counts = read_counts()
+    with torch.no_grad():
+        want = cpu(torch.from_numpy(ids)).numpy()
+    err = float(np.abs(got - want).max())
+    err3 = float(np.abs(got3 - want[:3]).max())
+    emit({"phase": "ernie_e2e", "model": f"ernie-3.0-medium width, "
+          f"{layers} layers", "dtype": "float32", "batch": batch,
+          "seq": seq, "max_abs_err": err, "batch3_max_abs_err": err3,
+          "tol": 1e-4, "launches": counts})
+    assert flash_part(counts) == {"fwd": 2 * layers, "dkv": 0, "dq": 0,
+                                  "fwd_sm90": 0, "dkv_sm90": 0,
+                                  "dq_sm90": 0, "fwd_decode": 0}, counts
+    assert counts["sdpa_plain"] == 0, counts
+    assert max(err, err3) <= 1e-4, (err, err3)
+    del card, cpu, predictor
+    release()
+    return flash_part(counts)
+
+
+def bert_shape_timing(fa, flush):
+    """The flash kernels at BERT's shape (B 32, L 128, H 12, D 64, bf16,
+    non-causal), unmasked and under the additive padding mask [32, 1, 1,
+    128] of rows 64 to 128 keys: the forward on sm90 and sm80, dK/dV and
+    dQ unmasked on sm90 and sm80 and masked on sm80 (the sm90 backward
+    takes no mask), in turns with SDPA (forward; and its backward through
+    autograd) under the same mask, and each one's bound, counting the
+    visible keys this mask leaves."""
+    B, L, H, D = 32, 128, 12, 64
+    dtype = torch.bfloat16
+    q, k, v, do, _ = flash_inputs(B, L, L, H, H, D, None, dtype, seed=13)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    mask = bert_padding_mask(B, L, dtype, g)
+    visible_keys = int((mask[:, 0, 0] == 0).sum())       # over the batch
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    doh = do.transpose(1, 2).contiguous()
+    out = {}
+    for masked in (False, True):
+        m = mask if masked else None
+        err = flash_errors(fa, q, k, v, do, m, False, 0, ("sm90", "sm80"),
+                           ("sm80",) if masked else ("sm90", "sm80"))
+        assert all(e["fwd"][2] for e in err["fwd"].values()), err
+        assert all(e[n][2] for e in err["bwd"].values()
+                   for n in ("dkv", "dq")), err
+        o, lse = fa.flash_fwd_cuda(q, k, v, m)
+        delta = fa._delta(do, o)
+        fams = ("sm80",) if masked else ("sm90", "sm80")
+
+        def fwd(impl):
+            return lambda: fa.flash_fwd_cuda(q, k, v, m, _impl=impl)
+
+        def dkv(impl):
+            return lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, m,
+                                                 _impl=impl)
+
+        def dq(impl):
+            return lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, m,
+                                                _impl=impl)
+
+        def lib_fwd():
+            return sdpa(qh, kh, vh, attn_mask=m)
+
+        lib_out = sdpa(qh, kh, vh, attn_mask=m)
+        lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, (qh, kh, vh), doh, retain_graph=True)
+        turns = {"fwd": [], "dkv": [], "dq": []}
+        for order in ((("sm90", "sm80", "sdpa"), ("sdpa", "sm80", "sm90"))):
+            for impl in order:
+                with torch.no_grad():
+                    turns["fwd"].append((impl, cuda_ms(
+                        lib_fwd if impl == "sdpa" else fwd(impl), flush,
+                        iters=25)))
+                for name, fn in (("dkv", dkv), ("dq", dq)):
+                    if impl == "sdpa":
+                        if name == "dkv":
+                            turns[name].append(("sdpa_bwd", cuda_ms(
+                                lib_bwd, flush, iters=25)))
+                    elif impl in fams:
+                        turns[name].append((impl, cuda_ms(fn(impl), flush,
+                                                          iters=25)))
+        ms = {name: {i: float(np.mean([t for j, t in ts if j == i]))
+                     for i in {j for j, _ in ts}}
+              for name, ts in turns.items()}
+        esize = 2
+        tensor = B * L * H * D * esize
+        rows = B * H * L * 4
+        mbytes = B * L * 4 if masked else 0            # the float32 mask
+        pairs = H * L * (visible_keys if masked else B * L)
+        product = 2 * pairs * D
+        costs = {"fwd": (4 * tensor + rows + mbytes, 2 * product),
+                 "dkv": (6 * tensor + 2 * rows + mbytes, 4 * product),
+                 "dq": (5 * tensor + 2 * rows + mbytes, 3 * product)}
+        bounds = {}
+        for name, (nbytes, flops) in costs.items():
+            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            o_ms = flops / BF16_FLOPS * 1e3
+            bounds[name] = {"bytes": nbytes, "flops": flops,
+                            "bound_ms": max(b_ms, o_ms),
+                            "bound_by": "bytes" if b_ms >= o_ms
+                            else "operations"}
+        out["masked" if masked else "unmasked"] = {
+            "turns_ms": turns, "ms": ms, "bounds": bounds,
+            "max_abs_err": {f"{n}_{fam}": v[n][0] for kind, d in err.items()
+                            for fam, v in d.items() for n in (
+                                ("fwd",) if kind == "fwd" else ("dkv", "dq"))},
+            "library": "torch SDPA on [B, H, L, D]"
+                       + (" with the same additive mask" if masked else "")
+                       + "; sdpa_bwd: its backward (dq, dk, dv together)"}
+    out["shape"] = {"B": B, "L": L, "H": H, "D": D, "dtype": "bfloat16",
+                    "causal": False, "mask": "[32, 1, 1, 128] additive, "
+                    f"{visible_keys} of {B * L} keys visible"}
+    return out
+
+
 def decode_shape_timing(fa, flush):
     """The flash forward at the Mistral-7B decode shape: Lq 1, a per-row
     [4, 1, 1, 576] bool mask, GQA 32 / 8, D 128, bf16.  The decode kernel
@@ -2356,6 +2966,10 @@ def main():
     paths.update(phase_weight_only())
     phase_resnet()
     phase_resnet_e2e()
+    paths.update(phase_bert())
+    paths["bert_e2e"] = phase_bert_e2e()
+    paths.update(phase_ernie_infer())
+    paths["ernie_e2e"] = phase_ernie_e2e()
     paged = phase_timings(launches + serve_llama["paged_decode"], lens)
     paged["launches_by_path"] = {"serve": launches,
                                  "serve_llama": serve_llama["paged_decode"]}

@@ -18,7 +18,11 @@ graph), eager `text.generate`, beam search and speculative decoding, and
 training families: LoRA (`text.peft`), weight-only int8 / int4
 (`nn.quant`), HF checkpoint conversion (`text.convert`), and ResNet
 (`vision.models`) over `nn.Conv2D`, `nn.BatchNorm2D`, the pooling layers
-and `optimizer.Momentum`.
+and `optimizer.Momentum`; and the encoder family: the transformer encoder
+layers (`nn.transformer`), BERT and ERNIE-3.0 (`text.bert`,
+`text.ernie`), the LR schedulers (`optimizer.lr`), parameter groups,
+float16 loss scaling (`amp.GradScaler`), and inference export and
+deployment (`jit.save_inference`, `inference.create_predictor`).
 """
 from .device import generator, resolve_device, seed
 

@@ -2,15 +2,18 @@
 
 Counterpart: `paddle_tpu/amp/__init__.py::decorate` (`:64-98`).  O2 casts
 every floating parameter to the target dtype; the optimizer keeps float32
-master copies unless `master_weight=False`.  `auto_cast` (O1, per-op
-casting) and `GradScaler` (fp16 loss scaling) are later slices of the
-port.
+master copies unless `master_weight=False`.  `GradScaler` scales the loss
+of float16 training (`amp/grad_scaler.py`).  `auto_cast` (O1, per-op
+casting) needs a dispatch-time cast policy that matches the JAX allow
+and deny lists, which the port does not have yet: it stays refused.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["decorate"]
+from .grad_scaler import AmpScaler, GradScaler
+
+__all__ = ["AmpScaler", "GradScaler", "decorate"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
            "float32": torch.float32}

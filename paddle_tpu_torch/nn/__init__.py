@@ -12,7 +12,8 @@ from .pooling import AdaptiveAvgPool2D, AvgPool2D, MaxPool2D
 
 __all__ = ["AdaptiveAvgPool2D", "AvgPool2D", "BatchNorm", "BatchNorm2D",
            "ClipGradByGlobalNorm", "Conv2D", "Dropout", "MaxPool2D",
-           "RMSNorm", "functional", "quant"]
+           "MultiHeadAttention", "RMSNorm", "TransformerEncoder",
+           "TransformerEncoderLayer", "functional", "quant"]
 
 
 class Dropout(nn.Module):
@@ -43,3 +44,8 @@ class RMSNorm(nn.Module):
 
     def forward(self, x):
         return functional.rms_norm(x, self.weight, self.epsilon)
+
+
+# after Dropout, which the transformer layers use
+from .transformer import (MultiHeadAttention, TransformerEncoder,  # noqa: E402
+                          TransformerEncoderLayer)

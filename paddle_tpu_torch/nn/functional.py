@@ -9,9 +9,11 @@ attention with dropout on its output, and hard-label cross entropy with
 `rms_norm` (`rms_norm_k`, `paddle_tpu/ops/nn_kernels.py:266-272`); and
 what ResNet runs: `conv2d` (`:146-154`), `batch_norm` (`:354-382`),
 `max_pool2d`, `avg_pool2d` and `adaptive_avg_pool2d` (`:183-213`), each
-in NCHW or NHWC.  NHWC tensors [b, H, W, c] run as NCHW-shaped views
-with channels-last strides (`torch.channels_last`), so no layout copy is
-made around the op.  Weighted, soft-label and smoothed cross entropy are
+in NCHW or NHWC; and what the BERT / ERNIE encoders add: `relu`
+(`:14`), `tanh` (`:18`) and `gelu` (`:30`), the names that
+`nn.TransformerEncoderLayer` looks its `activation` up by.  NHWC tensors
+[b, H, W, c] run as NCHW-shaped views with channels-last strides
+(`torch.channels_last`), so no layout copy is made around the op.  Weighted, soft-label and smoothed cross entropy are
 not ported yet.
 
 Randomness goes through an explicit `torch.Generator` (None: PyTorch's
@@ -62,6 +64,20 @@ def silu(x):
     """x * sigmoid(x) (`jax.nn.silu`), computed in float32 and rounded
     once to x's dtype, as XLA's fused elementwise ops round."""
     return F.silu(x)
+
+
+def relu(x):
+    return F.relu(x)
+
+
+def tanh(x):
+    return torch.tanh(x)
+
+
+def gelu(x, approximate=False):
+    """GELU, exact (erf) by default or with the tanh approximation
+    (`jax.nn.gelu`), computed in float32 and rounded once to x's dtype."""
+    return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
 def rms_norm(x, weight=None, epsilon=1e-6):

@@ -1,6 +1,7 @@
 """Flash attention: three families of hand-written CUDA kernels, their
-wrappers, their plain PyTorch versions, and the autograd Function that
-joins them.
+wrappers, their plain PyTorch versions, and the operator that joins them
+(`paddle_tpu_torch::flash_fwd`, a `torch.library` custom op with its
+backward registered, so `torch.export` keeps the forward as one node).
 
 Counterpart: `paddle_tpu/ops/pallas/flash_attention.py` — the Pallas TPU
 kernels `_fwd_kernel` (`:84`), `_dkv_kernel` (`:262`) and `_dq_kernel`
@@ -45,7 +46,8 @@ nothing gives o = 0 and lse = -inf (XLA's softmax gives NaN there).
 The training path (bf16, D 128, causal, no mask, the q/k/v views of a
 fused qkv projection) takes the sm90 forward, dK/dV and dQ; generation's
 decode steps take the decode forward and its masked prefills the sm90
-forward.
+forward; a padded BERT step the sm90 forward (under the mask) and the
+sm80 dK/dV and dQ; ERNIE's float32 inference the sm80 forward.
 
 Tensors on the CPU take the plain versions; tensors on a CUDA device
 launch the kernels or raise — there is no fallback.  The kernels take D a
@@ -55,7 +57,9 @@ multiple of 8 from 8 to 128 (the TPU kernel pads any D to 128 lanes);
 every launch of each kernel, of any family; `.launches_fwd_sm90`,
 `.launches_dkv_sm90` and `.launches_dq_sm90` count those of the sm90
 kernels, and `.launches_fwd_decode` those of the decode forward (one per
-call, its merge launch included).
+call, its merge launch included).  The forward counts inside the
+operator's CUDA implementation, so a program exported with the operator
+and loaded elsewhere counts its launches too.
 """
 from __future__ import annotations
 
@@ -586,13 +590,60 @@ def flash_bwd_cuda(q, k, v, do, lse, delta, mask=None, is_causal=False,
     return dq, dk, dv
 
 
+@torch.library.custom_op(
+    "paddle_tpu_torch::flash_fwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? mask, bool is_causal, "
+           "float scale, int window) -> (Tensor, Tensor)")
+def flash_fwd_op(q, k, v, mask, is_causal, scale, window):
+    """The flash forward as one operator -> (o (B, Lq, H, D) in q's dtype,
+    lse (B, H, Lq) float32), given a mask as `_normalize_mask` leaves it,
+    the scale and the window already resolved.  `torch.export` keeps it
+    as one node, which a loaded program runs: CPU tensors take
+    `flash_fwd_plain`, CUDA tensors `flash_fwd_cuda` (which counts the
+    launch there, so a loaded program's launches are counted too)."""
+    o, lse = flash_fwd_plain(q, k, v, mask, is_causal, scale, window)
+    return o.contiguous(), lse.contiguous()
+
+
+@flash_fwd_op.register_kernel("cuda")
+def _flash_fwd_op_cuda(q, k, v, mask, is_causal, scale, window):
+    return flash_fwd_cuda(q, k, v, mask, is_causal, scale, window)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_op_fake(q, k, v, mask, is_causal, scale, window):
+    B, Lq, H, D = q.shape
+    return (q.new_empty((B, Lq, H, D)),
+            q.new_empty((B, H, Lq), dtype=torch.float32))
+
+
+def _flash_fwd_op_setup(ctx, inputs, output):
+    q, k, v, m4, causal, scale, window = inputs
+    o, lse = output
+    ctx.mark_non_differentiable(lse)
+    ctx.save_for_backward(q, k, v, m4, o, lse)
+    ctx.args = (causal, scale, window)
+
+
+def _flash_fwd_op_backward(ctx, do, _dlse):
+    """delta in plain torch ops, then the dK/dV and dQ kernels (CUDA) or
+    their plain version (CPU).  Masks are inputs, not trained parameters:
+    their gradient is None (callers with a mask that needs one take the
+    plain path, as `ops.sdpa` routes them)."""
+    q, k, v, m4, o, lse = ctx.saved_tensors
+    dq, dk, dv = _backward(q, k, v, o, lse, do, m4, *ctx.args)
+    return dq, dk, dv, None, None, None, None
+
+
+flash_fwd_op.register_autograd(_flash_fwd_op_backward,
+                               setup_context=_flash_fwd_op_setup)
+
+
 def _forward(q, k, v, m4, causal, scale, window):
-    if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, m4, causal, scale, window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash attention runs on cuda or cpu, not "
                          f"{q.device.type}")
-    return flash_fwd_cuda(q, k, v, m4, causal, scale, window)
+    return flash_fwd_op(q, k, v, m4, causal, scale, window)
 
 
 def _delta(do, o):
@@ -611,38 +662,19 @@ def _backward(q, k, v, o, lse, do, m4, causal, scale, window):
     return flash_bwd_cuda(q, k, v, do, lse, delta, m4, causal, scale, window)
 
 
-class _FlashCore(torch.autograd.Function):
-    """In place of `_flash_core`: the forward kernel, then on backward
-    delta in plain torch ops and the dK/dV and dQ kernels.  Masks are
-    inputs, not trained parameters: their gradient is None (callers with a
-    mask that needs one take the plain path, as `ops.sdpa` routes them)."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, m4, causal, scale, window):
-        o, lse = _forward(q, k, v, m4, causal, scale, window)
-        ctx.save_for_backward(q, k, v, m4, o, lse)
-        ctx.args = (causal, scale, window)
-        return o
-
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, m4, o, lse = ctx.saved_tensors
-        dq, dk, dv = _backward(q, k, v, o, lse, do, m4, *ctx.args)
-        return dq, dk, dv, None, None, None, None
-
-
 def flash_attention(q, k, v, mask=None, is_causal=False, scale=None,
                     window=None):
     """Flash attention on (B, L, H, D) -> (B, Lq, H, D) in q's dtype, with
-    gradients for q, k and v.  `mask` is bool (True keeps) or additive, of
-    shape (Lq, Lk), (B, Lq, Lk) or (B|1, H|1, Lq|1, Lk).  `window`
-    (sliding window, needs is_causal) keeps cols in (r + off - window,
-    r + off]; a negative window raises ValueError (the JAX entry does not
-    check it)."""
+    gradients for q, k and v (the operator's registered backward, in place
+    of `_flash_core`'s custom VJP).  `mask` is bool (True keeps) or
+    additive, of shape (Lq, Lk), (B, Lq, Lk) or (B|1, H|1, Lq|1, Lk).
+    `window` (sliding window, needs is_causal) keeps cols in (r + off -
+    window, r + off]; a negative window raises ValueError (the JAX entry
+    does not check it)."""
     window = _window(window, is_causal)
     D = q.shape[-1]
-    return _FlashCore.apply(q, k, v, _normalize_mask(mask), bool(is_causal),
-                            _scale(scale, D), window)
+    return _forward(q, k, v, _normalize_mask(mask), bool(is_causal),
+                    _scale(scale, D), window)[0]
 
 
 flash_attention.launches_fwd = 0

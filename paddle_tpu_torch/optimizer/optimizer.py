@@ -16,14 +16,23 @@ valid.  Slots are created at the first step on each parameter's device
 bfloat16 / float16 parameter when master weights are on (AMP O2), which
 then carries the update while the parameter gets its rounded value.
 Parameters that do not require grad get no slots; one unfrozen after
-that raises at the next update until the state is rebuilt.  The learning rate is
-a float (LR schedulers are a later slice); clipping runs on the `.grad`
-tensors first.  Nothing waits for the card.
+that raises at the next update until the state is rebuilt.  Clipping runs
+on the `.grad` tensors first.  Nothing waits for the card.
+
+The learning rate is a float or an `lr.LRScheduler`, read at every
+update (`get_lr`, `:81-85`); the caller steps the scheduler.
+`parameters` may be a list of groups (dicts with "params") as in the
+JAX package (`:31-48`): a group's "learning_rate" is a COEFFICIENT on
+the global rate, and its "weight_decay" overrides the global decay for
+that group; both compose with `apply_decay_param_fun`.  Per-parameter
+`ParamAttr` fields are not ported.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .lr import LRScheduler
 
 _LOW = (torch.bfloat16, torch.float16)
 
@@ -44,10 +53,22 @@ class Optimizer:
         if parameters is None:
             raise ValueError(
                 "parameters must be provided (dygraph-style optimizer)")
-        self._parameters = list(parameters)
-        if self._parameters and isinstance(self._parameters[0], dict):
-            raise NotImplementedError(
-                "parameter groups are not ported yet; pass a flat list")
+        parameters = list(parameters)
+        self._lr_scales, self._wd_overrides = [], []
+        if parameters and isinstance(parameters[0], dict):
+            self._parameters = []
+            for group in parameters:
+                ps = list(group["params"])
+                wd = group.get("weight_decay")
+                self._parameters.extend(ps)
+                self._lr_scales.extend(
+                    [float(group.get("learning_rate", 1.0))] * len(ps))
+                self._wd_overrides.extend(
+                    [None if wd is None else float(wd)] * len(ps))
+        else:
+            self._parameters = parameters
+            self._lr_scales = [1.0] * len(parameters)
+            self._wd_overrides = [None] * len(parameters)
         # TrainStep renames these after the model's named_parameters()
         self._param_names = [f"param_{i}"
                              for i in range(len(self._parameters))]
@@ -61,10 +82,13 @@ class Optimizer:
 
     # ------------------------------------------------------------------- lr
     def get_lr(self):
-        if not isinstance(self._lr, (int, float)):
-            raise NotImplementedError(
-                "learning-rate schedulers are not ported yet; pass a float")
+        """The global rate: the scheduler's current value, or the float."""
+        if isinstance(self._lr, LRScheduler):
+            return float(self._lr())
         return float(self._lr)
+
+    def set_lr(self, value):
+        self._lr = float(value)
 
     # ------------------------------------------------------------ state mgmt
     def _init_state_for(self, p):
@@ -98,16 +122,14 @@ class Optimizer:
         fn = self._apply_decay_param_fun
         return True if fn is None else bool(fn(name))
 
-    def _pre_grad(self, g, p, decayed):
+    def _pre_grad(self, g, p, decayed, wd):
         # coupled L2 (Adam)
-        wd = self._weight_decay
         if wd and self._couple_decay and decayed:
             return g + wd * p
         return g
 
-    def _post_param(self, new_p, old_p, decayed, lr):
+    def _post_param(self, new_p, old_p, decayed, lr, wd):
         # decoupled decay (AdamW)
-        wd = self._weight_decay
         if wd and not self._couple_decay and decayed:
             return new_p - lr * wd * old_p
         return new_p
@@ -115,11 +137,14 @@ class Optimizer:
     @torch.no_grad()
     def update(self, lr, step):
         """Apply one update with learning rate `lr` at 1-based `step` to
-        every parameter that has a grad, in place."""
+        every parameter that has a grad, in place; a parameter group
+        scales `lr` by its coefficient (in float32, as the JAX update
+        multiplies its float32 rate) and may override the decay."""
         if self._state is None:
             self.init_state()
-        for p, name, slots in zip(self._parameters, self._param_names,
-                                  self._state):
+        for p, name, slots, scale, wd in zip(
+                self._parameters, self._param_names, self._state,
+                self._lr_scales, self._wd_overrides):
             if p.grad is None or not p.requires_grad:
                 continue
             if not slots:
@@ -133,11 +158,14 @@ class Optimizer:
                     f"Rebuild the optimizer (or call init_state()) after "
                     f"unfreezing it")
             dec = self._decayed(name)
+            lr_i = lr if scale == 1.0 else \
+                f32(np.float32(lr) * np.float32(scale))
+            wd_i = self._weight_decay if wd is None else wd
             gf = p.grad.float()
             pf = slots["master"] if "master" in slots else p.detach().float()
-            gf = self._pre_grad(gf, pf, dec)
-            new_p, new_slots = self._rule(gf, pf, dict(slots), lr, step)
-            new_p = self._post_param(new_p, pf, dec, lr)
+            gf = self._pre_grad(gf, pf, dec, wd_i)
+            new_p, new_slots = self._rule(gf, pf, dict(slots), lr_i, step)
+            new_p = self._post_param(new_p, pf, dec, lr_i, wd_i)
             for s, t in new_slots.items():
                 if t is not slots[s]:
                     slots[s].copy_(t)

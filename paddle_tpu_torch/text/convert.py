@@ -1,15 +1,16 @@
 """HuggingFace checkpoint conversion into the port's models.
 
-Counterpart: `paddle_tpu/text/convert.py:33-143`, `:190-219` —
-`convert_hf_llama`, `convert_hf_qwen2` and `convert_hf_gpt2`.  The
+Counterpart: `paddle_tpu/text/convert.py:33-235` —
+`convert_hf_llama`, `convert_hf_qwen2`, `convert_hf_gpt2`,
+`convert_hf_bert` and `convert_hf_ernie`.  The
 source is a `transformers` model or its state dict, of torch tensors or
 numpy arrays; nothing here imports `transformers`.  The target's
 parameters are overwritten in place, each in its own dtype and on its
 own device.
 
 Layouts.  The port's Linear is `torch.nn.Linear`, [out, in] as HF's, so
-LLaMA-family weights are NOT transposed (the JAX package transposes
-them into its [in, out]).  HF applies rotary embeddings to half-split
+LLaMA-family, BERT and ERNIE weights are NOT transposed (the JAX package
+transposes them into its [in, out]).  HF applies rotary embeddings to half-split
 pairs (i, i + d/2) and the port to interleaved pairs (2i, 2i + 1), as the
 JAX package does, so the q / k projection rows (and q / k biases) are
 permuted per head (`_rope_perm`).  GPT-2's Conv1D is [in, out], so its
@@ -21,7 +22,8 @@ One intended divergence (ROADMAP.md C2): the JAX converter takes
 a LLaMA config with biases converted by `convert_hf_llama` keeps zero
 biases.  Here the flag is the target config's `attention_bias`, and the
 conversion raises ValueError when the checkpoint's q / k / v bias keys
-disagree with it.  BERT and ERNIE conversion wait for their models.
+disagree with it.  BERT and ERNIE convert the encoder, embeddings and
+pooler and leave the task heads as they are, as the JAX converter does.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["convert_hf_gpt2", "convert_hf_llama", "convert_hf_qwen2"]
+__all__ = ["convert_hf_bert", "convert_hf_ernie", "convert_hf_gpt2",
+           "convert_hf_llama", "convert_hf_qwen2"]
 
 
 def _np(t):
@@ -175,3 +178,54 @@ def convert_hf_gpt2(model, hf):
             out[o + ours + ".weight"] = w if ours.startswith("ln") else w.T
             out[o + ours + ".bias"] = sd[h + theirs + ".bias"]
     return _assign(model, out)
+
+
+def convert_hf_bert(model, hf):
+    """transformers Bert{Model,For*} (or its state dict) -> the port's
+    BERT-bearing model (anything with `bert.*` parameters: BertModel's
+    parent heads, or an ErnieModel); the task heads are left as they
+    are.  HF's [out, in] Linear weights go across untransposed."""
+    sd = _state(hf)
+    pre = "bert." if any(k.startswith("bert.") for k in sd) else ""
+    n_layers = model.bert.cfg.num_hidden_layers
+    _check_layer_count(sd, rf"{re.escape(pre)}encoder\.layer\.(\d+)\.",
+                       n_layers, "hf_bert")
+    emb = pre + "embeddings."
+    out = {f"bert.embeddings.{n}.weight": sd[f"{emb}{n}.weight"]
+           for n in ("word_embeddings", "position_embeddings",
+                     "token_type_embeddings")}
+    out["bert.embeddings.layer_norm.weight"] = sd[emb + "LayerNorm.weight"]
+    out["bert.embeddings.layer_norm.bias"] = sd[emb + "LayerNorm.bias"]
+    if pre + "pooler.dense.weight" in sd:
+        out["bert.pooler.weight"] = sd[pre + "pooler.dense.weight"]
+        out["bert.pooler.bias"] = sd[pre + "pooler.dense.bias"]
+    for i in range(n_layers):
+        h, o = pre + f"encoder.layer.{i}.", f"bert.encoder.layers.{i}."
+        att = h + "attention."
+        pairs = ((o + "self_attn.q_proj", att + "self.query"),
+                 (o + "self_attn.k_proj", att + "self.key"),
+                 (o + "self_attn.v_proj", att + "self.value"),
+                 (o + "self_attn.out_proj", att + "output.dense"),
+                 (o + "linear1", h + "intermediate.dense"),
+                 (o + "linear2", h + "output.dense"),
+                 (o + "norm1", att + "output.LayerNorm"),
+                 (o + "norm2", h + "output.LayerNorm"))
+        for ours, theirs in pairs:
+            out[ours + ".weight"] = sd[theirs + ".weight"]
+            out[ours + ".bias"] = sd[theirs + ".bias"]
+    return _assign(model, out)
+
+
+def convert_hf_ernie(model, hf):
+    """transformers Ernie{Model,For*} (or its state dict) -> the port's
+    ErnieModel or an ERNIE head: the BERT mapping for the body, then the
+    task-type embeddings when both sides have them."""
+    sd = _state(hf)
+    pre = "ernie." if any(k.startswith("ernie.") for k in sd) else ""
+    sub = {k[len(pre):]: v for k, v in sd.items()} if pre else sd
+    core = model.ernie if hasattr(model, "ernie") else model
+    convert_hf_bert(core, sub)
+    tt = "embeddings.task_type_embeddings.weight"
+    if tt in sub and getattr(core.cfg, "use_task_id", False):
+        _assign(core, {"task_type_embeddings.weight": sub[tt]})
+    return model

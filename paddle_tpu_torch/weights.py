@@ -3,11 +3,12 @@
 `load_paddle_tpu_state(model, arrays)` takes the `{name: np.ndarray}`
 that a `paddle_tpu` model's `state_dict()` gives (each value through
 `np.asarray`) and copies it into the port's model of the same
-architecture (GPT, LLaMA, Mistral, Qwen2, ResNet, and any of them
-wrapped by LoRA or converted to weight-only), name for name.  The JAX
+architecture (GPT, LLaMA, Mistral, Qwen2, ResNet, BERT, ERNIE, and any
+of them wrapped by LoRA or converted to weight-only), name for name.  The JAX
 package keeps a Linear weight as [in, out] (`paddle_tpu/nn/common.py::
 Linear`); `torch.nn.Linear` keeps [out, in], so those weights (every
-projection, LLaMA's untied `lm_head`, a ResNet's `fc`, and the
+projection, LLaMA's untied `lm_head`, a ResNet's `fc`, BERT's and
+ERNIE's `*_proj`, `linear1` / `linear2`, `pooler` and `classifier`, and the
 `*.base.weight` of a LoRA layer) are transposed on the way.  The rest
 keeps its layout: embeddings, norm weights and biases, OIHW conv
 weights, batch-norm running statistics, LoRA's `lora_A` [in, r] and
@@ -25,20 +26,36 @@ import torch
 from torch import nn
 
 
+def _linear_weights(model):
+    """The names of every nn.Linear weight of `model` (the model itself
+    included)."""
+    return {f"{name}.weight" if name else "weight"
+            for name, mod in model.named_modules()
+            if isinstance(mod, nn.Linear)}
+
+
 @torch.no_grad()
 def load_paddle_tpu_state(model, arrays):
     """Copy `arrays` into `model`'s parameters and buffers, converting to
-    each tensor's dtype and device.  Raises KeyError on a missing or an
-    unexpected name and ValueError on a shape mismatch.  Returns model."""
-    linear = {f"{name}.weight" for name, mod in model.named_modules()
-              if isinstance(mod, nn.Linear)}
-    state = model.state_dict()
-    missing = sorted(set(state) - set(arrays))
+    each tensor's dtype and device.  A tensor the model holds under two
+    names (BERT's LM decoder tied to the word embeddings) is listed once
+    by the JAX package, so it is loaded once, from whichever of its names
+    `arrays` has.  Raises KeyError on a missing or an unexpected name and
+    ValueError on a shape mismatch.  Returns model."""
+    linear = _linear_weights(model)
+    state = model.state_dict(keep_vars=True)
+    names = {}                      # tensor id -> every name it goes by
+    for name, t in state.items():
+        names.setdefault(id(t), []).append(name)
+    missing = sorted(n for group in names.values()
+                     if not any(g in arrays for g in group) for n in group)
     unexpected = sorted(set(arrays) - set(state))
     if missing or unexpected:
         raise KeyError(f"state names differ: missing {missing}, "
                        f"unexpected {unexpected}")
     for name, dst in state.items():
+        if name not in arrays:      # an alias of a tensor loaded by name
+            continue
         src = np.asarray(arrays[name])
         if name in linear:
             src = src.T
@@ -67,8 +84,7 @@ def load_paddle_tpu_optimizer_state(optimizer, model, state):
     `optimizer.Adafactor`).  Raises KeyError
     on a missing or unexpected parameter or slot name and ValueError on a
     shape mismatch.  Returns optimizer."""
-    linear = {f"{name}.weight" for name, mod in model.named_modules()
-              if isinstance(mod, nn.Linear)}
+    linear = _linear_weights(model)
     names = {id(p): n for n, p in model.named_parameters()}
     if optimizer._state is None:
         optimizer.init_state()

@@ -1,6 +1,7 @@
 """The port's HF conversion against `transformers` and against the JAX
 package's converter, on the CPU (the LLaMA, Qwen2 and GPT-2 cases of
-tests/test_hf_convert.py and tests/test_qwen_swa.py).
+tests/test_hf_convert.py and tests/test_qwen_swa.py; BERT and ERNIE from
+synthetic HF-named state dicts made with numpy).
 
 Tiny `transformers` models are built in the process with random weights
 (nothing is downloaded).  The converted port model's float32 logits are
@@ -29,7 +30,19 @@ from paddle_tpu.text.qwen import Qwen2ForCausalLM as JaxQwen2  # noqa: E402
 from paddle_tpu_torch.text import (GPTConfig, GPTForCausalLM,  # noqa: E402
                                    LlamaConfig, LlamaForCausalLM,
                                    Qwen2Config, Qwen2ForCausalLM)
-from paddle_tpu_torch.text.convert import (convert_hf_gpt2,  # noqa: E402
+from paddle_tpu.text.bert import BertConfig as JaxBertConfig  # noqa: E402
+from paddle_tpu.text.bert import (  # noqa: E402
+    BertForSequenceClassification as JaxBertCls)
+from paddle_tpu.text.ernie import ErnieConfig as JaxErnieConfig  # noqa: E402
+from paddle_tpu.text.ernie import (  # noqa: E402
+    ErnieForSequenceClassification as JaxErnieCls)
+from paddle_tpu_torch.text import (BertConfig,  # noqa: E402
+                                   BertForSequenceClassification,
+                                   ErnieConfig,
+                                   ErnieForSequenceClassification)
+from paddle_tpu_torch.text.convert import (convert_hf_bert,  # noqa: E402
+                                           convert_hf_ernie,
+                                           convert_hf_gpt2,
                                            convert_hf_llama,
                                            convert_hf_qwen2)
 
@@ -196,3 +209,111 @@ def test_attention_bias_follows_the_config_c2_divergence():
                                           device="cpu"), _hf("llama"))
     with pytest.raises(ValueError, match="o_proj"):
         convert_hf_llama(ours, _hf("llama", attention_bias=True))
+
+
+# ------------------------------------------------------------ BERT, ERNIE
+BERT = dict(vocab_size=90, hidden_size=32, num_hidden_layers=2,
+            num_attention_heads=4, intermediate_size=64,
+            max_position_embeddings=40, hidden_dropout_prob=0.0,
+            attention_probs_dropout_prob=0.0)
+
+
+def _hf_bert_state(prefix="bert.", layers=2, task_types=False, seed=0):
+    """An HF-named BERT state dict ([out, in] Linear weights), drawn with
+    numpy: embeddings, every encoder layer and the pooler."""
+    rng = np.random.default_rng(seed)
+    h, f = BERT["hidden_size"], BERT["intermediate_size"]
+
+    def w(*shape, scale=0.2):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    e = prefix + "embeddings."
+    sd = {e + "word_embeddings.weight": w(BERT["vocab_size"], h),
+          e + "position_embeddings.weight": w(BERT[
+              "max_position_embeddings"], h),
+          e + "token_type_embeddings.weight": w(2, h),
+          e + "LayerNorm.weight": 1 + w(h, scale=0.1),
+          e + "LayerNorm.bias": w(h, scale=0.1),
+          prefix + "pooler.dense.weight": w(h, h),
+          prefix + "pooler.dense.bias": w(h, scale=0.1)}
+    if task_types:
+        sd[e + "task_type_embeddings.weight"] = w(3, h)
+    for i in range(layers):
+        L = f"{prefix}encoder.layer.{i}."
+        for name, (o, n) in {"attention.self.query": (h, h),
+                             "attention.self.key": (h, h),
+                             "attention.self.value": (h, h),
+                             "attention.output.dense": (h, h),
+                             "intermediate.dense": (f, h),
+                             "output.dense": (h, f)}.items():
+            sd[f"{L}{name}.weight"] = w(o, n)
+            sd[f"{L}{name}.bias"] = w(o, scale=0.1)
+        for ln in ("attention.output.LayerNorm", "output.LayerNorm"):
+            sd[f"{L}{ln}.weight"] = 1 + w(h, scale=0.1)
+            sd[f"{L}{ln}.bias"] = w(h, scale=0.1)
+    return sd
+
+
+def _jax_cls_logits(jm, ids):
+    jm.eval()
+    return np.asarray(jm(pt.to_tensor(ids.astype("int64")))._array)
+
+
+@pytest.mark.parametrize("prefix", ["bert.", ""])
+def test_bert_matches_the_jax_converter(prefix):
+    """The same synthetic checkpoint through both converters; the task
+    head (left untouched by both) carried from the JAX model.  The
+    port's Linear weights are HF's, untransposed."""
+    sd = _hf_bert_state(prefix)
+    pt.seed(0)
+    jm = JaxBertCls(JaxBertConfig(**BERT), num_classes=3)
+    jconvert.convert_hf_bert(jm, sd)
+    ours = BertForSequenceClassification(BertConfig(**BERT), num_classes=3,
+                                         device="cpu")
+    with torch.no_grad():
+        ours.classifier.weight.copy_(torch.from_numpy(
+            np.array(jm.classifier.weight._array).T))
+        ours.classifier.bias.zero_()
+    convert_hf_bert(ours, {k: torch.from_numpy(v) for k, v in sd.items()})
+    q = ours.bert.encoder.layers[1].self_attn.q_proj.weight
+    np.testing.assert_array_equal(
+        q.detach().numpy(), sd[prefix + "encoder.layer.1.attention.self."
+                               "query.weight"])
+    ids = _ids(BERT["vocab_size"], 3, 12)
+    np.testing.assert_allclose(_port_logits(ours, ids),
+                               _jax_cls_logits(jm, ids), **TOL)
+
+
+def test_ernie_matches_the_jax_converter_with_task_types():
+    sd = _hf_bert_state("ernie.", task_types=True, seed=1)
+    cfg = dict(BERT)
+    pt.seed(1)
+    jm = JaxErnieCls(JaxErnieConfig(**cfg), num_classes=2)
+    jconvert.convert_hf_ernie(jm, sd)
+    ours = ErnieForSequenceClassification(ErnieConfig(**cfg), num_classes=2,
+                                          device="cpu")
+    with torch.no_grad():
+        ours.classifier.weight.copy_(torch.from_numpy(
+            np.array(jm.classifier.weight._array).T))
+        ours.classifier.bias.zero_()
+    convert_hf_ernie(ours, sd)
+    np.testing.assert_array_equal(
+        ours.ernie.task_type_embeddings.weight.detach().numpy(),
+        sd["ernie.embeddings.task_type_embeddings.weight"])
+    ids = _ids(BERT["vocab_size"], 2, 10)
+    np.testing.assert_allclose(_port_logits(ours, ids),
+                               _jax_cls_logits(jm, ids), **TOL)
+
+
+def test_bert_and_ernie_reject_a_layer_count_mismatch():
+    """A deeper checkpoint raises rather than converting its prefix (and
+    a shallower one rather than leaving layers as they were)."""
+    for layers in (3, 1):
+        with pytest.raises(ValueError, match="layers"):
+            convert_hf_bert(BertForSequenceClassification(
+                BertConfig(**BERT), device="cpu"),
+                _hf_bert_state(layers=layers))
+        with pytest.raises(ValueError, match="layers"):
+            convert_hf_ernie(ErnieForSequenceClassification(
+                ErnieConfig(**BERT), device="cpu"),
+                _hf_bert_state("ernie.", layers=layers))

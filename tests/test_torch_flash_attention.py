@@ -3,12 +3,14 @@
 The same inputs, made with numpy from a seed, go through the JAX
 `flash_attention(..., interpret=True)` (its Pallas kernels in interpret
 mode, as tests/test_pallas.py runs them) and the port's `flash_attention`
-(the autograd Function over the plain versions, which is what CPU tensors
-take).  Forward outputs are compared, and gradients through `jax.vjp`
+(the `paddle_tpu_torch::flash_fwd` operator and its registered backward
+over the plain versions, which is what CPU tensors take).  Forward outputs are compared, and gradients through `jax.vjp`
 against `torch.autograd.grad` with one cotangent.  The case list follows
 tests/test_pallas.py at a tiny size.  Also: the `supports()` gate against
 the JAX gate, `flash_block_fwd` / `flash_block_bwd` against JAX's, the
-window checks, and the plain `sdpa`'s sliding window against `sdpa_k`.
+window checks, the plain `sdpa`'s sliding window against `sdpa_k`, and
+`torch.library.opcheck` of the operator (its schema, fake implementation,
+autograd registration and traced backward) on the CPU.
 
 Tolerance: float32 on both sides, summed in another order (the JAX kernel
 blockwise with an online softmax, the port densely): rtol = atol = 1e-5.
@@ -189,6 +191,28 @@ def test_flash_block_fwd_and_bwd_match_jax(causal):
                              torch.from_numpy(do), causal)
     for a, b in zip(tg, jg):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+
+
+@pytest.mark.parametrize("name", ["causal", "gqa_full", "mask_bool_padding",
+                                  "mask_additive_full", "window"])
+def test_flash_op_passes_opcheck(name):
+    """The operator as `torch.export` and autograd see it: opcheck runs
+    its schema, fake (meta) implementation, autograd registration and a
+    traced forward and backward with dynamic shapes against the CPU
+    implementation; the fake gives o (B, Lq, H, D) in q's dtype and lse
+    (B, H, Lq) float32."""
+    (q, k, v, _), mask, causal, window, _ = _case(name, seed=7)
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    m4 = tfa._normalize_mask(None if mask is None else torch.from_numpy(mask))
+    args = (q, k, v, m4, causal, tfa._scale(None, q.shape[-1]),
+            tfa._window(window, causal))
+    torch.library.opcheck(torch.ops.paddle_tpu_torch.flash_fwd.default, args)
+    with torch.device("meta"):
+        fo, flse = tfa.flash_fwd_op(*(x.to("meta") if torch.is_tensor(x)
+                                      else x for x in args))
+    assert (fo.shape, fo.dtype) == (q.shape, q.dtype)
+    assert (flse.shape, flse.dtype) == ((q.shape[0], q.shape[2],
+                                         q.shape[1]), torch.float32)
 
 
 def test_window_checks():

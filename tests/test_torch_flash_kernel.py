@@ -51,6 +51,12 @@ CASES = {
     "verify_gqa7_padding": (2, 5, 150, 14, 2, 128, True, 0, "bool_padding"),
     "decode_gqa8_additive": (3, 1, 129, 16, 2, 128, False, 0,
                              "additive_full"),
+    # BERT-base's fine-tune shape (batch 32, seq 128, 12 heads of 64),
+    # unmasked and under its additive key-padding mask [32, 1, 1, 128]
+    # (0 / -1e4, rows 64 to 128 long)
+    "bert": (32, 128, 128, 12, 12, 64, False, 0, None),
+    "bert_padding": (32, 128, 128, 12, 12, 64, False, 0,
+                     "additive_padding"),
 }
 
 
@@ -61,6 +67,10 @@ def make_mask(kind, B, Lq, Lk, H, rng):
         lens = rng.integers(1, Lk + 1, size=B)
         m = np.arange(Lk)[None, :] < lens[:, None]
         return torch.from_numpy(m)[:, None, None, :]
+    if kind == "additive_padding":      # (B, 1, 1, Lk): BERT's (1 - m) * -1e4
+        lens = rng.integers(Lk // 2, Lk + 1, size=B)
+        m = np.where(np.arange(Lk)[None, :] < lens[:, None], 0.0, -1e4)
+        return torch.from_numpy(m.astype(np.float32))[:, None, None, :]
     if kind == "additive_full":         # (B, 1, Lq, Lk)
         return torch.from_numpy(np.where(rng.random((B, 1, Lq, Lk)) < 0.8,
                                          0.0, -1e9).astype(np.float32))
@@ -605,3 +615,43 @@ def test_kernel_raises_on_unsupported_shape(card):
     q, k, v = (torch.cat([x, x, x], dim=-1) for x in (q, k, v))   # D 192
     with pytest.raises(ValueError):
         fa.flash_attention(q, k, v, is_causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_exported_encoder_holds_the_op_and_counts_launches(card, dtype,
+                                                           tmp_path):
+    """An ERNIE encoder (2 layers, D 64) exported on the card holds the
+    flash operator once per layer; its predictor launches the forward
+    once per layer a run (sm90 in bf16, sm80 in float32) and gives the
+    eager model's logits."""
+    from paddle_tpu_torch import amp, inference
+    from paddle_tpu_torch.jit import InputSpec, save_inference
+    from paddle_tpu_torch.text import (ErnieConfig,
+                                       ErnieForSequenceClassification)
+    cfg = ErnieConfig(vocab_size=500, hidden_size=128, num_hidden_layers=2,
+                      num_attention_heads=2, intermediate_size=256,
+                      hidden_dropout_prob=0.0)
+    model = ErnieForSequenceClassification(cfg, device=card)
+    if dtype != torch.float32:
+        amp.decorate(models=model, dtype="bfloat16")
+    model.eval()
+    save_inference(model, str(tmp_path), [InputSpec([None, 64], "int64",
+                                                    "input_ids")])
+    predictor = inference.create_predictor(inference.Config(str(tmp_path)))
+    graph = predictor._layer.program.graph
+    ops_ = [n for n in graph.nodes if n.op == "call_function"
+            and "paddle_tpu_torch.flash_fwd" in str(n.target)]
+    assert len(ops_) == cfg.num_hidden_layers
+    ids = np.random.default_rng(0).integers(0, 500, (4, 64))
+    h = predictor.get_input_handle("input_ids")
+    h.copy_from_cpu(ids)
+    before = _counts()
+    predictor.run()
+    logits = predictor.get_output_handle("output_0").copy_to_cpu()
+    grew = tuple(a - b for a, b in zip(_counts(), before))
+    sm90 = cfg.num_hidden_layers if dtype == torch.bfloat16 else 0
+    assert grew == (cfg.num_hidden_layers, 0, 0, sm90, 0, 0, 0)
+    with torch.no_grad():
+        eager = model(torch.from_numpy(ids).to(card)).float().cpu().numpy()
+    np.testing.assert_array_equal(logits.astype(np.float32), eager)

@@ -25,6 +25,11 @@ from paddle_tpu_torch.text import (GPTConfig, GPTForCausalLM, LlamaConfig,
                                    LlamaForCausalLM, Qwen2Config,
                                    Qwen2ForCausalLM, gpt_loss_fn)
 from paddle_tpu_torch.text.peft import LoRAConfig, get_peft_model
+from paddle_tpu_torch.text import (BertConfig, BertForPretraining,
+                                   BertForSequenceClassification, BertModel,
+                                   ErnieConfig, ErnieForMaskedLM,
+                                   ErnieForQuestionAnswering,
+                                   ErnieForSequenceClassification, ErnieModel)
 from paddle_tpu_torch.vision.models import resnet18, resnet50
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -73,7 +78,11 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.text.peft, paddle_tpu_torch.text.convert, "
             "paddle_tpu_torch.nn.quant, paddle_tpu_torch.nn.conv, "
             "paddle_tpu_torch.nn.norm, paddle_tpu_torch.nn.pooling, "
-            "paddle_tpu_torch.vision, paddle_tpu_torch.vision.models\n"
+            "paddle_tpu_torch.vision, paddle_tpu_torch.vision.models, "
+            "paddle_tpu_torch.nn.transformer, paddle_tpu_torch.text.bert, "
+            "paddle_tpu_torch.text.ernie, paddle_tpu_torch.optimizer.lr, "
+            "paddle_tpu_torch.amp.grad_scaler, paddle_tpu_torch.inference, "
+            "paddle_tpu_torch.jit.save_load\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN | {'transformers'})!r})\n"
             "assert not bad, bad\n")
@@ -156,3 +165,24 @@ def test_training_family_entry_points_stay_on_the_named_device(monkeypatch):
     layers = [m for m in wo.modules() if isinstance(m, WeightOnlyLinear)]
     assert layers and {m.quant_weight.device for m in layers} == \
         {torch.device("cpu")}
+
+
+def test_encoder_family_entry_points_raise_without_a_device(monkeypatch):
+    """Every BERT and ERNIE model raises without a card unless the CPU is
+    named; named, its parameters and its export stay on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tiny = dict(vocab_size=16, hidden_size=8, num_hidden_layers=1,
+                num_attention_heads=2, intermediate_size=16,
+                max_position_embeddings=8)
+    for cls, cfg in ((BertModel, BertConfig), (BertForPretraining,
+                                                BertConfig),
+                     (BertForSequenceClassification, BertConfig),
+                     (ErnieModel, ErnieConfig), (ErnieForMaskedLM,
+                                                 ErnieConfig),
+                     (ErnieForQuestionAnswering, ErnieConfig),
+                     (ErnieForSequenceClassification, ErnieConfig)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls(cfg(**tiny))
+        model = cls(cfg(**tiny), device="cpu")
+        assert {p.device for p in model.parameters()} == \
+            {torch.device("cpu")}

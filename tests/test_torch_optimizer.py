@@ -6,8 +6,9 @@ port's optimizer (`.grad` set, `update(lr, step)` in place).  Covered:
 Adam with coupled decay, AdamW with decoupled decay and
 `apply_decay_param_fun`, Adafactor factored and unfactored and with
 `beta1`, Adafactor on a Linear weight (the JAX layout [in, out] against
-torch's [out, in]), float32 master weights of a bfloat16 parameter, and
-`ClipGradByGlobalNorm`.
+torch's [out, in]), float32 master weights of a bfloat16 parameter,
+`ClipGradByGlobalNorm`, and parameter groups (a group's rate coefficient
+and decay override, with `apply_decay_param_fun`).
 
 Tolerance: both sides compute in float32 with the same formulas; the
 scalar bias corrections are float32 powers on both sides, which may differ
@@ -78,6 +79,52 @@ def test_adamw_decoupled_decay_and_decay_fun(decayed):
     jp0, _, _, _ = _run(pt.optimizer.AdamW, topt.AdamW, (7,),
                         dict(weight_decay=0.0), name=name)
     assert (not np.allclose(jp, jp0)) == decayed
+
+
+@pytest.mark.parametrize("cls", ["Adam", "AdamW", "Momentum"])
+def test_parameter_groups_match_jax(cls):
+    """Three parameters in two groups: the first group at the global rate
+    and decay; the second at 0.3 x the rate with its own decay 0.05, one
+    of its names refused by apply_decay_param_fun.  STEPS updates of the
+    JAX functional rule (lr_scales / wd_overrides from the groups)
+    against the port's in-place update."""
+    rng = np.random.default_rng(3)
+    shapes = [(5, 4), (4,), (3, 3)]
+    p0 = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[rng.standard_normal(s).astype(np.float32) for s in shapes]
+             for _ in range(STEPS)]
+    names = ["w", "b", "skip.w"]
+    kw = dict(weight_decay=0.1,
+              apply_decay_param_fun=lambda n: not n.startswith("skip"))
+    if cls == "Momentum":
+        kw = dict(kw, momentum=0.9)
+
+    def groups(ps):
+        return [{"params": ps[:1]},
+                {"params": ps[1:], "learning_rate": 0.3,
+                 "weight_decay": 0.05}]
+
+    jps = [pt.to_tensor(p) for p in p0]
+    jopt = getattr(pt.optimizer, cls)(learning_rate=0.01,
+                                      parameters=groups(jps), **kw)
+    jopt._param_names = names
+    jarr = [jnp.asarray(p) for p in p0]
+    jstate = jopt.init_state(jarr)
+    tps = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in p0]
+    topt_ = getattr(topt, cls)(learning_rate=0.01, parameters=groups(tps),
+                               **kw)
+    topt_._param_names = names
+    assert topt_._lr_scales == [1.0, 0.3, 0.3]
+    assert topt_._wd_overrides == [None, 0.05, 0.05]
+    for i, gs in enumerate(grads, start=1):
+        jarr, jstate = jopt.update([jnp.asarray(g) for g in gs], jarr,
+                                   jstate, jnp.float32(0.01), jnp.float32(i))
+        for p, g in zip(tps, gs):
+            p.grad = torch.from_numpy(g)
+        topt_.update(0.01, i)
+    for n, jp, tp in zip(names, jarr, tps):
+        np.testing.assert_allclose(tp.detach().numpy(), np.asarray(jp),
+                                   err_msg=n, **TOL)
 
 
 @pytest.mark.parametrize("case", ["factored", "unfactored", "beta1",
