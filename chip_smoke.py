@@ -30,10 +30,15 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    32/8 and 28/4); every case through the routes,
                    asserting which family launched (forward: decode for
                    Lq <= 16, sm90 for bf16 / fp16 masked or not, sm80
-                   for the rest; backward: sm90 for bf16 / fp16 without
-                   a mask), and through every other family that takes
-                   it (the decode kernel also against its own plain
-                   version, the same splits and merge);
+                   for the rest; backward: sm90 for bf16 / fp16 masked or
+                   not, sm80 for the rest), and through every other
+                   family that takes it (the decode kernel also against
+                   its own plain version, the same splits and merge);
+                   each backward comparison beside a negative control
+                   (the same comparison against the plain gradients of a
+                   dO with one element moved must read a nonzero error),
+                   and each float32 case's kernel and plain gradients
+                   against a float64 plain backward;
 4. serve         — GPT-3 1.3B (full width, 24 layers, bf16, random weights
                    from a seed) served by LLMEngine: 16 requests, 32 greedy
                    tokens each; every request must finish, the pool must be
@@ -132,8 +137,8 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    each flash kernel 12 times a step, all sm90, no plain
                    sdpa; then padded rows (64-128 tokens) under
                    LinearWarmup(PolynomialDecay) and two parameter groups
-                   (the sm90 forward under the mask, dK/dV and dQ on
-                   sm80); then float16 with a GradScaler whose first
+                   (the sm90 forward, dK/dV and dQ under the mask); then
+                   float16 with a GradScaler whose first
                    scale overflows (skipped steps move nothing, the scale
                    halves until steps go through);
 20. bert_e2e     — 2 layers at BERT width, float32, AdamW, padded rows,
@@ -153,8 +158,11 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
 flash_kernels also holds BERT's shape (B 32, L 128, H 12, D 64,
 non-causal; unmasked and under its additive padding mask) in bf16, fp16
 and fp32 through every family that takes it, and flash_timings times
-the sm90 and sm80 forward and dK/dV and dQ there (masked: sm80 alone),
-in turns with SDPA under the same mask, each beside its bound.
+the sm90 and sm80 forward and dK/dV and dQ there, unmasked and masked,
+in turns (sm80, sm90, SDPA, SDPA, sm90, sm80) with SDPA under the same
+mask, each beside its bound; and the float32 sm80 forward at ERNIE's
+shape (the same shape and mask, float32) in turns with float32 SDPA,
+TF32 off.
 
 The kernels line counts the flash launches of phases 6-10, 13-16 and
 19-22.
@@ -173,9 +181,11 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and dense bf16 flop/s
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 flop/s and
+# float32 flop/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
 
 # kernel vs plain: both accumulate in float32 in another order, then round
 # once to the working type (2 units in the last place of a bfloat16 or
@@ -261,11 +271,17 @@ def ptxas_kernels(log):
     return out
 
 
-SM90_KERNEL_NAMES = {   # (mangled kernel, dtype, D) -> short name
-    (kern, dt, d): f"{short}_{dts}_d{d}"
-    for kern, short in (("flash_fwd_sm90_kernel", "fwd"),
-                        ("flash_dkv_sm90_kernel", "dkv"),
-                        ("flash_dq_sm90_kernel", "dq"))
+# the backward kernels' mask instantiations (csrc/flash_attention_sm90.cu
+# MASK_NONE, MASK_KEYS, MASK_FULL): the unmasked one keeps its short name
+SM90_MASK_MODES = {0: "", 1: "_keys", 2: "_full"}
+SM90_KERNEL_NAMES = {   # mangled name's tail -> short name
+    f"{kern}I{dt}Li{d}E{'' if mode is None else f'Li{mode}E'}E":
+    f"{short}_{dts}_d{d}{SM90_MASK_MODES.get(mode, '')}"
+    for kern, short, modes in (
+        ("flash_fwd_sm90_kernel", "fwd", (None,)),
+        ("flash_dkv_sm90_kernel", "dkv", tuple(SM90_MASK_MODES)),
+        ("flash_dq_sm90_kernel", "dq", tuple(SM90_MASK_MODES)))
+    for mode in modes
     for dt, dts in (("13__nv_bfloat16", "bf16"), ("6__half", "fp16"))
     for d in (64, 128)}
 
@@ -291,8 +307,8 @@ def phase_build():
     spills = sum(k["spill_store_bytes"] for k in kernels.values())
     sm90 = {}
     for name, k in kernels.items():
-        for (kern, dt, d), short in SM90_KERNEL_NAMES.items():
-            if kern in name and dt in name and f"Li{d}E" in name:
+        for tail, short in SM90_KERNEL_NAMES.items():
+            if tail in name:
                 sm90[short] = k
     paged, decode = {}, {}
     for name, k in kernels.items():
@@ -747,6 +763,16 @@ FLASH_CASES = [
      torch.float16),
     ("bert_padding_fp32", 32, 128, 128, 12, 12, 64, False, 0, "bert_padding",
      torch.float32),
+    # the masked sm90 backward's other layouts: rows that see nothing in
+    # bf16 (a full mask); a key vector under GQA 16/4, causal, a window of
+    # 96 and a ragged Lk of 200 in fp16 (rows past a short row's keys see
+    # nothing); a full additive mask per head at B 1 and D 128
+    ("dead_rows_bf16", 2, 128, 128, 16, 16, 128, False, 0, "dead_rows",
+     torch.bfloat16),
+    ("key_padding_gqa4_window96_fp16", 2, 200, 200, 16, 4, 64, True, 96,
+     "key_padding", torch.float16),
+    ("additive_full_b1_d128_bf16", 1, 320, 320, 16, 16, 128, False, 0,
+     "additive_full_h", torch.bfloat16),
 ]
 
 
@@ -768,6 +794,8 @@ def flash_inputs(B, Lq, Lk, H, Hkv, D, kind, dtype, seed):
         mask = torch.rand(B, H, Lq, Lk, generator=g, device="cuda") < 0.9
     elif kind == "additive_row1":           # (1, 1, 1, Lk): batch broadcast
         mask = torch.randn(1, 1, 1, Lk, generator=g, device="cuda")
+    elif kind == "additive_full_h":         # (B, H, Lq, Lk) additive
+        mask = torch.randn(B, H, Lq, Lk, generator=g, device="cuda")
     elif kind == "bert_padding":            # (B, 1, 1, Lk) additive, dtype
         mask = bert_padding_mask(B, Lk, dtype, g)
     elif kind == "key_padding":             # (B, 1, 1, Lk)
@@ -850,6 +878,37 @@ def bwd_error(pairs):
     return abs_err, rel
 
 
+def flash_bwd64(fa, q, k, v, do, lse, delta, mask, causal, window):
+    """flash_bwd_plain's formula (p = exp(s - lse), lse taken as 0 where
+    it is not finite; dS = p (dP - delta)) in float64, given the same
+    float32 lse and delta -> (dq, dk, dv) in float64: the float32 kernel's
+    and the float32 plain version's gradients are each held against it."""
+    B, Lq, H, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    qf = q.double().permute(0, 2, 1, 3).reshape(B, Hkv, g, Lq, D)
+    kf, vf = (x.double().permute(0, 2, 1, 3) for x in (k, v))
+    dof = do.double().permute(0, 2, 1, 3).reshape(B, Hkv, g, Lq, D)
+    s = torch.einsum("bkgqd,bkcd->bkgqc", qf, kf) * D ** -0.5
+    keep = fa._keep(Lq, Lk, causal, window, q.device)
+    if keep is not None:
+        s = s.masked_fill(~keep, float("-inf"))
+    m4 = fa._normalize_mask(mask)
+    if m4 is not None:
+        s = s + m4.double().expand(B, H, Lq, Lk).reshape(B, Hkv, g, Lq, Lk)
+    l5 = lse.double().reshape(B, Hkv, g, Lq, 1)
+    p = torch.exp(s - torch.where(torch.isfinite(l5), l5,
+                                  torch.zeros_like(l5)))
+    del s
+    dv = torch.einsum("bkgqc,bkgqd->bkcd", p, dof)
+    dp = torch.einsum("bkgqd,bkcd->bkgqc", dof, vf)
+    ds = p * (dp - delta.double().reshape(B, Hkv, g, Lq, 1))
+    dk = torch.einsum("bkgqc,bkgqd->bkcd", ds, qf) * D ** -0.5
+    dq = torch.einsum("bkgqc,bkcd->bkgqd", ds, kf) * D ** -0.5
+    return (dq.reshape(B, H, Lq, D).transpose(1, 2), dk.transpose(1, 2),
+            dv.transpose(1, 2))
+
+
 def fwd_family(grew):
     """The forward family that launched, from the counters' growth."""
     assert grew["fwd"] == 1, grew
@@ -868,7 +927,13 @@ def flash_errors(fa, q, k, v, do, mask, causal, window, fwd_families=(None,),
     `flash_fwd_plain` both; for each backward family {"dkv": ..., "dq":
     ..., "launched": family} under out["bwd"][family], given the plain
     forward's lse and delta.  "launched" is the family the launch counters
-    saw (one for dK/dV and dQ)."""
+    saw (one for dK/dV and dQ).  The first backward family also reads
+    "control": the same comparison against the plain gradients of a dO
+    with one element (of a row that sees keys) moved by 1, which must read
+    a nonzero error, so a comparison that reads 0 is known to be able to
+    fail; and in float32 "vs_float64": the kernel's and the plain
+    version's largest error against `flash_bwd64` (max |x - ref| / max
+    |ref|), and whether the two agree bit for bit."""
     dtype = q.dtype
     kw = dict(is_causal=causal, window=window)
     ref_o, ref_lse = fa.flash_fwd_plain(q, k, v, mask, **kw)
@@ -901,6 +966,11 @@ def flash_errors(fa, q, k, v, do, mask, causal, window, fwd_families=(None,),
     delta = fa._delta(do, ref_o)
     ref_dq, ref_dk, ref_dv = fa.flash_bwd_plain(q, k, v, do, ref_lse, delta,
                                                 mask, **kw)
+    b0, h0, r0 = (int(x) for x in torch.nonzero(torch.isfinite(ref_lse))[0])
+    do_moved = do.clone()
+    do_moved[b0, r0, h0, 0] += 1
+    moved = fa.flash_bwd_plain(q, k, v, do_moved, ref_lse, delta, mask, **kw)
+    del do_moved
     for fam in bwd_families:
         before = flash_counts()
         dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, ref_lse, delta, mask,
@@ -919,15 +989,35 @@ def flash_errors(fa, q, k, v, do, mask, causal, window, fwd_families=(None,),
             "dkv": (dkv_abs, dkv_rel, dkv_rel <= FLASH_BWD_TOL[dtype]),
             "dq": (dq_abs, dq_rel, dq_rel <= FLASH_BWD_TOL[dtype]),
             "launched": "sm90" if sm90 == (1, 1) else "sm80"}
+        if moved is not None:
+            control = {"dkv": bwd_error(((dk, moved[1]), (dv, moved[2])))[1],
+                       "dq": bwd_error(((dq, moved[0]),))[1],
+                       "moved": [b0, r0, h0, 0]}
+            assert control["dkv"] > 0 and control["dq"] > 0, control
+            out["bwd"][fam]["control"] = control
+            moved = None
+        if dtype == torch.float32 and "vs_float64" not in out:
+            ref64 = flash_bwd64(fa, q, k, v, do, ref_lse, delta, mask,
+                                causal, window)
+            out["vs_float64"] = {
+                "family": fam or "route",
+                "kernel": bwd_error(tuple(zip((dq, dk, dv), ref64)))[1],
+                "plain": bwd_error(tuple(zip((ref_dq, ref_dk, ref_dv),
+                                             ref64)))[1],
+                "bit_equal": all(bool(torch.equal(a, b)) for a, b in zip(
+                    (dq, dk, dv), (ref_dq, ref_dk, ref_dv)))}
+            del ref64
     return out
 
 
 def phase_flash_kernels():
     """Every case through the routes, asserting which family launched
     (forward: decode for Lq <= 16, sm90 for bf16 / fp16 at D 64 or 128,
-    masked or not, sm80 for the rest; backward: sm90 for bf16 / fp16
-    without a mask, sm80 for the rest), then through every other family
-    that takes it (`_impl`), each against its plain version."""
+    masked or not, sm80 for the rest; backward: sm90 for bf16 / fp16 at D
+    64 or 128, masked or not, sm80 for the rest), then through every
+    other family that takes it (`_impl`), each against its plain version;
+    the route's backward beside its negative control, and in float32
+    against float64 (`flash_errors`)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     torch.backends.cuda.matmul.allow_tf32 = False    # full float32 plain
     torch.backends.cudnn.allow_tf32 = False
@@ -940,7 +1030,7 @@ def phase_flash_kernels():
         half = dtype != torch.float32
         want_fwd = ("decode" if Lq <= fa.DECODE_MAX_LQ else
                     "sm90" if half else "sm80")
-        want_bwd = "sm90" if half and mask is None else "sm80"
+        want_bwd = "sm90" if half else "sm80"
         fwd_fams = fa._families(q, k, v, m4, dtype, True)
         bwd_fams = fa._families(q, k, v, m4, dtype, False)
         assert (fwd_fams[0], bwd_fams[0]) == (want_fwd, want_bwd), \
@@ -966,6 +1056,11 @@ def phase_flash_kernels():
                         f"{tag}_dq_max_abs_err": e["dq"][0],
                         f"{tag}_dq_max_err": e["dq"][1]})
             rec["ok"] = rec["ok"] and e["dkv"][2] and e["dq"][2]
+            if "control" in e:
+                rec["control_dkv_max_err"] = e["control"]["dkv"]
+                rec["control_dq_max_err"] = e["control"]["dq"]
+        if "vs_float64" in err:
+            rec["vs_float64"] = err["vs_float64"]
         results.append(rec)
         del q, k, v, do, mask
     emit({"phase": "flash_kernels",
@@ -976,6 +1071,10 @@ def phase_flash_kernels():
                       for d, t in FLASH_FWD_TOL.items()},
           "bwd_tol": {str(d).split(".")[1]: t
                       for d, t in FLASH_BWD_TOL.items()},
+          "masked_sm90_bwd_cases": [
+              r["case"] for r in results
+              if r["mask"] not in (None, "fused_qkv")
+              and r["bwd_route"] == "sm90"],
           "cases": results})
     failed = [r["case"] for r in results if not r["ok"]]
     assert not failed, f"flash kernels disagree with plain: {failed}"
@@ -1231,6 +1330,7 @@ def phase_flash_timings(paths):
     # SDPA calls left SDPA's causal backward at the training shape 2.7x
     # slower on an H100
     bert = bert_shape_timing(fa, flush)
+    ernie = ernie_fp32_timing(fa, flush)
 
     esize = 2
     tensor = B * L * H * D * esize                   # one bf16 operand
@@ -1301,6 +1401,8 @@ def phase_flash_timings(paths):
         if kname == "fwd_sm90":
             record["masked_prefill"] = rec["masked_prefill"] = \
                 masked_prefill_timing(fa, flush)
+        if kname == "fwd":
+            record["ernie_fp32_shape"] = ernie
         entries.append(record)
         assert n > 0, f"{kname} launched no time on the main paths"
     decode = decode_shape_timing(fa, flush)
@@ -1318,6 +1420,7 @@ def phase_flash_timings(paths):
     entries.append(record)
     assert record["launches"] > 0, "the decode forward launched no time"
     rec["bert_shape"] = bert
+    rec["ernie_fp32_shape"] = ernie
     rec["plain_note"] = ("dkv and dq share one plain backward (dq, dk and "
                          "dv together)")
     emit(rec)
@@ -2339,8 +2442,8 @@ def phase_bert(steps=20, warmup=3, batch=32, seq=128, padded_steps=8,
     kernel 12 times a step on sm90, no plain sdpa; then a profile.  Then
     the same model on padded rows (64 to 128 tokens) under
     LinearWarmup(PolynomialDecay) and two parameter groups (biases and
-    norms without decay): the sm90 forward takes the mask, dK/dV and dQ
-    run on sm80.  Then a fresh model decorated to float16 (float32
+    norms without decay): the sm90 forward, dK/dV and dQ take the mask,
+    none runs on sm80.  Then a fresh model decorated to float16 (float32
     masters) with a GradScaler whose first scale overflows: the first
     steps are skipped without moving a parameter, the scale halves each
     time, until steps go through.  Returns {path: flash launch counts}."""
@@ -2441,8 +2544,12 @@ def phase_bert(steps=20, warmup=3, batch=32, seq=128, padded_steps=8,
     assert rates[0] == 0.0 and rates[2] == 2e-5, rates
     assert (fl2["fwd"], fl2["fwd_sm90"], fl2["dkv"], fl2["dq"]) == \
         (n2, n2, n2, n2), fl2
-    assert (fl2["dkv_sm90"], fl2["dq_sm90"]) == (0, 0), fl2
+    assert (fl2["dkv_sm90"], fl2["dq_sm90"]) == (n2, n2), fl2
     assert counts2["sdpa_plain"] == 0, counts2
+    # the masked step's device time and its flash share, beside the
+    # unmasked step's profile above
+    rec["padded"]["profile"] = busy(lambda: step2(ids, seg, mask, labels), 3,
+                                    rec["padded"]["step_p50_ms"])
     paths["bert_padded"] = fl2
     del step, step2, opt, opt2, model
     release()
@@ -2724,11 +2831,14 @@ def phase_ernie_e2e(batch=8, seq=128, layers=2):
 def bert_shape_timing(fa, flush):
     """The flash kernels at BERT's shape (B 32, L 128, H 12, D 64, bf16,
     non-causal), unmasked and under the additive padding mask [32, 1, 1,
-    128] of rows 64 to 128 keys: the forward on sm90 and sm80, dK/dV and
-    dQ unmasked on sm90 and sm80 and masked on sm80 (the sm90 backward
-    takes no mask), in turns with SDPA (forward; and its backward through
-    autograd) under the same mask, and each one's bound, counting the
-    visible keys this mask leaves."""
+    128] of rows 64 to 128 keys: the forward, dK/dV and dQ on sm80 and
+    sm90, in turns with SDPA (forward; and its backward through autograd,
+    dq, dk and dv in one call) under the same mask (sm80, sm90, SDPA,
+    SDPA, sm90, sm80), and each one's bound, counting the visible keys
+    this mask leaves.  The port's kernels take the mask as the path hands
+    it to them (float32, `_normalize_mask`: the training path converts it
+    once, in the forward), so no conversion launch is timed with them;
+    SDPA takes it in bf16."""
     B, L, H, D = 32, 128, 12, 64
     dtype = torch.bfloat16
     q, k, v, do, _ = flash_inputs(B, L, L, H, H, D, None, dtype, seed=13)
@@ -2741,15 +2851,15 @@ def bert_shape_timing(fa, flush):
     doh = do.transpose(1, 2).contiguous()
     out = {}
     for masked in (False, True):
-        m = mask if masked else None
+        m = fa._normalize_mask(mask) if masked else None
+        lm = mask if masked else None                  # SDPA's, in bf16
         err = flash_errors(fa, q, k, v, do, m, False, 0, ("sm90", "sm80"),
-                           ("sm80",) if masked else ("sm90", "sm80"))
+                           ("sm90", "sm80"))
         assert all(e["fwd"][2] for e in err["fwd"].values()), err
         assert all(e[n][2] for e in err["bwd"].values()
                    for n in ("dkv", "dq")), err
         o, lse = fa.flash_fwd_cuda(q, k, v, m)
         delta = fa._delta(do, o)
-        fams = ("sm80",) if masked else ("sm90", "sm80")
 
         def fwd(impl):
             return lambda: fa.flash_fwd_cuda(q, k, v, m, _impl=impl)
@@ -2763,13 +2873,13 @@ def bert_shape_timing(fa, flush):
                                                 _impl=impl)
 
         def lib_fwd():
-            return sdpa(qh, kh, vh, attn_mask=m)
+            return sdpa(qh, kh, vh, attn_mask=lm)
 
-        lib_out = sdpa(qh, kh, vh, attn_mask=m)
+        lib_out = sdpa(qh, kh, vh, attn_mask=lm)
         lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
             lib_out, (qh, kh, vh), doh, retain_graph=True)
         turns = {"fwd": [], "dkv": [], "dq": []}
-        for order in ((("sm90", "sm80", "sdpa"), ("sdpa", "sm80", "sm90"))):
+        for order in ((("sm80", "sm90", "sdpa"), ("sdpa", "sm90", "sm80"))):
             for impl in order:
                 with torch.no_grad():
                     turns["fwd"].append((impl, cuda_ms(
@@ -2780,7 +2890,7 @@ def bert_shape_timing(fa, flush):
                         if name == "dkv":
                             turns[name].append(("sdpa_bwd", cuda_ms(
                                 lib_bwd, flush, iters=25)))
-                    elif impl in fams:
+                    else:
                         turns[name].append((impl, cuda_ms(fn(impl), flush,
                                                           iters=25)))
         ms = {name: {i: float(np.mean([t for j, t in ts if j == i]))
@@ -2805,6 +2915,11 @@ def bert_shape_timing(fa, flush):
                             else "operations"}
         out["masked" if masked else "unmasked"] = {
             "turns_ms": turns, "ms": ms, "bounds": bounds,
+            "dkv_plus_dq_ms": {f: ms["dkv"][f] + ms["dq"][f]
+                               for f in ("sm90", "sm80")},
+            "dkv_plus_dq_bound_ms": bounds["dkv"]["bound_ms"]
+            + bounds["dq"]["bound_ms"],
+            "sdpa_bwd_ms": ms["dkv"]["sdpa_bwd"],
             "max_abs_err": {f"{n}_{fam}": v[n][0] for kind, d in err.items()
                             for fam, v in d.items() for n in (
                                 ("fwd",) if kind == "fwd" else ("dkv", "dq"))},
@@ -2814,6 +2929,64 @@ def bert_shape_timing(fa, flush):
     out["shape"] = {"B": B, "L": L, "H": H, "D": D, "dtype": "bfloat16",
                     "causal": False, "mask": "[32, 1, 1, 128] additive, "
                     f"{visible_keys} of {B * L} keys visible"}
+    return out
+
+
+def ernie_fp32_timing(fa, flush):
+    """The float32 forward at ERNIE's shape (B 32, L 128, H 12, D 64,
+    non-causal), TF32 off, as `ernie_infer` runs it in float32 (no mask)
+    and under the [32, 1, 1, 128] additive padding mask: the sm80 kernel
+    (the route's family in float32) in turns with float32 SDPA on [B, H,
+    L, D] under the same mask (sm80, SDPA, SDPA, sm80), its plain
+    version, and the bound: float32 operations at 67 TFLOP/s (no TF32)
+    or bytes, the larger."""
+    B, L, H, D = 32, 128, 12, 64
+    dtype = torch.float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    q, k, v, _, _ = flash_inputs(B, L, L, H, H, D, None, dtype, seed=15)
+    g = torch.Generator(device="cuda").manual_seed(16)
+    mask = bert_padding_mask(B, L, dtype, g)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    rtol, atol = FLASH_FWD_TOL[dtype]
+    out = {"shape": {"B": B, "L": L, "H": H, "D": D, "dtype": "float32",
+                     "causal": False, "tf32": False},
+           "library": "torch SDPA on [B, H, L, D], float32, TF32 off, the "
+                      "same additive mask"}
+    for masked in (False, True):
+        m = mask if masked else None
+        assert fa._fwd_route(q, k, v, fa._normalize_mask(m), dtype) == "sm80"
+        o, lse = fa.flash_fwd_cuda(q, k, v, m)
+        ref_o, ref_lse = fa.flash_fwd_plain(q, k, v, m)
+        d = (o - ref_o).abs()
+        assert bool((d <= atol + rtol * ref_o.abs()).all()), float(d.max())
+        with torch.no_grad():
+            lib = (sdpa(qh, kh, vh, attn_mask=m).transpose(1, 2) - ref_o)
+        turns = []
+        with torch.no_grad():
+            for impl in ("sm80", "sdpa", "sdpa", "sm80"):
+                fn = ((lambda: sdpa(qh, kh, vh, attn_mask=m)) if impl == "sdpa"
+                      else (lambda: fa.flash_fwd_cuda(q, k, v, m)))
+                turns.append((impl, cuda_ms(fn, flush, iters=25)))
+        ms = {i: sum(t for j, t in turns if j == i) / 2
+              for i in ("sm80", "sdpa")}
+        plain_ms = cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, m), flush,
+                           iters=10)
+        visible = int((mask[:, 0, 0] == 0).sum()) if masked else B * L
+        nbytes = 4 * q.numel() * 4 + B * H * L * 4 + (B * L * 4 if masked
+                                                       else 0)
+        flops = 2 * 2 * H * L * visible * D
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / FP32_FLOPS * 1e3
+        out["masked" if masked else "unmasked"] = {
+            "turns_ms": turns, "ms": ms["sm80"], "library_ms": ms["sdpa"],
+            "sm80_over_library": ms["sm80"] / ms["sdpa"],
+            "plain_ms": plain_ms, "max_abs_err": float(d.max()),
+            "library_max_abs_err": float(lib.abs().max()),
+            "visible_keys": visible, "bytes": nbytes, "flops": flops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
     return out
 
 

@@ -87,12 +87,33 @@
 //    since tile_full and key_range know only causal and the window.
 //    Loading mask tiles by TMA is later work.
 //
+//  * dK/dV and dQ take the same mask (a padded fine-tune, BERT / ERNIE,
+//    trains under one), in three instantiations picked at launch: none,
+//    a key vector (m_sr == 0: every query row of a (batch, head) reads
+//    one row of Lk values, as a padding mask does) and full rows.  The
+//    additive mask needs no visibility test of its own, so interior tiles
+//    keep the no-branch path under either; only causal, the window and
+//    the ragged tails test each element.  p = exp2(s c + (mask - lse)
+//    log2(e)): a bool mask's -inf gives p = 0 and dS = 0, and a row that
+//    sees nothing (lse -inf, taken as 0) gives 0, with no NaN.
+//    - Key vector, dK/dV: the keys are the accumulator's rows, so a
+//      consumer thread needs the values of its own two keys only; it
+//      loads them when the query head of the GQA loop changes, not per
+//      tile.  dQ: the producer warp's lanes copy the stage's BC values,
+//      times log2(e), into shared memory beside the K / V bytes (as dK/dV
+//      copies lse and delta) and arrive on full[s]; consumers read their
+//      columns as float2.
+//    - Full rows: per-thread loads from L2 issued right after the S (S^T)
+//      products, as the forward does (in dK/dV the two rows of a pair are
+//      m_sr apart, so the loads are scalar; 4 rows x 8 keys a warp, 32-byte
+//      runs).  A TMA tile would not fit: at D 128 the dK/dV ring takes 163
+//      KB and a float32 mask tile of 64 x 128 adds 32 KB a stage, and the
+//      mask's rows (Lk floats) need not be 16-byte aligned.
+//
 // Not taken (the wrapper routes these to flash_attention.cu before any
-// launch): a mask in the backward kernels (no card path trains with one,
-// and lse does not depend on the family that made it), float32, D other
-// than 64 or 128, and operands whose base or (batch, row, head) strides
-// are not 16-byte aligned.  The C entries return cudaErrorInvalidValue for
-// them.
+// launch): float32, D other than 64 or 128, and operands whose base or
+// (batch, row, head) strides are not 16-byte aligned.  The C entries
+// return cudaErrorInvalidValue for them.
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
@@ -113,6 +134,12 @@ constexpr int BOX = 64;        // columns of one TMA box (128 bytes)
 constexpr int CONSUMER_WARPS = 8;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+// the backward kernels' mask instantiations
+constexpr int MASK_NONE = 0;
+constexpr int MASK_KEYS = 1;   // m_sr == 0: one row of Lk per (batch, head)
+constexpr int MASK_FULL = 2;
+// a full barrier that a warp's lanes arrive on besides the TMA arrival
+constexpr int WARP_FULL_ARRIVALS = 1 + 32;
 
 // ---------------------------------------------------------------- wgmma
 // d (m64 x N, float32, the accumulator layout: with warp w, g = lane / 4,
@@ -561,19 +588,27 @@ __device__ __forceinline__ int acc_col(int k0, int i, int t) {
 }
 
 // -------------------------------------------------------- shared layout
-template <int D, int BC, int STAGES, int NQ>
+template <int D, int BC, int STAGES, int NQ, int VEC = 0>
 struct Smem {
   // NQ tiles of BR rows (Q, and dO for dQ), then per stage K and V tiles
-  // of BC rows, then full[STAGES], empty[STAGES] and the Q barrier
+  // of BC rows, then per stage VEC floats (dQ under a key-vector mask: the
+  // stage's mask values times log2(e)), then full[STAGES], empty[STAGES]
+  // and the Q barrier
   static constexpr int Q_BYTES = BR * D * 2;
   static constexpr int KV_BYTES = BC * D * 2;
-  static constexpr int BARS = NQ * Q_BYTES + STAGES * 2 * KV_BYTES;
+  static constexpr int ROWS = NQ * Q_BYTES + STAGES * 2 * KV_BYTES;
+  static constexpr int BARS = ROWS + STAGES * VEC * 4;
   static constexpr int BYTES = BARS + 8 * (2 * STAGES + 1) + 1024;  // + align
   static_assert(BYTES <= 232448, "over the 227 KB a block can use");
 
   uint32_t base;
-  __device__ __forceinline__ explicit Smem(const void* raw)
-      : base((smem_u32(raw) + 1023u) & ~1023u) {}
+  unsigned char* ptr;   // base as a generic pointer
+  __device__ __forceinline__ explicit Smem(unsigned char* raw)
+      : base((smem_u32(raw) + 1023u) & ~1023u),
+        ptr(raw + (base - smem_u32(raw))) {}
+  __device__ __forceinline__ float* vec(int s) const {
+    return reinterpret_cast<float*>(ptr + ROWS + s * VEC * 4);
+  }
   __device__ __forceinline__ uint32_t q(int i) const {
     return base + i * Q_BYTES;
   }
@@ -595,7 +630,8 @@ struct Smem {
 };
 
 // barriers: full[s] completes when the producer's bytes of stage s have
-// landed (and, for dK/dV, its lanes' lse and delta stores are done);
+// landed (and, for dK/dV and a key-masked dQ, its lanes' stores of lse and
+// delta or of the mask are done);
 // empty[s] when every consumer warp is done with stage s
 template <class S, int STAGES>
 __device__ __forceinline__ void init_barriers(const S& sm,
@@ -613,23 +649,41 @@ __device__ __forceinline__ void init_barriers(const S& sm,
 }
 
 // the producer: Q (and dO) once, then K and V of each key tile through
-// the ring; one thread issues every load
-template <int D, int BC, int STAGES, int NQ, class S>
+// the ring; one thread issues every load.  With KEYS (dQ under a
+// key-vector mask) the whole warp runs it: lane 0 issues the loads, and
+// each lane copies its columns of the tile's mask row mk, times log2(e),
+// into the stage's vector (columns past Lk as 0), then arrives on full[s]
+template <int D, int BC, int STAGES, int NQ, bool KEYS = false, class S>
 __device__ __forceinline__ void produce(const S& sm, const CUtensorMap* tq,
                                         const CUtensorMap* tdo,
                                         const CUtensorMap* tk,
                                         const CUtensorMap* tv, int h, int hk,
-                                        int b, int q0, int kb, int ntiles) {
-  mbar_expect_tx(sm.qbar(), NQ * S::Q_BYTES);
-  tma_tile<D>(sm.q(0), tq, sm.qbar(), h, q0, b, BR);
-  if constexpr (NQ == 2) tma_tile<D>(sm.q(1), tdo, sm.qbar(), h, q0, b, BR);
+                                        int b, int q0, int kb, int ntiles,
+                                        const float* mk = nullptr,
+                                        int Lk = 0) {
+  const int lane = threadIdx.x & 31;
+  const bool lead = !KEYS || lane == 0;
+  if (lead) {
+    mbar_expect_tx(sm.qbar(), NQ * S::Q_BYTES);
+    tma_tile<D>(sm.q(0), tq, sm.qbar(), h, q0, b, BR);
+    if constexpr (NQ == 2) tma_tile<D>(sm.q(1), tdo, sm.qbar(), h, q0, b, BR);
+  }
   for (int it = 0; it < ntiles; ++it) {
     const int s = it % STAGES;
     mbar_wait(sm.empty(s), ((it / STAGES) & 1) ^ 1);
-    mbar_expect_tx(sm.full(s), 2 * S::KV_BYTES);
     const int k0 = (kb + it) * BC;
-    tma_tile<D>(sm.k(s), tk, sm.full(s), hk, k0, b, BC);
-    tma_tile<D>(sm.v(s), tv, sm.full(s), hk, k0, b, BC);
+    if (lead) {
+      mbar_expect_tx(sm.full(s), 2 * S::KV_BYTES);
+      tma_tile<D>(sm.k(s), tk, sm.full(s), hk, k0, b, BC);
+      tma_tile<D>(sm.v(s), tv, sm.full(s), hk, k0, b, BC);
+    }
+    if constexpr (KEYS) {
+      float* mv = sm.vec(s);
+#pragma unroll
+      for (int i = lane; i < BC; i += 32)
+        mv[i] = k0 + i < Lk ? __ldg(mk + k0 + i) * LOG2E : 0.f;
+      mbar_arrive(sm.full(s));
+    }
   }
 }
 
@@ -830,8 +884,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 constexpr int DQ_BC = 64;
 constexpr int DQ_STAGES = 3;
 
-// grid (H, B, ceil(Lq / 128)): a block owns 128 query rows of one head
-template <typename T, int D>
+// grid (H, B, ceil(Lq / 128)): a block owns 128 query rows of one head.
+// MODE: the mask's instantiation (MASK_NONE, MASK_KEYS, MASK_FULL)
+template <typename T, int D, int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tmQ,
                          const __grid_constant__ CUtensorMap tmK,
@@ -839,7 +894,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                          const __grid_constant__ CUtensorMap tmdO,
                          const FlashParams p) {
   constexpr int BC = DQ_BC, STAGES = DQ_STAGES;
-  using S = Smem<D, BC, STAGES, 2>;
+  constexpr bool KEYS = MODE == MASK_KEYS;
+  using S = Smem<D, BC, STAGES, 2, KEYS ? BC : 0>;
   extern __shared__ unsigned char smem_raw[];
   const S sm(smem_raw);
   const int h = blockIdx.x, b = blockIdx.y;
@@ -848,13 +904,22 @@ __global__ void __launch_bounds__(THREADS, 1)
   int kb, ke;
   key_range<BC>(p, q0, kb, ke);
   const int ntiles = max(ke - kb, 0);
-  init_barriers<S, STAGES>(sm);
+  init_barriers<S, STAGES>(sm, KEYS ? WARP_FULL_ARRIVALS : 1);
+  // the mask of this (batch, head): element (row, col) at mg[row * m_sr +
+  // col]
+  const float* mg =
+      MODE == MASK_NONE ? nullptr : p.mask + b * p.m_sb + h * p.m_sh;
 
   if (threadIdx.x >= 2 * 128) {
     reg_dealloc<24>();
-    if (threadIdx.x == 2 * 128 && ntiles > 0)
+    if constexpr (KEYS) {
+      if (threadIdx.x < 2 * 128 + 32 && ntiles > 0)
+        produce<D, BC, STAGES, 2, true>(sm, &tmQ, &tmdO, &tmK, &tmV, h, hk,
+                                        b, q0, kb, ntiles, mg, p.Lk);
+    } else if (threadIdx.x == 2 * 128 && ntiles > 0) {
       produce<D, BC, STAGES, 2>(sm, &tmQ, &tmdO, &tmK, &tmV, h, hk, b, q0,
                                 kb, ntiles);
+    }
   } else {
     reg_alloc<240>();
     const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
@@ -862,6 +927,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int r0 = q0 + wg * 64;
     const int rows[2] = {r0 + warp * 16 + g, r0 + warp * 16 + g + 8};
     const float c = p.scale * LOG2E;
+    // a full mask's rows 8-byte aligned: its pairs of columns load as float2
+    const bool mvec = MODE == MASK_FULL &&
+                      reinterpret_cast<uintptr_t>(p.mask) % 8 == 0 &&
+                      p.m_sb % 2 == 0 && p.m_sh % 2 == 0 && p.m_sr % 2 == 0;
     float lse2[2], delta[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -890,15 +959,38 @@ __global__ void __launch_bounds__(THREADS, 1)
         Wgmma<T, BC>::ss(dp, desc_k<BR>(sm.q(1), wg * 64, kk),
                          desc_k<BC>(sm.v(st), 0, kk), kk > 0);
       wgmma_commit();
+      // the mask's elements of this tile: a full mask's from L2 while the
+      // products run, a key vector's (already times log2(e)) from the stage
+      float mv[BC / 2];
+      if constexpr (MODE == MASK_FULL)
+        load_mask(mv, mg, p, rows, k0, t, mvec);
       wgmma_wait();
       fence_regs(s);
       fence_regs(dp);
-      // dS = P (dP - delta), P = exp2(s c - lse log2 e), in place in s
+      if constexpr (KEYS) {
+        const float* mk = sm.vec(st);
+#pragma unroll
+        for (int j = 0; j < BC / 8; ++j) {
+          const float2 v = *reinterpret_cast<const float2*>(mk + 8 * j +
+                                                            2 * t);
+          mv[4 * j] = mv[4 * j + 2] = v.x;
+          mv[4 * j + 1] = mv[4 * j + 3] = v.y;
+        }
+      }
+      // dS = P (dP - delta), P = exp2(s c + (mask - lse) log2 e), in place
+      // in s
       const bool full = tile_full<BC>(p, r0, k0);
 #pragma unroll
       for (int i = 0; i < BC / 2; ++i) {
         const int r = (i >> 1) & 1;
-        float pv = ex2(fmaf(s[i], c, -lse2[r]));
+        float x;
+        if constexpr (MODE == MASK_NONE)
+          x = fmaf(s[i], c, -lse2[r]);
+        else if constexpr (KEYS)
+          x = fmaf(s[i], c, mv[i] - lse2[r]);
+        else
+          x = fmaf(s[i], c, fmaf(mv[i], LOG2E, -lse2[r]));
+        float pv = ex2(x);
         if (!full && !visible(p, rows[r], acc_col(k0, i, t))) pv = 0.f;
         s[i] = pv * (dp[i] - delta[r]);
       }
@@ -933,7 +1025,6 @@ __global__ void __launch_bounds__(THREADS, 1)
 constexpr int BKV = 128;       // keys per block
 constexpr int BQ = 64;         // query rows per stage
 constexpr int DKV_STAGES = 3;
-constexpr int DKV_FULL_ARRIVALS = 1 + 32;   // the TMA arrival + a warp
 
 // K and V of the block's keys (resident), then per stage Q and dO tiles of
 // BQ rows, then per stage lse * log2(e) and delta of those rows (float32),
@@ -1057,9 +1148,29 @@ __device__ __forceinline__ void produce_dkv(
   }
 }
 
+// a full mask's elements for the dK/dV tile of query rows q0 .. q0 + BQ -
+// 1: mv[i] is the element of S^T element i (key kc[(i >> 1) & 1], query row
+// q0 + 8 (i >> 2) + 2t + (i & 1)) in the mask mh of this (batch, head).
+// The two rows of an element pair are m_sr apart, so the loads are scalar;
+// a row past Lq is clamped into the mask, as the caller clamps keys past
+// Lk, so every load is valid (such an element is never visible).
+template <int N>
+__device__ __forceinline__ void load_mask_kv(float (&mv)[N],
+                                             const float* __restrict__ mh,
+                                             const FlashParams& p,
+                                             const int (&kc)[2], int q0,
+                                             int t) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int row = min(q0 + 8 * (i >> 2) + 2 * t + (i & 1), p.Lq - 1);
+    mv[i] = __ldg(mh + (int64_t)row * p.m_sr + kc[(i >> 1) & 1]);
+  }
+}
+
 // grid (Hkv, B, ceil(Lk / 128)): a block owns 128 keys of one kv head and
-// walks the g query heads of its group times the query tiles that see them
-template <typename T, int D>
+// walks the g query heads of its group times the query tiles that see
+// them.  MODE: the mask's instantiation (MASK_NONE, MASK_KEYS, MASK_FULL)
+template <typename T, int D, int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tmQ,
                           const __grid_constant__ CUtensorMap tmK,
@@ -1077,7 +1188,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   query_range(p, k0, qb, qe);
   const int nq = max(qe - qb, 0);
   const int ntiles = nq * (p.H / p.Hkv);
-  init_barriers<S, STAGES>(sm, DKV_FULL_ARRIVALS);
+  init_barriers<S, STAGES>(sm, WARP_FULL_ARRIVALS);
 
   if (threadIdx.x >= 2 * 128) {
     reg_dealloc<24>();
@@ -1091,6 +1202,13 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int c0 = k0 + wg * 64;
     const int keys[2] = {c0 + warp * 16 + g, c0 + warp * 16 + g + 8};
     const float c = p.scale * LOG2E;
+    // the mask: this batch's (mb), and this thread's keys clamped into it;
+    // under a key vector, the values of those keys times log2(e) for query
+    // head hm, loaded when the GQA loop reaches another head
+    const float* mb = MODE == MASK_NONE ? nullptr : p.mask + b * p.m_sb;
+    const int kc[2] = {min(keys[0], p.Lk - 1), min(keys[1], p.Lk - 1)};
+    float mk[2] = {0.f, 0.f};
+    int hm = -1;
     float dk[D / 2], dv[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) {
@@ -1101,6 +1219,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int it = 0; it < ntiles; ++it) {
       const int st = it % STAGES;
       const int q0 = (qb + it % nq) * BQ;
+      const int h = hk * (p.H / p.Hkv) + it / nq;
       mbar_wait(sm.full(st), (it / STAGES) & 1);
       if (kv_tile_any(p, q0, c0)) {
         // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries
@@ -1115,11 +1234,24 @@ __global__ void __launch_bounds__(THREADS, 1)
           Wgmma<T, BQ>::ss(dp, desc_k<BKV>(sm.v(), wg * 64, kk),
                            desc_k<BQ>(sm.dout(st), 0, kk), kk > 0);
         wgmma_commit();
+        // the mask's elements, loaded while the products run
+        float mv[BQ / 2];
+        if constexpr (MODE == MASK_KEYS) {
+          if (h != hm) {
+            hm = h;
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              mk[r] = __ldg(mb + h * p.m_sh + kc[r]) * LOG2E;
+          }
+        } else if constexpr (MODE == MASK_FULL) {
+          load_mask_kv(mv, mb + h * p.m_sh, p, kc, q0, t);
+        }
         wgmma_wait();
         fence_regs(s);
         fence_regs(dp);
-        // P^T = exp2(s c - lse log2 e) in s, dS^T = P^T (dP^T - delta) in
-        // dp; lse and delta belong to the column (the query row)
+        // P^T = exp2(s c + (mask - lse) log2 e) in s, dS^T = P^T (dP^T -
+        // delta) in dp; lse and delta belong to the column (the query row),
+        // a key vector's values to the row
         const float* lse2 = sm.lse2(st);
         const float* delta = sm.delta(st);
         const bool full = kv_tile_full(p, q0, c0);
@@ -1132,7 +1264,15 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int i = 4 * j + e;
-            float pv = ex2(fmaf(s[i], c, -((e & 1) ? l2.y : l2.x)));
+            const float l = (e & 1) ? l2.y : l2.x;
+            float x;
+            if constexpr (MODE == MASK_NONE)
+              x = fmaf(s[i], c, -l);
+            else if constexpr (MODE == MASK_KEYS)
+              x = fmaf(s[i], c, mk[e >> 1] - l);
+            else
+              x = fmaf(s[i], c, fmaf(mv[i], LOG2E, -l));
+            float pv = ex2(x);
             if (!full) {
               const int row = acc_col(q0, i, t);
               if (row >= p.Lq || !visible(p, row, keys[e >> 1])) pv = 0.f;
@@ -1251,10 +1391,11 @@ cudaError_t launch_fwd(const FlashParams& p, CUtensorMapDataType dt,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, int MODE>
 cudaError_t launch_dq(const FlashParams& p, CUtensorMapDataType dt,
                       int device, cudaStream_t st) {
-  constexpr int BYTES = Smem<D, DQ_BC, DQ_STAGES, 2>::BYTES;
+  constexpr int BYTES =
+      Smem<D, DQ_BC, DQ_STAGES, 2, MODE == MASK_KEYS ? DQ_BC : 0>::BYTES;
   CUtensorMap tq, tk, tv, tdo;
   if (!make_map(&tq, p.q, dt, D, p.H, p.Lq, p.B, p.q_sh, p.q_sl, p.q_sb,
                 BR) ||
@@ -1267,16 +1408,17 @@ cudaError_t launch_dq(const FlashParams& p, CUtensorMapDataType dt,
     return cudaErrorInvalidValue;
   static std::atomic<uint64_t> done{0};
   cudaError_t err = smem_once(
-      done, device, reinterpret_cast<const void*>(flash_dq_sm90_kernel<T, D>),
+      done, device,
+      reinterpret_cast<const void*>(flash_dq_sm90_kernel<T, D, MODE>),
       BYTES);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.H, p.B, (p.Lq + BR - 1) / BR);
-  flash_dq_sm90_kernel<T, D><<<grid, THREADS, BYTES, st>>>(tq, tk, tv, tdo,
-                                                           p);
+  flash_dq_sm90_kernel<T, D, MODE><<<grid, THREADS, BYTES, st>>>(
+      tq, tk, tv, tdo, p);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, int MODE>
 cudaError_t launch_dkv(const FlashParams& p, CUtensorMapDataType dt,
                        int device, cudaStream_t st) {
   constexpr int BYTES = DkvSmem<D, DKV_STAGES>::BYTES;
@@ -1293,11 +1435,12 @@ cudaError_t launch_dkv(const FlashParams& p, CUtensorMapDataType dt,
   static std::atomic<uint64_t> done{0};
   cudaError_t err = smem_once(
       done, device,
-      reinterpret_cast<const void*>(flash_dkv_sm90_kernel<T, D>), BYTES);
+      reinterpret_cast<const void*>(flash_dkv_sm90_kernel<T, D, MODE>),
+      BYTES);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.Hkv, p.B, (p.Lk + BKV - 1) / BKV);
-  flash_dkv_sm90_kernel<T, D><<<grid, THREADS, BYTES, st>>>(tq, tk, tv, tdo,
-                                                            p);
+  flash_dkv_sm90_kernel<T, D, MODE><<<grid, THREADS, BYTES, st>>>(
+      tq, tk, tv, tdo, p);
   return cudaGetLastError();
 }
 
@@ -1311,12 +1454,23 @@ bool operand_ok(const void* x, int64_t sb, int64_t sl, int64_t sh) {
 
 enum Which { FWD = 0, DQ = 1, DKV = 2 };
 
+template <typename T, int D, int MODE>
+cudaError_t launch_bwd(const FlashParams& p, Which which,
+                       CUtensorMapDataType dt, int device, cudaStream_t st) {
+  if (which == DQ) return launch_dq<T, D, MODE>(p, dt, device, st);
+  return launch_dkv<T, D, MODE>(p, dt, device, st);
+}
+
+// the backward's mask instantiation from the mask and its row stride
 template <typename T, int D>
 cudaError_t launch(const FlashParams& p, Which which, CUtensorMapDataType dt,
                    int device, cudaStream_t st) {
   if (which == FWD) return launch_fwd<T, D>(p, dt, device, st);
-  if (which == DQ) return launch_dq<T, D>(p, dt, device, st);
-  return launch_dkv<T, D>(p, dt, device, st);
+  if (p.mask == nullptr)
+    return launch_bwd<T, D, MASK_NONE>(p, which, dt, device, st);
+  if (p.m_sr == 0)
+    return launch_bwd<T, D, MASK_KEYS>(p, which, dt, device, st);
+  return launch_bwd<T, D, MASK_FULL>(p, which, dt, device, st);
 }
 
 int run(const FlashParams* p, Which which, int dtype, int device,
@@ -1326,8 +1480,7 @@ int run(const FlashParams* p, Which which, int dtype, int device,
       p->H < p->Hkv || p->H % p->Hkv || p->H > 65535 || p->Lq < 1 ||
       p->Lk < 1 || (p->Lq + BR - 1) / BR > 65535 ||
       (p->Lk + BKV - 1) / BKV > 65535 || (p->D != 64 && p->D != 128) ||
-      p->window < 0 || (bwd && p->mask != nullptr) ||
-      (dtype != 1 && dtype != 2) ||
+      p->window < 0 || (dtype != 1 && dtype != 2) ||
       !operand_ok(p->q, p->q_sb, p->q_sl, p->q_sh) ||
       !operand_ok(p->k, p->k_sb, p->k_sl, p->k_sh) ||
       !operand_ok(p->v, p->v_sb, p->v_sl, p->v_sh) ||

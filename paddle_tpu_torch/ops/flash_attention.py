@@ -20,17 +20,18 @@ they are laid out):
 - "sm90", `csrc/flash_attention_sm90.cu`: forward, dK/dV and dQ
   redesigned for Hopper (TMA ring, wgmma, warp specialisation; the
   forward and dQ q-stationary, dK/dV kv-stationary); bfloat16 / float16,
-  D 64 or 128, 16-byte aligned operands; the forward takes masks, the
-  backward kernels do not.
+  D 64 or 128, 16-byte aligned operands; masks in all three (the
+  backward kernels instantiated for no mask, a key vector and full rows).
 - "sm80", `csrc/flash_attention.cu`: forward, dK/dV and dQ on mma.sync
   tiles of 64 rows; every dtype (float32 too), masks, D a multiple of 8
   up to 128: the rest.
-The families are picked from the arguments before any launch:
-`_fwd_route(q, k, v, m4, dtype)` gives "decode" for short queries,
-"sm90" for what that forward takes, "sm80" for the rest;
-`_sm90_route(q, k, v, m4, dtype)` gives the backward's family, one for
-dK/dV and dQ: "sm90" without a mask where it takes the rest, "sm80"
-otherwise (lse does not depend on the family that made it).  There is no
+The families are picked from the arguments before any launch, by one rule
+for the forward and the backward: `_fwd_route(q, k, v, m4, dtype)` gives
+"decode" for short queries, "sm90" where those kernels take the
+operands, "sm80" for the rest; `_sm90_route(q, k, v, m4, dtype)` gives
+the backward's family, one for dK/dV and dQ: "sm90" where those kernels
+take the operands, masked or not, "sm80" otherwise (lse does not depend
+on the family that made it).  There is no
 fallback on failure: a failed build or launch raises.  The keyword
 `_impl` of `flash_fwd_cuda`, `flash_bwd_dkv_cuda` and
 `flash_bwd_dq_cuda` forces a family, for A/B timing and the card tests
@@ -46,8 +47,9 @@ nothing gives o = 0 and lse = -inf (XLA's softmax gives NaN there).
 The training path (bf16, D 128, causal, no mask, the q/k/v views of a
 fused qkv projection) takes the sm90 forward, dK/dV and dQ; generation's
 decode steps take the decode forward and its masked prefills the sm90
-forward; a padded BERT step the sm90 forward (under the mask) and the
-sm80 dK/dV and dQ; ERNIE's float32 inference the sm80 forward.
+forward; a padded BERT step the sm90 forward, dK/dV and dQ, all under
+the mask; float32 (ERNIE's inference, the card-vs-CPU checks) the sm80
+kernels.
 
 Tensors on the CPU take the plain versions; tensors on a CUDA device
 launch the kernels or raise — there is no fallback.  The kernels take D a
@@ -343,8 +345,7 @@ def _tma_strides(x):
 def _sm90_takes(q, k, v, dtype):
     """Whether the sm90 kernels take these operands: bfloat16 / float16,
     D 64 or 128, and q, k, v that the tensor maps read as they are
-    (`_tma_ready`).  The forward takes a mask besides; the backward
-    kernels do not."""
+    (`_tma_ready`).  All three take any mask `_normalize_mask` gives."""
     return (dtype in _SM90_DTYPES and q.shape[-1] in _SM90_HEAD_DIMS
             and all(_tma_ready(x) for x in (q, k, v)))
 
@@ -352,11 +353,11 @@ def _sm90_takes(q, k, v, dtype):
 def _families(q, k, v, m4, dtype, fwd):
     """The families that take these arguments, the route's first: for the
     forward "decode" (Lq <= DECODE_MAX_LQ), "sm90", "sm80"; for the
-    backward "sm90" (no mask), "sm80"."""
+    backward "sm90", "sm80".  The mask does not decide the family."""
     out = []
     if fwd and q.shape[1] <= DECODE_MAX_LQ:
         out.append("decode")
-    if (fwd or m4 is None) and _sm90_takes(q, k, v, dtype):
+    if _sm90_takes(q, k, v, dtype):
         out.append("sm90")
     return tuple(out) + ("sm80",)
 
@@ -370,8 +371,8 @@ def _fwd_route(q, k, v, m4, dtype):
 
 def _sm90_route(q, k, v, m4, dtype):
     """The backward's family (dK/dV and dQ together) for these arguments,
-    decided before any launch: "sm90" without a mask where those kernels
-    take the operands, "sm80" otherwise."""
+    decided before any launch: "sm90" where those kernels take the
+    operands (masked or not), "sm80" otherwise."""
     return _families(q, k, v, m4, dtype, False)[0]
 
 

@@ -11,8 +11,9 @@ What the JAX model does, kept here:
   `(1 - m) * -1e4` in the activations' dtype (so -1e4 rounds to -9984 in
   bfloat16, as it does in JAX), shaped [b, 1, 1, s] (`:73-75`); it is an
   input, not a trained tensor, so on the card it goes to the flash
-  kernels (the sm90 forward takes it; the backward of a masked call runs
-  the sm80 dK/dV and dQ kernels);
+  kernels (in bf16 / fp16 the sm90 forward, dK/dV and dQ take it, the
+  backward kernels in their key-vector instantiation; float32 runs the
+  sm80 kernels);
 - the pooled output is tanh(pooler(seq[:, 0]));
 - the encoder deep-copies its first layer, so every layer starts with
   the same weights;

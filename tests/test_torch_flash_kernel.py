@@ -11,7 +11,7 @@ the wrappers run for CPU tensors) against float64 dense attention and its
 autograd gradients, and the routes that pick a kernel family.  The card
 tests run each case through the families that take it: "sm80"
 (csrc/flash_attention.cu), "sm90" (csrc/flash_attention_sm90.cu: forward,
-masked or not, dK/dV and dQ without a mask) and, for short queries,
+dK/dV and dQ, masked or not) and, for short queries,
 "decode" (csrc/flash_decode.cu, the forward at every split count), forced
 with the wrappers' `_impl` and `_splits`; and the decode forward inside
 captured CUDA graphs.  The parity of this op with the JAX package is in
@@ -57,6 +57,18 @@ CASES = {
     "bert": (32, 128, 128, 12, 12, 64, False, 0, None),
     "bert_padding": (32, 128, 128, 12, 12, 64, False, 0,
                      "additive_padding"),
+    # more of the mask layouts the sm90 backward takes (its key-vector and
+    # full-row instantiations): a key vector under GQA, causal and a window
+    # that leaves short rows nothing to see; a key vector per head; full
+    # rows per head (bool) and batch-broadcast (a prefill into a longer
+    # buffer); rows that see nothing at D 128; an odd Lk, so the full
+    # mask's rows are not 8-byte aligned
+    "keys_gqa_window": (3, 150, 200, 8, 2, 64, True, 96, "bool_padding"),
+    "keys_per_head": (2, 130, 130, 8, 2, 128, False, 0, "additive_keys_bh"),
+    "full_bh_d128": (2, 96, 160, 8, 4, 128, True, 0, "bool_full_bh"),
+    "prefill_batch1": (2, 120, 150, 8, 2, 64, False, 0, "prefill"),
+    "dead_row_d128": (2, 70, 70, 4, 4, 128, False, 0, "dead_row"),
+    "full_odd_lk": (2, 65, 131, 4, 2, 64, True, 33, "additive_full"),
 }
 
 
@@ -79,6 +91,13 @@ def make_mask(kind, B, Lq, Lk, H, rng):
     if kind == "additive_row1":         # (1, 1, 1, Lk): batch broadcast
         return torch.from_numpy(
             rng.standard_normal((1, 1, 1, Lk)).astype(np.float32))
+    if kind == "additive_keys_bh":      # (B, H, 1, Lk): a key vector a head
+        return torch.from_numpy(
+            rng.standard_normal((B, H, 1, Lk)).astype(np.float32))
+    if kind == "prefill":               # (1, 1, Lq, Lk): c <= r + Lk - Lq
+        return torch.from_numpy(np.arange(Lk)[None, :]
+                                <= np.arange(Lq)[:, None] + Lk - Lq)[None,
+                                                                     None]
     if kind == "dead_row":              # (B, Lq, Lk) with fully-masked rows
         m = rng.random((B, Lq, Lk)) < 0.7
         m[:, 3] = False
@@ -221,6 +240,9 @@ def _route_case(name):
     if name == "additive_mask":
         q, k, v = _fused_qkv(2, 64, 4, 128, torch.bfloat16)
         return q, k, v, torch.zeros(2, 1, 64, 64)
+    if name == "float32_masked":
+        q, k, v = _fused_qkv(2, 64, 4, 128, torch.float32)
+        return q, k, v, torch.zeros(2, 1, 64, 64)
     if name == "d96":
         return (*_fused_qkv(2, 64, 4, 96, torch.bfloat16), None)
     if name == "misaligned_view":            # base one element off
@@ -240,12 +262,13 @@ def _bwd_args(q):
 
 
 # name, the family of the forward, the family of dK/dV and dQ (Lq 64: no
-# case here is short enough for the decode forward)
+# case here is short enough for the decode forward).  The forward and the
+# backward follow one rule: a mask moves neither off sm90
 @pytest.mark.parametrize("name, family, dkv_family", [
     ("bf16_d128_causal_fused_qkv", "sm90", "sm90"),
     ("fp16_d64_gqa_window", "sm90", "sm90"),
     ("float32", "sm80", "sm80"),
-    ("additive_mask", "sm90", "sm80"),
+    ("additive_mask", "sm90", "sm90"),
     ("d96", "sm80", "sm80"),
     ("misaligned_view", "sm80", "sm80"),
     ("batch1", "sm90", "sm90"),
@@ -279,7 +302,7 @@ def test_sm90_route(name, family, dkv_family):
         assert fa._tma_strides(q)[1] == 3 * 4 * 128
 
 
-@pytest.mark.parametrize("name", ["float32", "additive_mask", "d96",
+@pytest.mark.parametrize("name", ["float32", "float32_masked", "d96",
                                   "misaligned_view"])
 def test_dkv_forced_to_sm90_raises_before_any_launch(name):
     """Forcing the sm90 dK/dV kernel on arguments the route sends to sm80
@@ -312,7 +335,8 @@ def _short(Lq, dtype=torch.bfloat16, D=128, mask=False):
 @pytest.mark.parametrize("mask", [False, True])
 def test_decode_route(Lq, dtype, mask):
     """Short queries (Lq <= DECODE_MAX_LQ), masked or not, in any dtype,
-    take the decode forward; the backward keeps its own route; "sm90" and
+    take the decode forward; the backward keeps its own route (sm90 for
+    bf16 / fp16, masked or not); "sm90" and
     "sm80" may be forced on a short query where they take it, "decode"
     never on a longer one nor on the backward."""
     q, k, v, m = _short(Lq, dtype, mask=mask)
@@ -324,8 +348,8 @@ def test_decode_route(Lq, dtype, mask):
     assert fa._family(q, k, v, m4, None, fwd=True) == want
     assert fa._families(q, k, v, m4, dtype, True) == (
         ("decode",) * short + ("sm90",) * sm90 + ("sm80",))
-    assert fa._sm90_route(q, k, v, m4, dtype) == (
-        "sm90" if sm90 and not mask else "sm80")
+    assert fa._sm90_route(q, k, v, m4, dtype) == ("sm90" if sm90
+                                                  else "sm80")
     with pytest.raises(ValueError, match="backward"):
         fa._family(q, k, v, m4, "decode")
     if not short:
@@ -369,6 +393,35 @@ def test_tma_strides_replace_a_zero_stride_of_a_size1_dim():
     assert fa._tma_strides(x) == [1024, 128, 64]
     assert fa._tma_strides(z) == [1024, 128, 64]     # 0 -> contiguous
     assert fa._sm90_route(z, z, z, None, torch.bfloat16) == "sm90"
+
+
+@pytest.mark.parametrize("dtype, family", [(torch.bfloat16, "sm90"),
+                                           (torch.float16, "sm90"),
+                                           (torch.float32, "sm80")])
+def test_bert_padded_shape_routes_the_masked_backward(dtype, family):
+    """BERT's padded fine-tune (B 32, L 128, H 12, D 64, the q/k/v views of
+    its [B, L, 3 H D] projection, the additive padding mask [32, 1, 1,
+    128] that `text.bert.additive_mask` builds): the forward and dK/dV and
+    dQ take one family, sm90 in bf16 / fp16, and the mask reaches the
+    kernels as a key vector (row stride 0, batch stride Lk, no head
+    stride), the sm90 backward's key-vector instantiation."""
+    from paddle_tpu_torch.text.bert import additive_mask
+    B, L, H, D = 32, 128, 12, 64
+    qkv = torch.zeros(B, L, 3 * H * D, dtype=dtype)
+    q, k, v = (x.view(B, L, H, D) for x in qkv.split(H * D, dim=-1))
+    lens = np.random.default_rng(7).integers(L // 2, L + 1, size=B)
+    keep = torch.from_numpy(np.arange(L)[None, :] < lens[:, None])
+    m4 = fa._normalize_mask(additive_mask(keep.long(), dtype))
+    assert tuple(m4.shape) == (B, 1, 1, L) and m4.dtype == torch.float32
+    assert fa._fwd_route(q, k, v, m4, dtype) == family
+    assert fa._sm90_route(q, k, v, m4, dtype) == family
+    p, _, impl = fa._bwd_params(q, k, v, *_bwd_args(q), m4, False, None, 0)
+    assert impl == family
+    assert (p.m_sb, p.m_sh, p.m_sr) == (L, 0, 0)
+    assert p.mask == m4.data_ptr()
+    if family == "sm90":    # the kernels read the views through strides
+        assert [fa._tma_strides(x) for x in (q, k, v)] == [
+            [L * 3 * H * D, 3 * H * D, D]] * 3
 
 
 def test_window_must_be_causal_and_not_negative():
@@ -417,8 +470,6 @@ def bwd_error(got, want):
                  / want.float().abs().max().clamp(min=1e-30))
 
 
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("family", ["sm80", "sm90"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -427,8 +478,10 @@ def bwd_error(got, want):
 def test_kernels_match_plain_on_card(card, name, dtype, family):
     """Each case through one kernel family.  A case the sm90 kernels do
     not take (float32, D other than 64 or 128) must be routed elsewhere,
-    and forcing sm90 on it must raise before any launch; the sm90 forward
-    takes a mask, its backward kernels do not (forcing them raises)."""
+    and forcing sm90 on it must raise before any launch; the sm90
+    forward, dK/dV and dQ take every mask.  The gradients are finite
+    (rows that see nothing give 0), and a second dK/dV and dQ launch
+    gives the same bits (no atomics)."""
     q, k, v, do, mask, kw = make_inputs(name, dtype=dtype, device=card)
     m4 = fa._normalize_mask(mask)
     if family == "sm90" and "sm90" not in fa._families(q, k, v, m4, dtype,
@@ -449,13 +502,6 @@ def test_kernels_match_plain_on_card(card, name, dtype, family):
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
 
     delta = fa._delta(do, ref_o)
-    if family == "sm90" and m4 is not None:
-        before = _counts()
-        with pytest.raises(ValueError):
-            fa.flash_bwd_dkv_cuda(q, k, v, do, ref_lse, delta, mask, **kw,
-                                  _impl="sm90")
-        assert _counts() == before
-        return
     dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, ref_lse, delta, mask, **kw,
                                    _impl=family)
     dq = fa.flash_bwd_dq_cuda(q, k, v, do, ref_lse, delta, mask, **kw,
@@ -465,7 +511,14 @@ def test_kernels_match_plain_on_card(card, name, dtype, family):
     want = fa.flash_bwd_plain(q, k, v, do, ref_lse, delta, mask, **kw)
     for nm, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert a.dtype == b.dtype and a.shape == b.shape
+        assert bool(torch.isfinite(a).all()), nm
         assert bwd_error(a, b) <= BWD_TOL[dtype], (nm, bwd_error(a, b))
+    again = (*fa.flash_bwd_dkv_cuda(q, k, v, do, ref_lse, delta, mask, **kw,
+                                    _impl=family),
+             fa.flash_bwd_dq_cuda(q, k, v, do, ref_lse, delta, mask, **kw,
+                                  _impl=family))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((dk, dv, dq), again))
 
 
 DECODE_NAMES = sorted(n for n, c in CASES.items()
