@@ -9,8 +9,8 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
 
 1. build         — times the nvcc build (one nvcc per source, in
                    parallel) and prints ptxas's registers, shared memory
-                   and spills for each sm90 flash kernel and each decode
-                   kernel;
+                   and spills for each sm90 flash kernel, each decode
+                   kernel and each fp32 forward kernel;
 2. kernels       — holds the paged decode kernel (context split across
                    blocks) against its plain PyTorch version on the card
                    at the serving path's shapes and at the split edges
@@ -29,11 +29,12 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    verify masks, with and without a window band, at GQA
                    32/8 and 28/4); every case through the routes,
                    asserting which family launched (forward: decode for
-                   Lq <= 16, sm90 for bf16 / fp16 masked or not, sm80
-                   for the rest; backward: sm90 for bf16 / fp16 masked or
-                   not, sm80 for the rest), and through every other
-                   family that takes it (the decode kernel also against
-                   its own plain version, the same splits and merge);
+                   Lq <= 16, sm90 for bf16 / fp16 masked or not, fp32 for
+                   float32, sm80 for the rest; backward: sm90 for bf16 /
+                   fp16 masked or not, sm80 for the rest), and through
+                   every other family that takes it (the decode kernel
+                   also against its own plain version, the same splits
+                   and merge; the fp32 kernel twice, equal bits);
                    each backward comparison beside a negative control
                    (the same comparison against the plain gradients of a
                    dO with one element moved must read a nonzero error),
@@ -60,7 +61,8 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    the port on the card (through the kernels) against the
                    port on the CPU (through the plain versions), same
                    weights and batch: loss series and final parameters
-                   (float32 runs the sm80 kernels);
+                   (float32 runs the fp32 forward and the sm80 dK/dV
+                   and dQ);
 8. generate      — Mistral-7B (full width and depth, bf16, random weights
                    from a seed), batch 4, 512-token prompts, 64 greedy
                    tokens: `generate(use_jit=True)` (the decode step
@@ -95,7 +97,10 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    with SDPA under the same mask, and a sweep of split
                    counts; the sm90 and sm80 forward at generation's
                    masked prefill (B 4, Lq 512, Lk 576) in turns, with
-                   SDPA under the same mask;
+                   SDPA under the same mask; the fp32 and sm80 forward
+                   and float32 SDPA at ERNIE's shape and at the
+                   train_fp32 shape, and the float32 sm80 dK/dV and dQ
+                   beside float32 SDPA's backward (below);
 13. train_llama  — LLaMA as bench.py::run_llama trains it on one card
                    (hidden 2048, 16 layers, 16 heads, intermediate 5504,
                    vocab 32000, seq 1024, batch 4, recompute, AMP O2 bf16
@@ -149,7 +154,8 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    copy_to_cpu, 5 warm-up and 30 timed runs, sequences/s,
                    run p50, a profile; the exported graph holds the flash
                    operator once a layer, each run launches the forward
-                   6 times (sm80), the logits equal the eager model's;
+                   6 times (fp32), the logits equal the eager model's,
+                   and the flash forward's device time a run;
                    then the same in bf16 (sm90), logits near float32's;
 22. ernie_e2e    — 2 layers, float32: the predictor on the card against
                    the eager model on the CPU, logits within 1e-4, at two
@@ -160,9 +166,12 @@ non-causal; unmasked and under its additive padding mask) in bf16, fp16
 and fp32 through every family that takes it, and flash_timings times
 the sm90 and sm80 forward and dK/dV and dQ there, unmasked and masked,
 in turns (sm80, sm90, SDPA, SDPA, sm90, sm80) with SDPA under the same
-mask, each beside its bound; and the float32 sm80 forward at ERNIE's
-shape (the same shape and mask, float32) in turns with float32 SDPA,
-TF32 off.
+mask, each beside its bound; the float32 forward at ERNIE's shape (the
+same shape and mask, float32), on fp32 and sm80 in turns with float32
+SDPA, TF32 off (fp32, sm80, SDPA, SDPA, sm80, fp32), and once at the
+train_fp32 shape (D 128, causal); and the float32 sm80 dK/dV and dQ at
+bert_e2e's shape (B 8) and ERNIE's (B 32), unmasked and masked, in
+turns with float32 SDPA's backward through autograd.
 
 The kernels line counts the flash launches of phases 6-10, 13-16 and
 19-22.
@@ -294,6 +303,8 @@ PAGED_DTYPES = {"f": "fp32", "13__nv_bfloat16": "bf16", "6__half": "fp16"}
 DECODE_KERNEL = re.compile(r"flash_decode_kernelILi(\d+)E")
 DECODE_MMA_KERNEL = re.compile(r"flash_decode_mma_kernelI"
                                r"(13__nv_bfloat16|6__half)Li(\d+)E")
+# the float32 forward (csrc/flash_fwd_fp32.cu): head-dim tile, mask mode
+FP32_KERNEL = re.compile(r"flash_fwd_fp32_kernelILi(\d+)ELi(\d)E")
 
 
 def phase_build():
@@ -310,7 +321,7 @@ def phase_build():
         for tail, short in SM90_KERNEL_NAMES.items():
             if tail in name:
                 sm90[short] = k
-    paged, decode = {}, {}
+    paged, decode, fp32 = {}, {}, {}
     for name, k in kernels.items():
         m = PAGED_KERNEL.search(name)
         if m:   # dtype, query heads in registers, vectors a lane
@@ -321,6 +332,9 @@ def phase_build():
         m = DECODE_MMA_KERNEL.search(name)
         if m:
             decode[f"{PAGED_DTYPES[m[1]]}_mma_d{m[2]}"] = k
+        m = FP32_KERNEL.search(name)
+        if m:
+            fp32[f"fp32_d{m[1]}{SM90_MASK_MODES[int(m[2])]}"] = k
     # e.g. ptxas's notice that it serialized wgmma for want of registers
     warnings = sorted({line.strip() for log in logs.values()
                        for line in log.splitlines()
@@ -330,12 +344,14 @@ def phase_build():
           "max_registers": max(regs, default=None),
           "spill_store_bytes": spills, "sm90_kernels": sm90,
           "paged_kernels": paged, "decode_kernels": decode,
-          "warnings": warnings})
+          "fp32_kernels": fp32, "warnings": warnings})
     if logs:
         assert len(sm90) == len(SM90_KERNEL_NAMES), \
             f"ptxas reported {sorted(sm90)} of the sm90 kernels"
     if "flash_decode" in logs:
         assert len(decode) == 8, f"ptxas reported {sorted(decode)}"
+    if "flash_fwd_fp32" in logs:
+        assert len(fp32) == 6, f"ptxas reported {sorted(fp32)}"
 
 
 def phase_kernels():
@@ -551,17 +567,19 @@ def phase_e2e():
 LAUNCH_COVER_CYCLES = 2_000_000
 
 
-def cuda_ms(fn, flush, iters=50, clean=False):
+def cuda_ms(fn, flush, iters=50, clean=False, median=False):
     """Mean device time of fn() over `iters` launches, CUDA events around
     each launch; the L2 cache is overwritten before every launch, as a
     decode step finds each layer's K/V cold, and the card is kept busy
     while the host issues the launch (`LAUNCH_COVER_CYCLES`).  The flush
     writes `flush`, which leaves the L2 full of dirty lines that fn's own
     reads then write back; with `clean` it reads `flush` instead, so fn
-    finds a cold L2 with nothing to write back."""
+    finds a cold L2 with nothing to write back.  With `median`, the
+    median launch (for a call whose host side can outlast the cover now
+    and then, as an autograd backward's)."""
     for _ in range(3):
         fn()
-    total = 0.0
+    times = []
     for _ in range(iters):
         if clean:
             flush.max()
@@ -574,8 +592,8 @@ def cuda_ms(fn, flush, iters=50, clean=False):
         fn()
         end.record()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / iters
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)) if median else sum(times) / iters
 
 
 def phase_timings(launches, lens):
@@ -773,6 +791,22 @@ FLASH_CASES = [
      "key_padding", torch.float16),
     ("additive_full_b1_d128_bf16", 1, 320, 320, 16, 16, 128, False, 0,
      "additive_full_h", torch.bfloat16),
+    # the fp32 forward's other arguments: a D that is neither 64 nor 128
+    # with ragged lengths, a window under GQA 16/4, the strided q/k/v views
+    # of a fused qkv, a full bool mask per head, a batch-broadcast key
+    # vector under causal masking, Lq < Lk
+    ("d96_ragged_300_fp32", 2, 300, 300, 8, 8, 96, True, 0, None,
+     torch.float32),
+    ("window_256_gqa4_fp32", 2, 1024, 1024, 16, 4, 128, True, 256, None,
+     torch.float32),
+    ("fused_qkv_views_fp32", 2, 512, 512, 16, 16, 64, True, 0, "fused_qkv",
+     torch.float32),
+    ("bool_full_mask_d64_fp32", 2, 200, 200, 8, 8, 64, False, 0,
+     "bool_full", torch.float32),
+    ("additive_row_batch1_fp32", 4, 130, 130, 16, 16, 64, True, 0,
+     "additive_row1", torch.float32),
+    ("lq100_lk333_causal_fp32", 2, 100, 333, 8, 2, 64, True, 0, None,
+     torch.float32),
 ]
 
 
@@ -858,7 +892,7 @@ def read_counts():
 def flash_part(counts):
     """The flash kernels' counters of `counts` (as `ops.launch_counts()`
     names them): {"fwd", "dkv", "dq", "fwd_sm90", "dkv_sm90", "dq_sm90",
-    "fwd_decode"}."""
+    "fwd_decode", "fwd_fp32"}."""
     return {k[len("flash_"):]: v for k, v in counts.items()
             if k.startswith("flash_")}
 
@@ -912,20 +946,24 @@ def flash_bwd64(fa, q, k, v, do, lse, delta, mask, causal, window):
 def fwd_family(grew):
     """The forward family that launched, from the counters' growth."""
     assert grew["fwd"] == 1, grew
-    assert grew["fwd_sm90"] + grew["fwd_decode"] <= 1, grew
+    assert grew["fwd_sm90"] + grew["fwd_decode"] + grew["fwd_fp32"] <= 1, \
+        grew
     return ("sm90" if grew["fwd_sm90"] else
-            "decode" if grew["fwd_decode"] else "sm80")
+            "decode" if grew["fwd_decode"] else
+            "fp32" if grew["fwd_fp32"] else "sm80")
 
 
 def flash_errors(fa, q, k, v, do, mask, causal, window, fwd_families=(None,),
                  bwd_families=(None,)):
     """Each kernel against its plain version on the same inputs: for each
-    forward family (None: the route's; "sm80" / "sm90" / "decode" forced)
-    {"fwd": (max abs, max err, ok), "lse_max_abs_err": x, "launched":
-    family} under out["fwd"][family], the decode family against
-    `flash_decode_plain` (its own plain version, the same splits) and
-    `flash_fwd_plain` both; for each backward family {"dkv": ..., "dq":
-    ..., "launched": family} under out["bwd"][family], given the plain
+    forward family (None: the route's; "sm80" / "sm90" / "decode" /
+    "fp32" forced) {"fwd": (max abs, max err, ok), "lse_max_abs_err": x,
+    "launched": family} under out["fwd"][family], the decode family
+    against `flash_decode_plain` (its own plain version, the same splits)
+    and `flash_fwd_plain` both, and the fp32 family launched twice on the
+    same inputs, whose o and lse must agree bit for bit
+    ("repeat_equal"); for each backward family {"dkv": ..., "dq": ...,
+    "launched": family} under out["bwd"][family], given the plain
     forward's lse and delta.  "launched" is the family the launch counters
     saw (one for dK/dV and dQ).  The first backward family also reads
     "control": the same comparison against the plain gradients of a dO
@@ -963,6 +1001,11 @@ def flash_errors(fa, q, k, v, do, mask, causal, window, fwd_families=(None,),
             err, lse_err, ok = max(err, e2), max(lse_err, l2), ok and ok2
         out["fwd"][fam] = {"fwd": (err, err, ok), "lse_max_abs_err": lse_err,
                            "launched": launched}
+        if launched == "fp32":       # no atomics: a second launch, same bits
+            o2, lse2 = fa.flash_fwd_cuda(q, k, v, mask, **kw, _impl="fp32")
+            same = bool(torch.equal(o, o2)) and bool(torch.equal(lse, lse2))
+            out["fwd"][fam].update(repeat_equal=same)
+            out["fwd"][fam]["fwd"] = (err, err, ok and same)
     delta = fa._delta(do, ref_o)
     ref_dq, ref_dk, ref_dv = fa.flash_bwd_plain(q, k, v, do, ref_lse, delta,
                                                 mask, **kw)
@@ -1013,11 +1056,11 @@ def flash_errors(fa, q, k, v, do, mask, causal, window, fwd_families=(None,),
 def phase_flash_kernels():
     """Every case through the routes, asserting which family launched
     (forward: decode for Lq <= 16, sm90 for bf16 / fp16 at D 64 or 128,
-    masked or not, sm80 for the rest; backward: sm90 for bf16 / fp16 at D
-    64 or 128, masked or not, sm80 for the rest), then through every
-    other family that takes it (`_impl`), each against its plain version;
-    the route's backward beside its negative control, and in float32
-    against float64 (`flash_errors`)."""
+    masked or not, fp32 for float32, sm80 for the rest; backward: sm90
+    for bf16 / fp16 at D 64 or 128, masked or not, sm80 for the rest),
+    then through every other family that takes it (`_impl`), each
+    against its plain version; the route's backward beside its negative
+    control, and in float32 against float64 (`flash_errors`)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     torch.backends.cuda.matmul.allow_tf32 = False    # full float32 plain
     torch.backends.cudnn.allow_tf32 = False
@@ -1029,7 +1072,7 @@ def phase_flash_kernels():
         m4 = fa._normalize_mask(mask)
         half = dtype != torch.float32
         want_fwd = ("decode" if Lq <= fa.DECODE_MAX_LQ else
-                    "sm90" if half else "sm80")
+                    "sm90" if half else "fp32")
         want_bwd = "sm90" if half else "sm80"
         fwd_fams = fa._families(q, k, v, m4, dtype, True)
         bwd_fams = fa._families(q, k, v, m4, dtype, False)
@@ -1047,6 +1090,8 @@ def phase_flash_kernels():
             tag = fam or want_fwd
             rec.update({f"{tag}_fwd_max_abs_err": e["fwd"][0],
                         f"{tag}_lse_max_abs_err": e["lse_max_abs_err"]})
+            if "repeat_equal" in e:
+                rec[f"{tag}_repeat_equal"] = e["repeat_equal"]
             rec["ok"] = rec["ok"] and e["fwd"][2]
         for fam, e in err["bwd"].items():
             assert e["launched"] == (fam or want_bwd), (name, fam, e)
@@ -1066,7 +1111,7 @@ def phase_flash_kernels():
     emit({"phase": "flash_kernels",
           "kernels": ["flash_fwd", "flash_dkv", "flash_dq",
                       "flash_fwd_sm90", "flash_dkv_sm90", "flash_dq_sm90",
-                      "flash_fwd_decode"],
+                      "flash_fwd_decode", "flash_fwd_fp32"],
           "fwd_tol": {str(d).split(".")[1]: t
                       for d, t in FLASH_FWD_TOL.items()},
           "bwd_tol": {str(d).split(".")[1]: t
@@ -1079,7 +1124,11 @@ def phase_flash_kernels():
     failed = [r["case"] for r in results if not r["ok"]]
     assert not failed, f"flash kernels disagree with plain: {failed}"
     runs = {f for r in results for f in r["fwd_families"]}
-    assert runs == {"decode", "sm90", "sm80"}, runs
+    assert runs == {"decode", "sm90", "fp32", "sm80"}, runs
+    # every float32 case ran the fp32 forward (its route above 16 rows,
+    # forced below), twice with equal bits
+    fp32 = [r for r in results if r["dtype"] == "float32"]
+    assert fp32 and all(r["fp32_repeat_equal"] for r in fp32), fp32
     torch.cuda.empty_cache()
 
 
@@ -1237,10 +1286,10 @@ def phase_train_e2e(steps=3, batch=2, seq=128):
     zero_counts()
     card_losses = train(card, "cuda")
     counts = flash_counts()
-    # float32: the sm80 kernels, 2 layers a step
+    # float32: the fp32 forward and the sm80 dK/dV and dQ, 2 layers a step
     assert counts == {"fwd": steps * 2, "dkv": steps * 2, "dq": steps * 2,
                       "fwd_sm90": 0, "dkv_sm90": 0, "dq_sm90": 0,
-                      "fwd_decode": 0}, counts
+                      "fwd_decode": 0, "fwd_fp32": steps * 2}, counts
     assert ops.sdpa.plain_calls == 0
     t0 = time.perf_counter()
     cpu_losses = train(cpu, "cpu")
@@ -1278,7 +1327,10 @@ def phase_flash_timings(paths):
     decode shape, the launch every generated token pays a layer, and the
     sm90 forward at generation's masked prefill, each beside the sm80
     forward.  `paths` maps each main path's run to its launch counts (as
-    `flash_part` names them); each kernel's `launches` is their sum."""
+    `flash_part` names them); each kernel's `launches` is their sum.  The
+    fp32 forward's record is timed at ERNIE's shape, the main path that
+    runs it; the sm80 forward runs on no main path any more (asserted),
+    and its record keeps its times."""
     from paddle_tpu_torch.ops import flash_attention as fa
     B, L, H, D = (FLASH_SHAPE[k] for k in ("B", "L", "H", "D"))
     dtype = torch.bfloat16
@@ -1330,7 +1382,8 @@ def phase_flash_timings(paths):
     # SDPA calls left SDPA's causal backward at the training shape 2.7x
     # slower on an H100
     bert = bert_shape_timing(fa, flush)
-    ernie = ernie_fp32_timing(fa, flush)
+    fp32_fwd = fp32_fwd_timing(fa, flush)
+    fp32_bwd = fp32_bwd_timing(fa, flush)
 
     esize = 2
     tensor = B * L * H * D * esize                   # one bf16 operand
@@ -1381,7 +1434,8 @@ def phase_flash_timings(paths):
             by_path = {p: c[kname] for p, c in paths.items()}
         else:   # sm80 launches: all launches less the others' ones
             by_path = {p: c[base] - c[f"{base}_sm90"]
-                       - c.get(f"{base}_decode", 0) for p, c in paths.items()}
+                       - c.get(f"{base}_decode", 0) - c.get(f"{base}_fp32", 0)
+                       for p, c in paths.items()}
         n = sum(by_path.values())
         record = kernel_record(
             f"flash_attention_{kname}", f"paddle_tpu_torch/csrc/{source}",
@@ -1402,9 +1456,30 @@ def phase_flash_timings(paths):
             record["masked_prefill"] = rec["masked_prefill"] = \
                 masked_prefill_timing(fa, flush)
         if kname == "fwd":
-            record["ernie_fp32_shape"] = ernie
+            # every forward of the main paths takes another family now
+            record["on_main_paths"] = False
+            record["fp32_shapes"] = {
+                shape: {mk: {k: r[k] for k in ("sm80_ms", "ms", "library_ms",
+                                               "bound_ms",
+                                               "sm80_max_abs_err")}
+                        for mk, r in fp32_fwd[shape].items()
+                        if mk in ("unmasked", "masked")}
+                for shape in ("ernie", "train_fp32")}
+            assert n == 0, f"the sm80 forward launched {by_path}"
+        else:
+            assert n > 0, f"{kname} launched no time on the main paths"
+        if kname in ("dkv", "dq"):
+            record["fp32_shapes"] = {
+                shape: {mk: {"ms": r["ms"][kname],
+                             "bound_ms": r["bounds"][kname]["bound_ms"],
+                             "library_ms": r["library_ms"],
+                             "library_bound_ms":
+                             r["bounds"]["sdpa_bwd"]["bound_ms"],
+                             "max_err": r[f"{kname}_max_err"]}
+                        for mk, r in fp32_bwd[shape].items()
+                        if mk in ("unmasked", "masked")}
+                for shape in ("bert_e2e", "ernie")}
         entries.append(record)
-        assert n > 0, f"{kname} launched no time on the main paths"
     decode = decode_shape_timing(fa, flush)
     rec["mistral_decode"] = decode
     by_path = {p: c["fwd_decode"] for p, c in paths.items()}
@@ -1419,8 +1494,33 @@ def phase_flash_timings(paths):
     record.update(launches_by_path=by_path, decode_shape=decode)
     entries.append(record)
     assert record["launches"] > 0, "the decode forward launched no time"
+    # the fp32 forward: at ERNIE's shape, as ernie_infer runs it (no mask)
+    e32 = fp32_fwd["ernie"]["unmasked"]
+    by_path = {p: c["fwd_fp32"] for p, c in paths.items()}
+    record = kernel_record(
+        "flash_attention_fwd_fp32", "paddle_tpu_torch/csrc/flash_fwd_fp32.cu",
+        "paddle_tpu/ops/pallas/flash_attention.py:84",
+        sum(by_path.values()), e32["max_abs_err"], e32["max_abs_err"],
+        {"rtol": FLASH_FWD_TOL[torch.float32][0],
+         "atol": FLASH_FWD_TOL[torch.float32][1], "dtype": "float32"},
+        e32["ms"], e32["plain_ms"], e32["bytes_ms"], e32["ops_ms"],
+        e32["library_ms"], fp32_fwd["library"])
+    record.update(launches_by_path=by_path, shape="ernie", fp32_shapes={
+        shape: {mk: {k: r[k] for k in ("ms", "sm80_ms", "library_ms",
+                                       "plain_ms", "bound_ms",
+                                       "share_of_bound", "max_abs_err")}
+                for mk, r in fp32_fwd[shape].items()
+                if mk in ("unmasked", "masked")}
+        for shape in ("ernie", "train_fp32")})
+    entries.append(record)
+    assert record["launches"] > 0, "the fp32 forward launched no time"
+    for shape in ("ernie", "train_fp32"):
+        for mk in ("unmasked", "masked"):
+            r = fp32_fwd[shape].get(mk)
+            assert r is None or r["ms"] < r["sm80_ms"], (shape, mk, r)
     rec["bert_shape"] = bert
-    rec["ernie_fp32_shape"] = ernie
+    rec["fp32_fwd"] = fp32_fwd
+    rec["fp32_bwd"] = fp32_bwd
     rec["plain_note"] = ("dkv and dq share one plain backward (dq, dk and "
                          "dv together)")
     emit(rec)
@@ -1637,7 +1737,7 @@ def phase_generate(batch=4, prompt=512, new=64, beams=4, beam_new=16,
                              beam=beams)
     del bf16_logits
     families = {name: {"flash_fwd_sm80": c["flash_fwd"] - c["flash_fwd_sm90"]
-                       - c["flash_fwd_decode"],
+                       - c["flash_fwd_decode"] - c["flash_fwd_fp32"],
                        "flash_fwd_sm90": c["flash_fwd_sm90"],
                        "flash_fwd_decode": c["flash_fwd_decode"],
                        "sdpa_plain_calls": c["sdpa_plain"]}
@@ -1834,8 +1934,12 @@ def phase_generate_e2e(batch=2, prompt=128, new=32):
     assert torch.equal(on_card["jit_generate"], static)
     assert torch.equal(on_card["jit_generate"], on_card["eager"])
     assert counts["sdpa_plain"] == 0 and counts["flash_fwd"] > 0, counts
-    # float32: the decode steps on the decode kernel, the prefills on sm80
+    # float32: the decode steps on the decode kernel, the prefills on the
+    # fp32 forward, none on sm80
     assert counts["flash_fwd_decode"] > 0, counts
+    assert counts["flash_fwd_fp32"] > 0, counts
+    assert counts["flash_fwd"] == counts["flash_fwd_decode"] + \
+        counts["flash_fwd_fp32"], counts
     del card, dcard, cpu, dcpu
     torch.cuda.empty_cache()
     return flash_part(counts)
@@ -1977,7 +2081,8 @@ def phase_train_llama_e2e(steps=3, batch=2, seq=128):
     L = cfg.num_layers
     assert counts == {"fwd": 2 * L * steps, "dkv": L * steps,
                       "dq": L * steps, "fwd_sm90": 0, "dkv_sm90": 0,
-                      "dq_sm90": 0, "fwd_decode": 0}, counts
+                      "dq_sm90": 0, "fwd_decode": 0,
+                      "fwd_fp32": 2 * L * steps}, counts
     assert ops.sdpa.plain_calls == 0
     t0 = time.perf_counter()
     cpu_losses = train(cpu, "cpu")
@@ -2649,7 +2754,8 @@ def phase_bert_e2e(steps=3, batch=8, seq=128, layers=2):
     n = layers * steps
     assert flash_part(counts) == {"fwd": n, "dkv": n, "dq": n,
                                   "fwd_sm90": 0, "dkv_sm90": 0,
-                                  "dq_sm90": 0, "fwd_decode": 0}, counts
+                                  "dq_sm90": 0, "fwd_decode": 0,
+                                  "fwd_fp32": n}, counts
     assert counts["sdpa_plain"] == 0, counts
     t0 = time.perf_counter()
     cpu_losses = train(cpu, "cpu")
@@ -2699,10 +2805,11 @@ def phase_ernie_infer(steps=30, warmup=5, batch=32, seq=128):
     0.0), ErnieForSequenceClassification, eval, save_inference over
     InputSpec([32, 128], "int64", "input_ids"), create_predictor,
     copy_from_cpu, 5 warm-up and 30 timed run()s, copy_to_cpu; float32
-    (run_ernie_infer never decorates), so the forward takes the sm80
+    (run_ernie_infer never decorates), so the forward takes the fp32
     kernel.  Asserts: the exported graph holds the flash operator once a
-    layer, each run launches the forward 6 times, and the logits equal
-    the eager model's on the card (ERNIE_EAGER_TOL).  Then the same in
+    layer, each run launches the fp32 forward 6 times and sm80 none, and
+    the logits equal the eager model's on the card (ERNIE_EAGER_TOL); the
+    flash forward's device time a run comes from the profile.  Then the same in
     bf16 (AMP O2 before the export): sm90 launches, logits within
     ERNIE_BF16_TOL of the float32 run's.  Returns {path: flash launch
     counts}."""
@@ -2759,9 +2866,16 @@ def phase_ernie_infer(steps=30, warmup=5, batch=32, seq=128):
             "logit0": float(got.reshape(-1)[0]), "launches": counts,
             "profile": busy(predictor.run, 3, pct(run_ms)["p50"])}
         sm90 = L * steps if dtype == "bfloat16" else 0
+        fp32 = L * steps - sm90
+        if fp32:    # the flash forward's device time a run, from the
+            # profile, beside the 0.591 ms a run of the sm80 forward that
+            # this path ran before the fp32 kernel (PERF.md section 5)
+            rec[dtype]["flash_fwd_device_ms_per_run"] = \
+                rec[dtype]["profile"]["flash_ms_per_step"]
+            rec[dtype]["sm80_flash_fwd_device_ms_per_run_before"] = 0.591
         assert nodes == L, (dtype, nodes)
-        assert (fl["fwd"], fl["fwd_sm90"], fl["dkv"], fl["dq"]) == \
-            (L * steps, sm90, 0, 0), (dtype, fl)
+        assert (fl["fwd"], fl["fwd_sm90"], fl["fwd_fp32"], fl["dkv"],
+                fl["dq"]) == (L * steps, sm90, fp32, 0, 0), (dtype, fl)
         assert counts["sdpa_plain"] == 0, counts
         assert diff <= ERNIE_EAGER_TOL, (dtype, diff)
         logits[dtype] = got
@@ -2779,7 +2893,7 @@ def phase_ernie_infer(steps=30, warmup=5, batch=32, seq=128):
 
 def phase_ernie_e2e(batch=8, seq=128, layers=2):
     """ERNIE-3.0-medium width at 2 layers, float32: the predictor of the
-    program exported on the card (the sm80 forward) against the eager
+    program exported on the card (the fp32 forward) against the eager
     model on the CPU (the plain version), same weights, padded rows fed
     as ids only (the deployment input): logits within 1e-4."""
     from paddle_tpu_torch.jit import InputSpec
@@ -2820,7 +2934,8 @@ def phase_ernie_e2e(batch=8, seq=128, layers=2):
           "tol": 1e-4, "launches": counts})
     assert flash_part(counts) == {"fwd": 2 * layers, "dkv": 0, "dq": 0,
                                   "fwd_sm90": 0, "dkv_sm90": 0,
-                                  "dq_sm90": 0, "fwd_decode": 0}, counts
+                                  "dq_sm90": 0, "fwd_decode": 0,
+                                  "fwd_fp32": 2 * layers}, counts
     assert counts["sdpa_plain"] == 0, counts
     assert max(err, err3) <= 1e-4, (err, err3)
     del card, cpu, predictor
@@ -2932,61 +3047,178 @@ def bert_shape_timing(fa, flush):
     return out
 
 
-def ernie_fp32_timing(fa, flush):
-    """The float32 forward at ERNIE's shape (B 32, L 128, H 12, D 64,
-    non-causal), TF32 off, as `ernie_infer` runs it in float32 (no mask)
-    and under the [32, 1, 1, 128] additive padding mask: the sm80 kernel
-    (the route's family in float32) in turns with float32 SDPA on [B, H,
-    L, D] under the same mask (sm80, SDPA, SDPA, sm80), its plain
-    version, and the bound: float32 operations at 67 TFLOP/s (no TF32)
-    or bytes, the larger."""
-    B, L, H, D = 32, 128, 12, 64
+def fp32_fwd_timing(fa, flush):
+    """The float32 forward, TF32 off: at ERNIE's shape (B 32, L 128, H 12,
+    D 64, non-causal) as `ernie_infer` runs it (no mask) and under the
+    [32, 1, 1, 128] additive padding mask, and once at the `train_fp32`
+    case's shape (B 4, L 1024, H 16, D 128, causal: D 128 and the causal
+    edge tiles).  The fp32 kernel (the route's family) and the sm80
+    kernel forced, in turns with float32 SDPA on [B, H, L, D] under the
+    same mask (fp32, sm80, SDPA, SDPA, sm80, fp32), each against the
+    plain version, the plain version's time, and the bound: float32
+    operations at 67 TFLOP/s (no TF32) or bytes, the larger."""
     dtype = torch.float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    q, k, v, _, _ = flash_inputs(B, L, L, H, H, D, None, dtype, seed=15)
-    g = torch.Generator(device="cuda").manual_seed(16)
-    mask = bert_padding_mask(B, L, dtype, g)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     rtol, atol = FLASH_FWD_TOL[dtype]
-    out = {"shape": {"B": B, "L": L, "H": H, "D": D, "dtype": "float32",
-                     "causal": False, "tf32": False},
-           "library": "torch SDPA on [B, H, L, D], float32, TF32 off, the "
+    out = {"library": "torch SDPA on [B, H, L, D], float32, TF32 off, the "
+                      "same additive mask (is_causal at the causal shape)"}
+    for name, (B, L, H, D, causal), seed in (
+            ("ernie", (32, 128, 12, 64, False), 15),
+            ("train_fp32", (4, 1024, 16, 128, True), 17)):
+        q, k, v, _, _ = flash_inputs(B, L, L, H, H, D, None, dtype, seed)
+        g = torch.Generator(device="cuda").manual_seed(seed + 1)
+        mask = bert_padding_mask(B, L, dtype, g) if name == "ernie" else None
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        rec = {"shape": {"B": B, "L": L, "H": H, "D": D, "dtype": "float32",
+                         "causal": causal, "tf32": False}}
+        for masked in (False, True) if mask is not None else (False,):
+            m = mask if masked else None
+            assert fa._fwd_route(q, k, v, fa._normalize_mask(m),
+                                 dtype) == "fp32"
+            ref_o, ref_lse = fa.flash_fwd_plain(q, k, v, m, is_causal=causal)
+            errs = {}
+            for impl in ("fp32", "sm80"):
+                o, lse = fa.flash_fwd_cuda(q, k, v, m, is_causal=causal,
+                                           _impl=impl)
+                d = (o - ref_o).abs()
+                errs[impl] = float(d.max())
+                errs[f"{impl}_lse"] = float((lse - ref_lse).abs().max())
+                assert bool((d <= atol + rtol * ref_o.abs()).all()), \
+                    (name, impl, errs)
+            with torch.no_grad():
+                lib = sdpa(qh, kh, vh, attn_mask=m, is_causal=causal)
+                errs["sdpa"] = float((lib.transpose(1, 2) - ref_o).abs()
+                                     .max())
+            del ref_o, ref_lse, lib
+
+            def run(impl, m=m):
+                if impl == "sdpa":
+                    return lambda: sdpa(qh, kh, vh, attn_mask=m,
+                                        is_causal=causal)
+                return lambda: fa.flash_fwd_cuda(q, k, v, m, is_causal=causal,
+                                                 _impl=impl)
+
+            with torch.no_grad():
+                turns = [(impl, cuda_ms(run(impl), flush, iters=25))
+                         for impl in ("fp32", "sm80", "sdpa", "sdpa", "sm80",
+                                      "fp32")]
+            ms = {i: sum(t for j, t in turns if j == i) / 2
+                  for i in ("fp32", "sm80", "sdpa")}
+            plain_ms = cuda_ms(lambda: fa.flash_fwd_plain(
+                q, k, v, m, is_causal=causal), flush, iters=10)
+            keys = int((mask[:, 0, 0] == 0).sum()) if masked else B * L
+            pairs = (H * L * keys if not causal
+                     else B * H * L * (L + 1) // 2)   # visible (q, k) pairs
+            nbytes = 4 * q.numel() * 4 + B * H * L * 4 + (B * L * 4 if masked
+                                                           else 0)
+            flops = 2 * 2 * pairs * D
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = flops / FP32_FLOPS * 1e3
+            bound = max(bytes_ms, ops_ms)
+            rec["masked" if masked else "unmasked"] = {
+                "turns_ms": turns, "ms": ms["fp32"], "sm80_ms": ms["sm80"],
+                "library_ms": ms["sdpa"], "plain_ms": plain_ms,
+                "sm80_over_fp32": ms["sm80"] / ms["fp32"],
+                "fp32_over_library": ms["fp32"] / ms["sdpa"],
+                "max_abs_err": errs["fp32"], "lse_max_abs_err":
+                errs["fp32_lse"], "sm80_max_abs_err": errs["sm80"],
+                "library_max_abs_err": errs["sdpa"], "visible_pairs": pairs,
+                "bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms,
+                "ops_ms": ops_ms, "bound_ms": bound,
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "share_of_bound": bound / ms["fp32"],
+                "sm80_share_of_bound": bound / ms["sm80"]}
+        out[name] = rec
+        del q, k, v, qh, kh, vh
+    torch.cuda.empty_cache()
+    return out
+
+
+def fp32_bwd_timing(fa, flush):
+    """The float32 backward (sm80 dK/dV and dQ; the float32 route), TF32
+    off, at `bert_e2e`'s shape (B 8, L 128, H 12, D 64, non-causal) and
+    at ERNIE's (B 32), unmasked and under the [B, 1, 1, 128] additive
+    padding mask: each against its plain version (`flash_errors`), then
+    in turns with float32 SDPA's backward through autograd (dq, dk and dv
+    in one call) under the same mask (sm80, SDPA, SDPA, sm80), each beside
+    its bound: float32 operations at 67 TFLOP/s (dK/dV 4 products, dQ 3)
+    or bytes, the larger.  Medians of 25 launches after 10 of warm-up: an
+    autograd backward's host side outlasts the launch cover now and then
+    (0.2-0.4 ms spikes against ~0.075 ms on an H100)."""
+    dtype = torch.float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {"library": "torch SDPA's backward through autograd (dq, dk, dv "
+                      "together) on [B, H, L, D], float32, TF32 off, the "
                       "same additive mask"}
-    for masked in (False, True):
-        m = mask if masked else None
-        assert fa._fwd_route(q, k, v, fa._normalize_mask(m), dtype) == "sm80"
-        o, lse = fa.flash_fwd_cuda(q, k, v, m)
-        ref_o, ref_lse = fa.flash_fwd_plain(q, k, v, m)
-        d = (o - ref_o).abs()
-        assert bool((d <= atol + rtol * ref_o.abs()).all()), float(d.max())
-        with torch.no_grad():
-            lib = (sdpa(qh, kh, vh, attn_mask=m).transpose(1, 2) - ref_o)
-        turns = []
-        with torch.no_grad():
+    L, H, D = 128, 12, 64
+    for name, B, seed in (("bert_e2e", 8, 18), ("ernie", 32, 20)):
+        q, k, v, do, _ = flash_inputs(B, L, L, H, H, D, None, dtype, seed)
+        g = torch.Generator(device="cuda").manual_seed(seed + 1)
+        mask = bert_padding_mask(B, L, dtype, g)
+        qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        doh = do.transpose(1, 2).contiguous()
+        rec = {"shape": {"B": B, "L": L, "H": H, "D": D, "dtype": "float32",
+                         "causal": False, "tf32": False}}
+        for masked in (False, True):
+            m = mask if masked else None
+            err = flash_errors(fa, q, k, v, do, m, False, 0, (None,),
+                               (None,))
+            e = err["bwd"][None]
+            assert e["launched"] == "sm80" and e["dkv"][2] and e["dq"][2], e
+            o, lse = fa.flash_fwd_cuda(q, k, v, m)
+            delta = fa._delta(do, o)
+            lib_out = sdpa(qh, kh, vh, attn_mask=m)
+            fns = {"dkv": lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse,
+                                                        delta, m),
+                   "dq": lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse,
+                                                      delta, m),
+                   "sdpa_bwd": lambda: torch.autograd.grad(
+                       lib_out, (qh, kh, vh), doh, retain_graph=True)}
+            for fn in fns.values():
+                for _ in range(10):
+                    fn()
+            turns = []
             for impl in ("sm80", "sdpa", "sdpa", "sm80"):
-                fn = ((lambda: sdpa(qh, kh, vh, attn_mask=m)) if impl == "sdpa"
-                      else (lambda: fa.flash_fwd_cuda(q, k, v, m)))
-                turns.append((impl, cuda_ms(fn, flush, iters=25)))
-        ms = {i: sum(t for j, t in turns if j == i) / 2
-              for i in ("sm80", "sdpa")}
-        plain_ms = cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, m), flush,
-                           iters=10)
-        visible = int((mask[:, 0, 0] == 0).sum()) if masked else B * L
-        nbytes = 4 * q.numel() * 4 + B * H * L * 4 + (B * L * 4 if masked
-                                                       else 0)
-        flops = 2 * 2 * H * L * visible * D
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / FP32_FLOPS * 1e3
-        out["masked" if masked else "unmasked"] = {
-            "turns_ms": turns, "ms": ms["sm80"], "library_ms": ms["sdpa"],
-            "sm80_over_library": ms["sm80"] / ms["sdpa"],
-            "plain_ms": plain_ms, "max_abs_err": float(d.max()),
-            "library_max_abs_err": float(lib.abs().max()),
-            "visible_keys": visible, "bytes": nbytes, "flops": flops,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+                for kname in (("dkv", "dq") if impl == "sm80"
+                              else ("sdpa_bwd",)):
+                    turns.append((kname, cuda_ms(fns[kname], flush,
+                                                 iters=25, median=True)))
+            ms = {n: sum(t for j, t in turns if j == n) / 2
+                  for n in ("dkv", "dq", "sdpa_bwd")}
+            keys = int((mask[:, 0, 0] == 0).sum()) if masked else B * L
+            tensor = B * L * H * D * 4
+            rows = B * H * L * 4
+            mbytes = B * L * 4 if masked else 0
+            product = 2 * H * L * keys * D
+            bounds = {}
+            for kname, nbytes, flops in (
+                    ("dkv", 6 * tensor + 2 * rows + mbytes, 4 * product),
+                    ("dq", 5 * tensor + 2 * rows + mbytes, 3 * product),
+                    ("sdpa_bwd", 7 * tensor + 2 * rows + mbytes,
+                     5 * product)):
+                b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                o_ms = flops / FP32_FLOPS * 1e3
+                bounds[kname] = {"bytes": nbytes, "flops": flops,
+                                 "bound_ms": max(b_ms, o_ms),
+                                 "bound_by": "bytes" if b_ms >= o_ms
+                                 else "operations"}
+            rec["masked" if masked else "unmasked"] = {
+                "turns_ms": turns, "ms": ms, "bounds": bounds,
+                "dkv_plus_dq_ms": ms["dkv"] + ms["dq"],
+                "library_ms": ms["sdpa_bwd"],
+                "dkv_plus_dq_over_library": (ms["dkv"] + ms["dq"])
+                / ms["sdpa_bwd"],
+                "dkv_max_err": e["dkv"][1], "dq_max_err": e["dq"][1],
+                "visible_keys": keys}
+            del lib_out, o, lse, delta
+        out[name] = rec
+        del q, k, v, do, qh, kh, vh, doh
+    torch.cuda.empty_cache()
     return out
 
 

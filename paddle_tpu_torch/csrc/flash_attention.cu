@@ -31,8 +31,10 @@
 // bound by operations (~0.035 and ~0.026 ms at 989 TFLOP/s).
 //
 // Design (simple and right first; flash_attention_sm90.cu holds the
-// TMA/wgmma/warp-specialised forward and dQ for bf16 / fp16 at D 64 and
-// 128, and the wrapper routes only the rest here):
+// TMA/wgmma/warp-specialised forward, dK/dV and dQ for bf16 / fp16 at D 64
+// and 128, flash_fwd_fp32.cu the float32 forward on the CUDA cores,
+// flash_decode.cu the forward of short queries, and the wrapper routes
+// only the rest here: the float32 backward, other head dims):
 //  * one block of 4 warps per (64-row tile, head, batch); each warp owns 16
 //    rows of the block's tile.  A loop inside the block over the other
 //    operand's tiles replaces the TPU's sequential grid axis and its VMEM
@@ -43,7 +45,9 @@
 //  * products run on the tensor cores through mma.sync m16n8k16 for bf16
 //    and fp16, with float32 accumulation, from operand tiles staged in
 //    shared memory.  float32 runs the same loops on the CUDA cores in full
-//    float32 (no TF32), so it can be held to 1e-5 against the plain version.
+//    float32 (no TF32), so it can be held to 1e-5 against the plain
+//    version; float32 forwards now go to flash_fwd_fp32.cu, and this
+//    file's float32 forward runs only when forced (A/B timing, tests).
 //  * p (forward) and p, dS (backward) pass through shared memory in the
 //    input dtype to become tensor-core operands: in bf16 / fp16 the backward
 //    therefore rounds p and dS where the TPU kernel keeps float32.

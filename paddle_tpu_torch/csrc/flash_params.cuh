@@ -1,6 +1,7 @@
 // Launch parameters shared by the flash-attention sources
-// (flash_attention.cu and flash_attention_sm90.cu), mirrored field for
-// field by ctypes in paddle_tpu_torch/ops/flash_attention.py.
+// (flash_attention.cu, flash_attention_sm90.cu, flash_decode.cu and
+// flash_fwd_fp32.cu), mirrored field for field by ctypes in
+// paddle_tpu_torch/ops/flash_attention.py.
 #pragma once
 #include <stdint.h>
 

@@ -1,4 +1,4 @@
-"""Flash attention: three families of hand-written CUDA kernels, their
+"""Flash attention: four families of hand-written CUDA kernels, their
 wrappers, their plain PyTorch versions, and the operator that joins them
 (`paddle_tpu_torch::flash_fwd`, a `torch.library` custom op with its
 backward registered, so `torch.export` keeps the forward as one node).
@@ -22,21 +22,27 @@ they are laid out):
   forward and dQ q-stationary, dK/dV kv-stationary); bfloat16 / float16,
   D 64 or 128, 16-byte aligned operands; masks in all three (the
   backward kernels instantiated for no mask, a key vector and full rows).
+- "fp32", `csrc/flash_fwd_fp32.cu`: the forward alone, in float32 on
+  the CUDA cores (exact float32 FMAs, no TF32): register micro-tiles fed
+  by float4 shared-memory loads, a cp.async ring of K/V tiles, per-element
+  tests on edge tiles only; masks, causal, window, GQA, D a multiple of 8
+  up to 128.
 - "sm80", `csrc/flash_attention.cu`: forward, dK/dV and dQ on mma.sync
-  tiles of 64 rows; every dtype (float32 too), masks, D a multiple of 8
-  up to 128: the rest.
+  tiles of 64 rows; every dtype, masks, D a multiple of 8 up to 128: the
+  rest, the float32 backward among it.
 The families are picked from the arguments before any launch, by one rule
 for the forward and the backward: `_fwd_route(q, k, v, m4, dtype)` gives
 "decode" for short queries, "sm90" where those kernels take the
-operands, "sm80" for the rest; `_sm90_route(q, k, v, m4, dtype)` gives
-the backward's family, one for dK/dV and dQ: "sm90" where those kernels
-take the operands, masked or not, "sm80" otherwise (lse does not depend
-on the family that made it).  There is no
-fallback on failure: a failed build or launch raises.  The keyword
-`_impl` of `flash_fwd_cuda`, `flash_bwd_dkv_cuda` and
+operands, "fp32" for the rest in float32, "sm80" for the rest;
+`_sm90_route(q, k, v, m4, dtype)` gives the backward's family, one for
+dK/dV and dQ: "sm90" where those kernels take the operands, masked or
+not, "sm80" otherwise (lse does not depend on the family that made it).
+There is no fallback on failure: a failed build or launch raises.  The
+keyword `_impl` of `flash_fwd_cuda`, `flash_bwd_dkv_cuda` and
 `flash_bwd_dq_cuda` forces a family, for A/B timing and the card tests
 only; forcing one on arguments it does not take raises ValueError
-before any launch ("sm80" takes everything).
+before any launch ("sm80" takes everything, "fp32" every float32
+forward).
 
 Layout is (B, L, H, D), GQA reads kv head h // (H // Hkv) without a
 repeat, causal masking is bottom-right aligned over the real lengths
@@ -48,8 +54,8 @@ The training path (bf16, D 128, causal, no mask, the q/k/v views of a
 fused qkv projection) takes the sm90 forward, dK/dV and dQ; generation's
 decode steps take the decode forward and its masked prefills the sm90
 forward; a padded BERT step the sm90 forward, dK/dV and dQ, all under
-the mask; float32 (ERNIE's inference, the card-vs-CPU checks) the sm80
-kernels.
+the mask; float32 (ERNIE's inference, the card-vs-CPU checks) the fp32
+forward and the sm80 dK/dV and dQ.
 
 Tensors on the CPU take the plain versions; tensors on a CUDA device
 launch the kernels or raise — there is no fallback.  The kernels take D a
@@ -58,10 +64,11 @@ multiple of 8 from 8 to 128 (the TPU kernel pads any D to 128 lanes);
 `flash_attention.launches_fwd`, `.launches_dkv` and `.launches_dq` count
 every launch of each kernel, of any family; `.launches_fwd_sm90`,
 `.launches_dkv_sm90` and `.launches_dq_sm90` count those of the sm90
-kernels, and `.launches_fwd_decode` those of the decode forward (one per
-call, its merge launch included).  The forward counts inside the
-operator's CUDA implementation, so a program exported with the operator
-and loaded elsewhere counts its launches too.
+kernels, `.launches_fwd_decode` those of the decode forward (one per
+call, its merge launch included) and `.launches_fwd_fp32` those of the
+float32 forward.  The forward counts inside the operator's CUDA
+implementation, so a program exported with the operator and loaded
+elsewhere counts its launches too.
 """
 from __future__ import annotations
 
@@ -118,6 +125,7 @@ _ENTRIES = {
         "flash_attention_sm90_fwd", "flash_attention_sm90_bwd_dkv",
         "flash_attention_sm90_bwd_dq")},
     "flash_decode": {"flash_decode_fwd": _DECODE_ARGS},
+    "flash_fwd_fp32": {"flash_fwd_fp32_fwd": _ARGS},
 }
 _libs = {}
 
@@ -352,20 +360,23 @@ def _sm90_takes(q, k, v, dtype):
 
 def _families(q, k, v, m4, dtype, fwd):
     """The families that take these arguments, the route's first: for the
-    forward "decode" (Lq <= DECODE_MAX_LQ), "sm90", "sm80"; for the
-    backward "sm90", "sm80".  The mask does not decide the family."""
+    forward "decode" (Lq <= DECODE_MAX_LQ), "sm90", "fp32" (float32),
+    "sm80"; for the backward "sm90", "sm80".  The mask does not decide the
+    family."""
     out = []
     if fwd and q.shape[1] <= DECODE_MAX_LQ:
         out.append("decode")
     if _sm90_takes(q, k, v, dtype):
         out.append("sm90")
+    if fwd and dtype == torch.float32:
+        out.append("fp32")
     return tuple(out) + ("sm80",)
 
 
 def _fwd_route(q, k, v, m4, dtype):
     """The forward's family for these arguments, decided before any
     launch: "decode" for short queries, "sm90" where those kernels take
-    the operands (masked or not), "sm80" otherwise."""
+    the operands (masked or not), "fp32" for float32, "sm80" otherwise."""
     return _families(q, k, v, m4, dtype, True)[0]
 
 
@@ -379,7 +390,8 @@ def _sm90_route(q, k, v, m4, dtype):
 def _family(q, k, v, m4, impl, fwd=False):
     """The route of the forward (`fwd`) or the backward, or the family
     `impl` forces; a family that does not take the arguments raises
-    ValueError ("sm80" takes everything)."""
+    ValueError ("sm80" takes everything, "fp32" every float32
+    forward)."""
     fams = _families(q, k, v, m4, q.dtype, fwd)
     if impl is None:
         return fams[0]
@@ -458,8 +470,8 @@ def _launch(source, fn, p, q, *extra):
 
 def _operands(p, impl, named):
     """Point p at each (name, tensor): as the tensor maps read it (sm90,
-    tensors already `_tma_ready`), or as `_operand` returns it (sm80 and
-    decode, which may copy).  Returns the tensors launched on."""
+    tensors already `_tma_ready`), or as `_operand` returns it (fp32, sm80
+    and decode, which may copy).  Returns the tensors launched on."""
     out = []
     for name, x in named:
         if impl == "sm90":
@@ -504,6 +516,9 @@ def flash_fwd_cuda(q, k, v, mask=None, is_causal=False, scale=None,
     elif impl == "sm90":
         _launch("flash_attention_sm90", "flash_attention_sm90_fwd", p, q)
         flash_attention.launches_fwd_sm90 += 1
+    elif impl == "fp32":
+        _launch("flash_fwd_fp32", "flash_fwd_fp32_fwd", p, q)
+        flash_attention.launches_fwd_fp32 += 1
     else:
         _launch("flash_attention", "flash_attention_fwd", p, q)
     flash_attention.launches_fwd += 1
@@ -683,6 +698,7 @@ flash_attention.launches_dkv = 0
 flash_attention.launches_dq = 0
 flash_attention.launches_fwd_sm90 = 0
 flash_attention.launches_fwd_decode = 0
+flash_attention.launches_fwd_fp32 = 0
 flash_attention.launches_dkv_sm90 = 0
 flash_attention.launches_dq_sm90 = 0
 

@@ -13,7 +13,7 @@ What the JAX model does, kept here:
   input, not a trained tensor, so on the card it goes to the flash
   kernels (in bf16 / fp16 the sm90 forward, dK/dV and dQ take it, the
   backward kernels in their key-vector instantiation; float32 runs the
-  sm80 kernels);
+  fp32 forward and the sm80 dK/dV and dQ);
 - the pooled output is tanh(pooler(seq[:, 0]));
 - the encoder deep-copies its first layer, so every layer starts with
   the same weights;

@@ -11,7 +11,8 @@ the wrappers run for CPU tensors) against float64 dense attention and its
 autograd gradients, and the routes that pick a kernel family.  The card
 tests run each case through the families that take it: "sm80"
 (csrc/flash_attention.cu), "sm90" (csrc/flash_attention_sm90.cu: forward,
-dK/dV and dQ, masked or not) and, for short queries,
+dK/dV and dQ, masked or not), "fp32" (csrc/flash_fwd_fp32.cu: the
+float32 forward) and, for short queries,
 "decode" (csrc/flash_decode.cu, the forward at every split count), forced
 with the wrappers' `_impl` and `_splits`; and the decode forward inside
 captured CUDA graphs.  The parity of this op with the JAX package is in
@@ -263,11 +264,12 @@ def _bwd_args(q):
 
 # name, the family of the forward, the family of dK/dV and dQ (Lq 64: no
 # case here is short enough for the decode forward).  The forward and the
-# backward follow one rule: a mask moves neither off sm90
+# backward follow one rule: a mask moves neither off sm90; float32 takes
+# the fp32 forward and the sm80 backward
 @pytest.mark.parametrize("name, family, dkv_family", [
     ("bf16_d128_causal_fused_qkv", "sm90", "sm90"),
     ("fp16_d64_gqa_window", "sm90", "sm90"),
-    ("float32", "sm80", "sm80"),
+    ("float32", "fp32", "sm80"),
     ("additive_mask", "sm90", "sm90"),
     ("d96", "sm80", "sm80"),
     ("misaligned_view", "sm80", "sm80"),
@@ -290,7 +292,9 @@ def test_sm90_route(name, family, dkv_family):
     if dkv_family == "sm80":
         with pytest.raises(ValueError):
             fa._family(q, k, v, m4, "sm90")
-    if family == "sm80":
+    with pytest.raises(ValueError, match="backward"):
+        fa._family(q, k, v, m4, "fp32")
+    if family != "sm90":
         with pytest.raises(ValueError):
             fa._family(q, k, v, m4, "sm90", fwd=True)
         return
@@ -335,19 +339,20 @@ def _short(Lq, dtype=torch.bfloat16, D=128, mask=False):
 @pytest.mark.parametrize("mask", [False, True])
 def test_decode_route(Lq, dtype, mask):
     """Short queries (Lq <= DECODE_MAX_LQ), masked or not, in any dtype,
-    take the decode forward; the backward keeps its own route (sm90 for
-    bf16 / fp16, masked or not); "sm90" and
-    "sm80" may be forced on a short query where they take it, "decode"
-    never on a longer one nor on the backward."""
+    take the decode forward, longer float32 ones the fp32 forward; the
+    backward keeps its own route (sm90 for bf16 / fp16, masked or not);
+    "sm90", "fp32" and "sm80" may be forced on a short query where they
+    take it, "decode" never on a longer one nor on the backward."""
     q, k, v, m = _short(Lq, dtype, mask=mask)
     m4 = fa._normalize_mask(m)
     short = Lq <= fa.DECODE_MAX_LQ
     sm90 = dtype == torch.bfloat16
-    want = "decode" if short else "sm90" if sm90 else "sm80"
+    want = "decode" if short else "sm90" if sm90 else "fp32"
     assert fa._fwd_route(q, k, v, m4, dtype) == want
     assert fa._family(q, k, v, m4, None, fwd=True) == want
     assert fa._families(q, k, v, m4, dtype, True) == (
-        ("decode",) * short + ("sm90",) * sm90 + ("sm80",))
+        ("decode",) * short + ("sm90",) * sm90 + ("fp32",) * (not sm90)
+        + ("sm80",))
     assert fa._sm90_route(q, k, v, m4, dtype) == ("sm90" if sm90
                                                   else "sm80")
     with pytest.raises(ValueError, match="backward"):
@@ -395,16 +400,18 @@ def test_tma_strides_replace_a_zero_stride_of_a_size1_dim():
     assert fa._sm90_route(z, z, z, None, torch.bfloat16) == "sm90"
 
 
-@pytest.mark.parametrize("dtype, family", [(torch.bfloat16, "sm90"),
-                                           (torch.float16, "sm90"),
-                                           (torch.float32, "sm80")])
-def test_bert_padded_shape_routes_the_masked_backward(dtype, family):
+@pytest.mark.parametrize("dtype, family, bwd_family", [
+    (torch.bfloat16, "sm90", "sm90"), (torch.float16, "sm90", "sm90"),
+    (torch.float32, "fp32", "sm80")])
+def test_bert_padded_shape_routes_the_masked_backward(dtype, family,
+                                                      bwd_family):
     """BERT's padded fine-tune (B 32, L 128, H 12, D 64, the q/k/v views of
     its [B, L, 3 H D] projection, the additive padding mask [32, 1, 1,
     128] that `text.bert.additive_mask` builds): the forward and dK/dV and
-    dQ take one family, sm90 in bf16 / fp16, and the mask reaches the
-    kernels as a key vector (row stride 0, batch stride Lk, no head
-    stride), the sm90 backward's key-vector instantiation."""
+    dQ take sm90 in bf16 / fp16, the fp32 forward and the sm80 backward in
+    float32, and the mask reaches the kernels as a key vector (row stride
+    0, batch stride Lk, no head stride), the sm90 backward's and the fp32
+    forward's key-vector instantiation."""
     from paddle_tpu_torch.text.bert import additive_mask
     B, L, H, D = 32, 128, 12, 64
     qkv = torch.zeros(B, L, 3 * H * D, dtype=dtype)
@@ -414,14 +421,60 @@ def test_bert_padded_shape_routes_the_masked_backward(dtype, family):
     m4 = fa._normalize_mask(additive_mask(keep.long(), dtype))
     assert tuple(m4.shape) == (B, 1, 1, L) and m4.dtype == torch.float32
     assert fa._fwd_route(q, k, v, m4, dtype) == family
-    assert fa._sm90_route(q, k, v, m4, dtype) == family
+    assert fa._sm90_route(q, k, v, m4, dtype) == bwd_family
     p, _, impl = fa._bwd_params(q, k, v, *_bwd_args(q), m4, False, None, 0)
-    assert impl == family
+    assert impl == bwd_family
     assert (p.m_sb, p.m_sh, p.m_sr) == (L, 0, 0)
     assert p.mask == m4.data_ptr()
     if family == "sm90":    # the kernels read the views through strides
         assert [fa._tma_strides(x) for x in (q, k, v)] == [
             [L * 3 * H * D, 3 * H * D, D]] * 3
+    if family == "fp32":    # the views reach the fp32 forward uncopied
+        for x in (q, k, v):
+            y, st = fa._operand(x)
+            assert y.data_ptr() == x.data_ptr()
+            assert st == [L * 3 * H * D, 3 * H * D, D]
+
+
+@pytest.mark.parametrize("Lq, want", [(17, ("fp32", "sm80")),
+                                      (64, ("fp32", "sm80")),
+                                      (1, ("decode", "fp32", "sm80")),
+                                      (16, ("decode", "fp32", "sm80"))])
+@pytest.mark.parametrize("mask", [False, True])
+def test_fp32_route(Lq, want, mask):
+    """float32 forwards take the fp32 family above DECODE_MAX_LQ rows and
+    may have it forced at or below; the backward stays on sm80, and
+    "fp32" forced on it raises; bf16 and fp16 keep their families."""
+    q, k, v, m = _short(Lq, torch.float32, D=64, mask=mask)
+    m4 = fa._normalize_mask(m)
+    assert fa._families(q, k, v, m4, torch.float32, True) == want
+    assert fa._fwd_route(q, k, v, m4, torch.float32) == want[0]
+    assert fa._family(q, k, v, m4, "fp32", fwd=True) == "fp32"
+    assert fa._families(q, k, v, m4, torch.float32, False) == ("sm80",)
+    assert fa._sm90_route(q, k, v, m4, torch.float32) == "sm80"
+    with pytest.raises(ValueError, match="backward"):
+        fa._family(q, k, v, m4, "fp32")
+    _, _, impl = fa._bwd_params(q, k, v, *_bwd_args(q), m, False, None, 0)
+    assert impl == "sm80"
+    for dtype in (torch.bfloat16, torch.float16):
+        qh, kh, vh = (x.to(dtype) for x in (q, k, v))
+        fams = fa._families(qh, kh, vh, m4, dtype, True)
+        assert "fp32" not in fams
+        assert fams == ("decode",) * (Lq <= fa.DECODE_MAX_LQ) + (
+            "sm90", "sm80")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("Lq", [1, 64])
+def test_fp32_forced_on_half_raises_before_any_launch(dtype, Lq):
+    """Forcing the fp32 forward on bfloat16 / float16 raises ValueError in
+    the wrapper, before a library is loaded or a kernel launched (these
+    tensors are on the CPU, so any launch would fail otherwise)."""
+    q, k, v, m = _short(Lq, dtype, D=64, mask=True)
+    before = _counts()
+    with pytest.raises(ValueError, match="fp32"):
+        fa.flash_fwd_cuda(q, k, v, m, _impl="fp32")
+    assert _counts() == before
 
 
 def test_window_must_be_causal_and_not_negative():
@@ -462,7 +515,7 @@ def _counts():
     f = fa.flash_attention
     return (f.launches_fwd, f.launches_dkv, f.launches_dq,
             f.launches_fwd_sm90, f.launches_dkv_sm90, f.launches_dq_sm90,
-            f.launches_fwd_decode)
+            f.launches_fwd_decode, f.launches_fwd_fp32)
 
 
 def bwd_error(got, want):
@@ -471,35 +524,41 @@ def bwd_error(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("family", ["sm80", "sm90"])
+@pytest.mark.parametrize("family", ["sm80", "sm90", "fp32"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_kernels_match_plain_on_card(card, name, dtype, family):
-    """Each case through one kernel family.  A case the sm90 kernels do
-    not take (float32, D other than 64 or 128) must be routed elsewhere,
-    and forcing sm90 on it must raise before any launch; the sm90
-    forward, dK/dV and dQ take every mask.  The gradients are finite
-    (rows that see nothing give 0), and a second dK/dV and dQ launch
-    gives the same bits (no atomics)."""
+    """Each case through one kernel family.  A case a family does not take
+    (sm90: float32, D other than 64 or 128; fp32: bfloat16 / float16)
+    must be routed elsewhere, and forcing the family on it must raise
+    before any launch; the sm90 forward, dK/dV and dQ and the fp32
+    forward take every mask.  The fp32 family is a forward alone: two
+    launches give the same bits.  The gradients are finite (rows that see
+    nothing give 0), and a second dK/dV and dQ launch gives the same bits
+    (no atomics)."""
     q, k, v, do, mask, kw = make_inputs(name, dtype=dtype, device=card)
     m4 = fa._normalize_mask(mask)
-    if family == "sm90" and "sm90" not in fa._families(q, k, v, m4, dtype,
-                                                       True):
+    if family not in fa._families(q, k, v, m4, dtype, True):
         before = _counts()
         with pytest.raises(ValueError):
-            fa.flash_fwd_cuda(q, k, v, mask, **kw, _impl="sm90")
+            fa.flash_fwd_cuda(q, k, v, mask, **kw, _impl=family)
         assert _counts() == before
         return
-    sm90 = int(family == "sm90")
+    sm90, fp32 = int(family == "sm90"), int(family == "fp32")
     before = _counts()
     o, lse = fa.flash_fwd_cuda(q, k, v, mask, **kw, _impl=family)
     torch.cuda.synchronize()
     assert _counts() == tuple(c + d for c, d in zip(
-        before, (1, 0, 0, sm90, 0, 0, 0)))
+        before, (1, 0, 0, sm90, 0, 0, 0, fp32)))
     ref_o, ref_lse = fa.flash_fwd_plain(q, k, v, mask, **kw)
     torch.testing.assert_close(o.float(), ref_o.float(), **FWD_TOL[dtype])
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+    if fp32:
+        o2, lse2 = fa.flash_fwd_cuda(q, k, v, mask, **kw, _impl=family)
+        torch.cuda.synchronize()
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        return
 
     delta = fa._delta(do, ref_o)
     dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, ref_lse, delta, mask, **kw,
@@ -543,7 +602,7 @@ def test_decode_kernel_matches_plain_on_card(card, name, dtype, splits):
                                _splits=splits)
     torch.cuda.synchronize()
     assert _counts() == tuple(c + d for c, d in zip(
-        before, (1, 0, 0, 0, 0, 0, 1)))
+        before, (1, 0, 0, 0, 0, 0, 1, 0)))
     assert o.dtype == dtype and lse.dtype == torch.float32
     for ref_o, ref_lse in (
             fa.flash_decode_plain(q, k, v, mask, splits=splits, **kw),
@@ -616,15 +675,22 @@ def test_autograd_on_card_takes_the_sm90_forward_and_dq(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("family", ["sm80", "sm90"])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("family", ["sm80", "sm90", "fp32"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
 def test_strided_qkv_views_match_contiguous(card, dtype, family):
     """q, k, v as the views unbind gives of a fused (b, s, 3, H, D)
-    projection: read through their strides, no copy."""
+    projection: read through their strides, no copy.  A family that does
+    not take the dtype (sm90: float32; fp32: bf16 / fp16) raises before
+    any launch."""
     rng = np.random.default_rng(3)
     qkv = torch.from_numpy(rng.standard_normal((2, 77, 3, 4, 64)).astype(
         np.float32)).to(card, dtype)
     q, k, v = qkv.unbind(2)
+    if family not in fa._families(q, k, v, None, dtype, True):
+        with pytest.raises(ValueError):
+            fa.flash_fwd_cuda(q, k, v, is_causal=True, _impl=family)
+        return
     o, lse = fa.flash_fwd_cuda(q, k, v, is_causal=True, _impl=family)
     o2, lse2 = fa.flash_fwd_cuda(q.contiguous(), k.contiguous(),
                                  v.contiguous(), is_causal=True,
@@ -676,7 +742,7 @@ def test_exported_encoder_holds_the_op_and_counts_launches(card, dtype,
                                                            tmp_path):
     """An ERNIE encoder (2 layers, D 64) exported on the card holds the
     flash operator once per layer; its predictor launches the forward
-    once per layer a run (sm90 in bf16, sm80 in float32) and gives the
+    once per layer a run (sm90 in bf16, fp32 in float32) and gives the
     eager model's logits."""
     from paddle_tpu_torch import amp, inference
     from paddle_tpu_torch.jit import InputSpec, save_inference
@@ -704,7 +770,8 @@ def test_exported_encoder_holds_the_op_and_counts_launches(card, dtype,
     logits = predictor.get_output_handle("output_0").copy_to_cpu()
     grew = tuple(a - b for a, b in zip(_counts(), before))
     sm90 = cfg.num_hidden_layers if dtype == torch.bfloat16 else 0
-    assert grew == (cfg.num_hidden_layers, 0, 0, sm90, 0, 0, 0)
+    fp32 = cfg.num_hidden_layers - sm90
+    assert grew == (cfg.num_hidden_layers, 0, 0, sm90, 0, 0, 0, fp32)
     with torch.no_grad():
         eager = model(torch.from_numpy(ids).to(card)).float().cpu().numpy()
     np.testing.assert_array_equal(logits.astype(np.float32), eager)
