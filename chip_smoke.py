@@ -10,7 +10,8 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
 1. build         — times the nvcc build (one nvcc per source, in
                    parallel) and prints ptxas's registers, shared memory
                    and spills for each sm90 flash kernel, each decode
-                   kernel and each fp32 forward kernel;
+                   kernel and each fp32 forward and backward kernel (the
+                   fp32 backward's 12 with 0 spills, asserted);
 2. kernels       — holds the paged decode kernel (context split across
                    blocks) against its plain PyTorch version on the card
                    at the serving path's shapes and at the split edges
@@ -31,10 +32,12 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    asserting which family launched (forward: decode for
                    Lq <= 16, sm90 for bf16 / fp16 masked or not, fp32 for
                    float32, sm80 for the rest; backward: sm90 for bf16 /
-                   fp16 masked or not, sm80 for the rest), and through
-                   every other family that takes it (the decode kernel
-                   also against its own plain version, the same splits
-                   and merge; the fp32 kernel twice, equal bits);
+                   fp16 masked or not, fp32 for float32, sm80 for the
+                   rest), and through every other family that takes it
+                   (the decode kernel also against its own plain version,
+                   the same splits and merge; sm80 beside every fp32
+                   backward; the fp32 forward and backward each twice,
+                   equal bits);
                    each backward comparison beside a negative control
                    (the same comparison against the plain gradients of a
                    dO with one element moved must read a nonzero error),
@@ -61,8 +64,7 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    the port on the card (through the kernels) against the
                    port on the CPU (through the plain versions), same
                    weights and batch: loss series and final parameters
-                   (float32 runs the fp32 forward and the sm80 dK/dV
-                   and dQ);
+                   (float32 runs the fp32 forward, dK/dV and dQ);
 8. generate      — Mistral-7B (full width and depth, bf16, random weights
                    from a seed), batch 4, 512-token prompts, 64 greedy
                    tokens: `generate(use_jit=True)` (the decode step
@@ -99,8 +101,8 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    masked prefill (B 4, Lq 512, Lk 576) in turns, with
                    SDPA under the same mask; the fp32 and sm80 forward
                    and float32 SDPA at ERNIE's shape and at the
-                   train_fp32 shape, and the float32 sm80 dK/dV and dQ
-                   beside float32 SDPA's backward (below);
+                   train_fp32 shape, and the float32 fp32 and sm80 dK/dV
+                   and dQ beside float32 SDPA's backward (below);
 13. train_llama  — LLaMA as bench.py::run_llama trains it on one card
                    (hidden 2048, 16 layers, 16 heads, intermediate 5504,
                    vocab 32000, seq 1024, batch 4, recompute, AMP O2 bf16
@@ -148,7 +150,17 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    halves until steps go through);
 20. bert_e2e     — 2 layers at BERT width, float32, AdamW, padded rows,
                    3 steps: card against CPU (losses, parameters);
-21. ernie_infer  — ERNIE-3.0-medium as bench.py::run_ernie_infer runs it
+21. bert_fp32_train — BERT-base fine-tuned in float32 (no AMP, TF32 off,
+                   AdamW(2e-5), batch 32, seq 128, padded rows), as
+                   examples/finetune_bert_cls.py runs it: 3 warm-up and
+                   10 timed steps, sequences/s, step p50/p99, MFU against
+                   the float32 peak, busy share and flash device time a
+                   step, 12 fp32 forward, dK/dV and dQ launches a step
+                   and none on sm80; then the step with the backward on
+                   fp32 and sm80 in turns (fp32, sm80, sm80, fp32) from
+                   one starting point: step p50, the flash backward's
+                   device time a step, losses within 1e-5;
+22. ernie_infer  — ERNIE-3.0-medium as bench.py::run_ernie_infer runs it
                    (float32, batch 32, seq 128): save_inference ->
                    create_predictor -> copy_from_cpu / run /
                    copy_to_cpu, 5 warm-up and 30 timed runs, sequences/s,
@@ -157,7 +169,7 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    6 times (fp32), the logits equal the eager model's,
                    and the flash forward's device time a run;
                    then the same in bf16 (sm90), logits near float32's;
-22. ernie_e2e    — 2 layers, float32: the predictor on the card against
+23. ernie_e2e    — 2 layers, float32: the predictor on the card against
                    the eager model on the CPU, logits within 1e-4, at two
                    batch sizes of one dynamic-batch program.
 
@@ -169,12 +181,14 @@ in turns (sm80, sm90, SDPA, SDPA, sm90, sm80) with SDPA under the same
 mask, each beside its bound; the float32 forward at ERNIE's shape (the
 same shape and mask, float32), on fp32 and sm80 in turns with float32
 SDPA, TF32 off (fp32, sm80, SDPA, SDPA, sm80, fp32), and once at the
-train_fp32 shape (D 128, causal); and the float32 sm80 dK/dV and dQ at
-bert_e2e's shape (B 8) and ERNIE's (B 32), unmasked and masked, in
-turns with float32 SDPA's backward through autograd.
+train_fp32 shape (D 128, causal); and the float32 dK/dV and dQ, fp32
+and sm80, at bert_e2e's shape (B 8) and ERNIE's (B 32), unmasked and
+masked, and at the train_fp32 shape, in turns with float32 SDPA's
+backward through autograd (fp32, sm80, SDPA, SDPA, sm80, fp32).
 
 The kernels line counts the flash launches of phases 6-10, 13-16 and
-19-22.
+19-23; the sm80 forward, dK/dV and dQ launch on none of them (asserted,
+`on_main_paths: false`).
 Each phase prints one JSON line.  Then one {"kernels": [...]} line, the
 card's name and power limit from nvidia-smi, and last
 {"ok": true, "device": {...}}.  Any failure raises and exits nonzero
@@ -305,6 +319,9 @@ DECODE_MMA_KERNEL = re.compile(r"flash_decode_mma_kernelI"
                                r"(13__nv_bfloat16|6__half)Li(\d+)E")
 # the float32 forward (csrc/flash_fwd_fp32.cu): head-dim tile, mask mode
 FP32_KERNEL = re.compile(r"flash_fwd_fp32_kernelILi(\d+)ELi(\d)E")
+# the float32 backward (csrc/flash_bwd_fp32.cu): kernel, head-dim tile,
+# mask mode
+FP32_BWD_KERNEL = re.compile(r"flash_(dkv|dq)_fp32_kernelILi(\d+)ELi(\d)E")
 
 
 def phase_build():
@@ -321,7 +338,7 @@ def phase_build():
         for tail, short in SM90_KERNEL_NAMES.items():
             if tail in name:
                 sm90[short] = k
-    paged, decode, fp32 = {}, {}, {}
+    paged, decode, fp32, fp32_bwd = {}, {}, {}, {}
     for name, k in kernels.items():
         m = PAGED_KERNEL.search(name)
         if m:   # dtype, query heads in registers, vectors a lane
@@ -335,6 +352,9 @@ def phase_build():
         m = FP32_KERNEL.search(name)
         if m:
             fp32[f"fp32_d{m[1]}{SM90_MASK_MODES[int(m[2])]}"] = k
+        m = FP32_BWD_KERNEL.search(name)
+        if m:
+            fp32_bwd[f"{m[1]}_fp32_d{m[2]}{SM90_MASK_MODES[int(m[3])]}"] = k
     # e.g. ptxas's notice that it serialized wgmma for want of registers
     warnings = sorted({line.strip() for log in logs.values()
                        for line in log.splitlines()
@@ -344,7 +364,8 @@ def phase_build():
           "max_registers": max(regs, default=None),
           "spill_store_bytes": spills, "sm90_kernels": sm90,
           "paged_kernels": paged, "decode_kernels": decode,
-          "fp32_kernels": fp32, "warnings": warnings})
+          "fp32_kernels": fp32, "fp32_bwd_kernels": fp32_bwd,
+          "warnings": warnings})
     if logs:
         assert len(sm90) == len(SM90_KERNEL_NAMES), \
             f"ptxas reported {sorted(sm90)} of the sm90 kernels"
@@ -352,6 +373,10 @@ def phase_build():
         assert len(decode) == 8, f"ptxas reported {sorted(decode)}"
     if "flash_fwd_fp32" in logs:
         assert len(fp32) == 6, f"ptxas reported {sorted(fp32)}"
+    if "flash_bwd_fp32" in logs:
+        assert len(fp32_bwd) == 12, f"ptxas reported {sorted(fp32_bwd)}"
+        assert not any(k["spill_store_bytes"] or k["spill_load_bytes"]
+                       for k in fp32_bwd.values()), fp32_bwd
 
 
 def phase_kernels():
@@ -892,7 +917,7 @@ def read_counts():
 def flash_part(counts):
     """The flash kernels' counters of `counts` (as `ops.launch_counts()`
     names them): {"fwd", "dkv", "dq", "fwd_sm90", "dkv_sm90", "dq_sm90",
-    "fwd_decode", "fwd_fp32"}."""
+    "fwd_decode", "fwd_fp32", "dkv_fp32", "dq_fp32"}."""
     return {k[len("flash_"):]: v for k, v in counts.items()
             if k.startswith("flash_")}
 
@@ -964,14 +989,16 @@ def flash_errors(fa, q, k, v, do, mask, causal, window, fwd_families=(None,),
     same inputs, whose o and lse must agree bit for bit
     ("repeat_equal"); for each backward family {"dkv": ..., "dq": ...,
     "launched": family} under out["bwd"][family], given the plain
-    forward's lse and delta.  "launched" is the family the launch counters
-    saw (one for dK/dV and dQ).  The first backward family also reads
-    "control": the same comparison against the plain gradients of a dO
-    with one element (of a row that sees keys) moved by 1, which must read
-    a nonzero error, so a comparison that reads 0 is known to be able to
-    fail; and in float32 "vs_float64": the kernel's and the plain
-    version's largest error against `flash_bwd64` (max |x - ref| / max
-    |ref|), and whether the two agree bit for bit."""
+    forward's lse and delta, the fp32 family launched twice, whose dq, dk
+    and dv must agree bit for bit ("repeat_equal").  "launched" is the
+    family the launch counters saw (one for dK/dV and dQ).  The first
+    backward family also reads "control": the same comparison against
+    the plain gradients of a dO with one element (of a row that sees
+    keys) moved by 1, which must read a nonzero error, so a comparison
+    that reads 0 is known to be able to fail; and in float32
+    "vs_float64": the kernel's and the plain version's largest error
+    against `flash_bwd64` (max |x - ref| / max |ref|), and whether the
+    two agree bit for bit."""
     dtype = q.dtype
     kw = dict(is_causal=causal, window=window)
     ref_o, ref_lse = fa.flash_fwd_plain(q, k, v, mask, **kw)
@@ -1023,15 +1050,30 @@ def flash_errors(fa, q, k, v, do, mask, causal, window, fwd_families=(None,),
         torch.cuda.synchronize()
         after = flash_counts()
         grew = {n: after[n] - before[n] for n in after}
-        sm90 = (grew["dkv_sm90"], grew["dq_sm90"])
         assert grew["dkv"] == grew["dq"] == 1 and grew["fwd"] == 0, grew
-        assert sm90 in ((0, 0), (1, 1)), sm90
+        pairs = {f: (grew[f"dkv_{f}"], grew[f"dq_{f}"])
+                 for f in ("sm90", "fp32")}
+        assert all(c in ((0, 0), (1, 1)) for c in pairs.values()) and sum(
+            c == (1, 1) for c in pairs.values()) <= 1, grew
+        launched = next((f for f, c in pairs.items() if c == (1, 1)), "sm80")
         dkv_abs, dkv_rel = bwd_error(((dk, ref_dk), (dv, ref_dv)))
         dq_abs, dq_rel = bwd_error(((dq, ref_dq),))
         out["bwd"][fam] = {
             "dkv": (dkv_abs, dkv_rel, dkv_rel <= FLASH_BWD_TOL[dtype]),
             "dq": (dq_abs, dq_rel, dq_rel <= FLASH_BWD_TOL[dtype]),
-            "launched": "sm90" if sm90 == (1, 1) else "sm80"}
+            "launched": launched}
+        if launched == "fp32":       # no atomics: a second launch, same bits
+            dk2, dv2 = fa.flash_bwd_dkv_cuda(q, k, v, do, ref_lse, delta,
+                                             mask, **kw, _impl="fp32")
+            dq2 = fa.flash_bwd_dq_cuda(q, k, v, do, ref_lse, delta, mask,
+                                       **kw, _impl="fp32")
+            same = all(bool(torch.equal(a, b)) for a, b in zip(
+                (dq, dk, dv), (dq2, dk2, dv2)))
+            out["bwd"][fam]["repeat_equal"] = same
+            for name in ("dkv", "dq"):
+                e = out["bwd"][fam][name]
+                out["bwd"][fam][name] = (e[0], e[1], e[2] and same)
+            del dk2, dv2, dq2
         if moved is not None:
             control = {"dkv": bwd_error(((dk, moved[1]), (dv, moved[2])))[1],
                        "dq": bwd_error(((dq, moved[0]),))[1],
@@ -1057,10 +1099,12 @@ def phase_flash_kernels():
     """Every case through the routes, asserting which family launched
     (forward: decode for Lq <= 16, sm90 for bf16 / fp16 at D 64 or 128,
     masked or not, fp32 for float32, sm80 for the rest; backward: sm90
-    for bf16 / fp16 at D 64 or 128, masked or not, sm80 for the rest),
-    then through every other family that takes it (`_impl`), each
-    against its plain version; the route's backward beside its negative
-    control, and in float32 against float64 (`flash_errors`)."""
+    for bf16 / fp16 at D 64 or 128, masked or not, fp32 for float32,
+    sm80 for the rest), then through every other family that takes it
+    (`_impl`; sm80 beside each fp32 backward), each against its plain
+    version; the route's backward beside its negative control, and in
+    float32 against float64 (`flash_errors`); the fp32 forward and
+    backward each launched twice, equal bits."""
     from paddle_tpu_torch.ops import flash_attention as fa
     torch.backends.cuda.matmul.allow_tf32 = False    # full float32 plain
     torch.backends.cudnn.allow_tf32 = False
@@ -1073,7 +1117,7 @@ def phase_flash_kernels():
         half = dtype != torch.float32
         want_fwd = ("decode" if Lq <= fa.DECODE_MAX_LQ else
                     "sm90" if half else "fp32")
-        want_bwd = "sm90" if half else "sm80"
+        want_bwd = "sm90" if half else "fp32"
         fwd_fams = fa._families(q, k, v, m4, dtype, True)
         bwd_fams = fa._families(q, k, v, m4, dtype, False)
         assert (fwd_fams[0], bwd_fams[0]) == (want_fwd, want_bwd), \
@@ -1101,6 +1145,8 @@ def phase_flash_kernels():
                         f"{tag}_dq_max_abs_err": e["dq"][0],
                         f"{tag}_dq_max_err": e["dq"][1]})
             rec["ok"] = rec["ok"] and e["dkv"][2] and e["dq"][2]
+            if "repeat_equal" in e:
+                rec[f"{tag}_bwd_repeat_equal"] = e["repeat_equal"]
             if "control" in e:
                 rec["control_dkv_max_err"] = e["control"]["dkv"]
                 rec["control_dq_max_err"] = e["control"]["dq"]
@@ -1111,7 +1157,8 @@ def phase_flash_kernels():
     emit({"phase": "flash_kernels",
           "kernels": ["flash_fwd", "flash_dkv", "flash_dq",
                       "flash_fwd_sm90", "flash_dkv_sm90", "flash_dq_sm90",
-                      "flash_fwd_decode", "flash_fwd_fp32"],
+                      "flash_fwd_decode", "flash_fwd_fp32",
+                      "flash_dkv_fp32", "flash_dq_fp32"],
           "fwd_tol": {str(d).split(".")[1]: t
                       for d, t in FLASH_FWD_TOL.items()},
           "bwd_tol": {str(d).split(".")[1]: t
@@ -1126,9 +1173,12 @@ def phase_flash_kernels():
     runs = {f for r in results for f in r["fwd_families"]}
     assert runs == {"decode", "sm90", "fp32", "sm80"}, runs
     # every float32 case ran the fp32 forward (its route above 16 rows,
-    # forced below), twice with equal bits
+    # forced below) and the fp32 backward (its route), each twice with
+    # equal bits, and the sm80 backward forced beside it
     fp32 = [r for r in results if r["dtype"] == "float32"]
     assert fp32 and all(r["fp32_repeat_equal"] for r in fp32), fp32
+    assert all(r["bwd_route"] == "fp32" and r["fp32_bwd_repeat_equal"]
+               and "sm80_dkv_max_err" in r for r in fp32), fp32
     torch.cuda.empty_cache()
 
 
@@ -1286,10 +1336,11 @@ def phase_train_e2e(steps=3, batch=2, seq=128):
     zero_counts()
     card_losses = train(card, "cuda")
     counts = flash_counts()
-    # float32: the fp32 forward and the sm80 dK/dV and dQ, 2 layers a step
+    # float32: the fp32 forward, dK/dV and dQ, 2 layers a step
     assert counts == {"fwd": steps * 2, "dkv": steps * 2, "dq": steps * 2,
                       "fwd_sm90": 0, "dkv_sm90": 0, "dq_sm90": 0,
-                      "fwd_decode": 0, "fwd_fp32": steps * 2}, counts
+                      "fwd_decode": 0, "fwd_fp32": steps * 2,
+                      "dkv_fp32": steps * 2, "dq_fp32": steps * 2}, counts
     assert ops.sdpa.plain_calls == 0
     t0 = time.perf_counter()
     cpu_losses = train(cpu, "cpu")
@@ -1329,8 +1380,9 @@ def phase_flash_timings(paths):
     forward.  `paths` maps each main path's run to its launch counts (as
     `flash_part` names them); each kernel's `launches` is their sum.  The
     fp32 forward's record is timed at ERNIE's shape, the main path that
-    runs it; the sm80 forward runs on no main path any more (asserted),
-    and its record keeps its times."""
+    runs it; the fp32 dK/dV and dQ records at bert_fp32_train's shape
+    (ERNIE's, masked); the sm80 forward, dK/dV and dQ run on no main path
+    any more (asserted), and their records keep their times."""
     from paddle_tpu_torch.ops import flash_attention as fa
     B, L, H, D = (FLASH_SHAPE[k] for k in ("B", "L", "H", "D"))
     dtype = torch.bfloat16
@@ -1455,9 +1507,14 @@ def phase_flash_timings(paths):
         if kname == "fwd_sm90":
             record["masked_prefill"] = rec["masked_prefill"] = \
                 masked_prefill_timing(fa, flush)
-        if kname == "fwd":
-            # every forward of the main paths takes another family now
+        if kname in ("fwd", "dkv", "dq"):
+            # every forward and backward of the main paths takes another
+            # family now (the float32 backward the fp32 kernels)
             record["on_main_paths"] = False
+            assert n == 0, f"the sm80 {kname} launched {by_path}"
+        else:
+            assert n > 0, f"{kname} launched no time on the main paths"
+        if kname == "fwd":
             record["fp32_shapes"] = {
                 shape: {mk: {k: r[k] for k in ("sm80_ms", "ms", "library_ms",
                                                "bound_ms",
@@ -1465,20 +1522,17 @@ def phase_flash_timings(paths):
                         for mk, r in fp32_fwd[shape].items()
                         if mk in ("unmasked", "masked")}
                 for shape in ("ernie", "train_fp32")}
-            assert n == 0, f"the sm80 forward launched {by_path}"
-        else:
-            assert n > 0, f"{kname} launched no time on the main paths"
         if kname in ("dkv", "dq"):
             record["fp32_shapes"] = {
-                shape: {mk: {"ms": r["ms"][kname],
+                shape: {mk: {"ms": r["sm80_ms"][kname],
                              "bound_ms": r["bounds"][kname]["bound_ms"],
                              "library_ms": r["library_ms"],
                              "library_bound_ms":
                              r["bounds"]["sdpa_bwd"]["bound_ms"],
-                             "max_err": r[f"{kname}_max_err"]}
+                             "max_err": r[f"sm80_{kname}_max_err"]}
                         for mk, r in fp32_bwd[shape].items()
                         if mk in ("unmasked", "masked")}
-                for shape in ("bert_e2e", "ernie")}
+                for shape in ("bert_e2e", "ernie", "train_fp32")}
         entries.append(record)
     decode = decode_shape_timing(fa, flush)
     rec["mistral_decode"] = decode
@@ -1518,6 +1572,47 @@ def phase_flash_timings(paths):
         for mk in ("unmasked", "masked"):
             r = fp32_fwd[shape].get(mk)
             assert r is None or r["ms"] < r["sm80_ms"], (shape, mk, r)
+    # the fp32 dK/dV and dQ: at bert_fp32_train's shape and mask (ERNIE's
+    # shape, B 32, L 128, H 12, D 64, the key-padding mask)
+    for kname, line in (("dkv", 262), ("dq", 312)):
+        r = fp32_bwd["ernie"]["masked"]
+        b = r["bounds"][kname]
+        by_path = {p: c[f"{kname}_fp32"] for p, c in paths.items()}
+        record = kernel_record(
+            f"flash_attention_{kname}_fp32",
+            "paddle_tpu_torch/csrc/flash_bwd_fp32.cu",
+            f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
+            sum(by_path.values()), r[f"{kname}_max_abs_err"],
+            r[f"{kname}_max_err"],
+            {"max_err_over_max_abs": FLASH_BWD_TOL[torch.float32],
+             "dtype": "float32"},
+            r["ms"][kname], r["plain_ms"], b["bytes_ms"], b["ops_ms"],
+            r["library_ms"], fp32_bwd["library"])
+        record.update(
+            launches_by_path=by_path, shape="ernie, masked",
+            plain_note="the plain backward computes dq, dk and dv together",
+            fp32_shapes={
+                shape: {mk: {"ms": x["ms"][kname],
+                             "sm80_ms": x["sm80_ms"][kname],
+                             "dkv_plus_dq_ms": x["dkv_plus_dq_ms"],
+                             "sm80_dkv_plus_dq_ms": x["sm80_dkv_plus_dq_ms"],
+                             "library_ms": x["library_ms"],
+                             "plain_ms": x["plain_ms"],
+                             "bound_ms": x["bounds"][kname]["bound_ms"],
+                             "share_of_bound":
+                             x["bounds"][kname]["bound_ms"]
+                             / x["ms"][kname],
+                             "max_err": x[f"{kname}_max_err"]}
+                        for mk, x in fp32_bwd[shape].items()
+                        if mk in ("unmasked", "masked")}
+                for shape in ("bert_e2e", "ernie", "train_fp32")})
+        entries.append(record)
+        assert record["launches"] > 0, f"the fp32 {kname} launched no time"
+    for shape in ("bert_e2e", "ernie"):
+        for mk in ("unmasked", "masked"):
+            r = fp32_bwd[shape][mk]
+            assert r["dkv_plus_dq_ms"] < r["sm80_dkv_plus_dq_ms"], \
+                (shape, mk, r["dkv_plus_dq_ms"], r["sm80_dkv_plus_dq_ms"])
     rec["bert_shape"] = bert
     rec["fp32_fwd"] = fp32_fwd
     rec["fp32_bwd"] = fp32_bwd
@@ -1596,6 +1691,9 @@ def busy(step, n, p50_ms):
             "device_busy_share_of_profiled_wall": busy_us / wall_us,
             "flash_ms_per_step": sum(us for name, us in by_name.items()
                                      if "flash_" in name) / n / 1e3,
+            "flash_bwd_ms_per_step": sum(
+                us for name, us in by_name.items()
+                if "flash_dkv" in name or "flash_dq" in name) / n / 1e3,
             "top_device_ms_per_step": [[name[:80], us / n / 1e3]
                                        for name, us in top],
             "top_host_self_ms_per_step": [[e.key[:60],
@@ -2046,7 +2144,7 @@ def param_error(card, cpu, init, skip=None, only=None):
 def phase_train_llama_e2e(steps=3, batch=2, seq=128):
     """The LLaMA training step on the card against the same on the CPU: 2
     layers, hidden 512, GQA 4 / 2, recompute, float32, AdamW, the same
-    weights and batch.  The card runs the flash kernels (float32: sm80),
+    weights and batch.  The card runs the flash kernels (float32: fp32),
     the CPU the plain versions."""
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.jit import train_step
@@ -2082,7 +2180,8 @@ def phase_train_llama_e2e(steps=3, batch=2, seq=128):
     assert counts == {"fwd": 2 * L * steps, "dkv": L * steps,
                       "dq": L * steps, "fwd_sm90": 0, "dkv_sm90": 0,
                       "dq_sm90": 0, "fwd_decode": 0,
-                      "fwd_fp32": 2 * L * steps}, counts
+                      "fwd_fp32": 2 * L * steps, "dkv_fp32": L * steps,
+                      "dq_fp32": L * steps}, counts
     assert ops.sdpa.plain_calls == 0
     t0 = time.perf_counter()
     cpu_losses = train(cpu, "cpu")
@@ -2710,9 +2809,144 @@ def phase_bert(steps=20, warmup=3, batch=32, seq=128, padded_steps=8,
     return paths
 
 
+def phase_bert_fp32_train(steps=10, warmup=3, batch=32, seq=128,
+                          turn_steps=5):
+    """BERT-base fine-tuned in float32, as examples/finetune_bert_cls.py
+    runs it at full size: BertConfig() (hidden 768, 12 layers, 12 heads,
+    dropout 0.1), 2 classes, AdamW(2e-5), no AMP, TF32 off, TrainStep,
+    batch 32, seq 128 on padded rows (64 to 128 tokens under the
+    key-padding mask).  3 warm-up and 10 timed steps: sequences/s, step
+    p50/p99, MFU against the float32 peak, peak memory, losses, a profile
+    (busy share, flash device time a step); each flash kernel 12 times a
+    step, all on the fp32 family, none on sm80 or sm90, no plain sdpa.
+    Then the same step from the same parameters, optimizer state
+    (`set_state_dict`) and dropout seed, with the backward on fp32 and on
+    sm80 in turns (fp32, sm80, sm80, fp32; sm80 through a route without
+    "fp32" for the backward, swapped in here and restored in a
+    `finally`): step p50 and the flash backward's device time a step on
+    each, and the losses of the two families within 1e-5.  Returns the
+    timed run's flash launch counts."""
+    from paddle_tpu_torch.jit import train_step
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text import (BertConfig,
+                                       BertForSequenceClassification)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = BertConfig()
+    model = BertForSequenceClassification(
+        cfg, num_classes=2, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    opt = AdamW(learning_rate=2e-5, parameters=model.parameters())
+    step = train_step(model, masked_loss, opt)
+    ids, seg, labels, mask = bert_batch(cfg, batch, seq, 2)
+    L = cfg.num_hidden_layers
+
+    def run(n):
+        losses, times = [], []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            losses.append(step(ids, seg, mask, labels).item())
+            times.append(time.perf_counter() - t0)
+        return losses, times
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, times = run(warmup + steps)
+    counts = read_counts()
+    fl = flash_part(counts)
+    timed = np.array(times[warmup:])
+    p50 = float(np.percentile(timed, 50))
+    flops = encoder_train_flops(model, cfg, batch, seq)
+    n = L * (warmup + steps)
+    rec = {"phase": "bert_fp32_train", "model": "bert-base (BertConfig())",
+           "layers": L, "batch": batch, "seq": seq, "dtype": "float32",
+           "amp": None, "tf32": False, "optimizer": "AdamW(2e-5)",
+           "rows": mask.sum(1).tolist(),
+           "n_params": sum(p.numel() for p in model.parameters()),
+           "warmup_steps": warmup, "timed_steps": steps,
+           "sequences_per_s": steps * batch / float(timed.sum()),
+           "step_p50_ms": p50 * 1e3,
+           "step_p99_ms": float(np.percentile(timed, 99)) * 1e3,
+           "step_ms": [t * 1e3 for t in times], "flops_per_step": flops,
+           "mfu": flops / float(timed.mean()) / FP32_FLOPS,
+           "mfu_peak_flops": FP32_FLOPS,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "losses": losses, "launches": counts}
+    assert all(np.isfinite(losses)), losses
+    assert abs(losses[0] - np.log(2)) < 0.5, losses[0]
+    assert (fl["fwd"], fl["dkv"], fl["dq"]) == (n, n, n), fl
+    assert (fl["fwd_fp32"], fl["dkv_fp32"], fl["dq_fp32"]) == (n, n, n), fl
+    assert (fl["fwd_sm90"], fl["dkv_sm90"], fl["dq_sm90"]) == (0, 0, 0), fl
+    assert counts["sdpa_plain"] == 0, counts
+    rec["profile"] = busy(lambda: step(ids, seg, mask, labels), 3, p50 * 1e3)
+
+    # the backward on fp32 and on sm80 in turns, from one starting point
+    params = {k: p.detach().clone() for k, p in model.named_parameters()}
+    state = {k: v.clone() if isinstance(v, torch.Tensor) else v
+             for k, v in opt.state_dict().items()}
+    families = fa._families
+
+    def without_fp32_bwd(q, k, v, m4, dtype, fwd):
+        fams = families(q, k, v, m4, dtype, fwd)
+        return fams if fwd else tuple(f for f in fams if f != "fp32")
+
+    turns = []
+    try:
+        for fam in ("fp32", "sm80", "sm80", "fp32"):
+            fa._families = families if fam == "fp32" else without_fp32_bwd
+            with torch.no_grad():
+                for k, p in model.named_parameters():
+                    p.copy_(params[k])
+            opt.set_state_dict(state)
+            torch.cuda.manual_seed(1234)
+            zero_counts()
+            ls, ts = run(turn_steps)
+            c = flash_part(read_counts())
+            m = L * turn_steps
+            assert (c["dkv"], c["dq"], c["fwd_fp32"]) == (m, m, m), c
+            assert (c["dkv_fp32"], c["dq_fp32"]) == (
+                (m, m) if fam == "fp32" else (0, 0)), (fam, c)
+            t_p50 = float(np.percentile(ts[1:], 50)) * 1e3
+            prof = busy(lambda: step(ids, seg, mask, labels), 2, t_p50)
+            turns.append({"family": fam, "losses": ls,
+                          "step_ms": [t * 1e3 for t in ts],
+                          "step_p50_ms": t_p50,
+                          "device_busy_ms": prof["device_busy_ms_per_step"],
+                          "flash_bwd_device_ms": prof["flash_bwd_ms_per_step"],
+                          "flash_device_ms": prof["flash_ms_per_step"],
+                          "launches": c})
+    finally:
+        fa._families = families
+    mean = {f: {k: float(np.mean([t[k] for t in turns if t["family"] == f]))
+                for k in ("step_p50_ms", "device_busy_ms",
+                          "flash_bwd_device_ms")}
+            for f in ("fp32", "sm80")}
+    ref = turns[0]["losses"]
+    loss_err = max(abs(a - b) / abs(b) for t in turns[1:]
+                   for a, b in zip(t["losses"], ref))
+    rec["bwd_turns"] = {
+        "turns": turns, "mean": mean, "steps_a_turn": turn_steps,
+        "step_p50_gain_ms": mean["sm80"]["step_p50_ms"]
+        - mean["fp32"]["step_p50_ms"],
+        "busy_gain_ms": mean["sm80"]["device_busy_ms"]
+        - mean["fp32"]["device_busy_ms"],
+        "flash_bwd_gain_ms": mean["sm80"]["flash_bwd_device_ms"]
+        - mean["fp32"]["flash_bwd_device_ms"],
+        "loss_max_rel_err": loss_err, "loss_tol": 1e-5}
+    emit(rec)
+    assert loss_err <= 1e-5, f"fp32 and sm80 turns' losses differ by " \
+        f"{loss_err}"
+    del step, opt, model, params, state
+    release()
+    return fl
+
+
 def phase_bert_e2e(steps=3, batch=8, seq=128, layers=2):
     """BERT at full width and 2 layers, float32, AdamW, padded rows: the
-    training step on the card (flash kernels; float32 takes sm80) against
+    training step on the card (flash kernels; float32 takes fp32) against
     the same on the CPU (plain versions), same weights and batch: losses
     within 1e-5, parameters within 1e-3 of how far they moved.  The key
     projection's bias is reported apart and left out of that distance:
@@ -2755,7 +2989,8 @@ def phase_bert_e2e(steps=3, batch=8, seq=128, layers=2):
     assert flash_part(counts) == {"fwd": n, "dkv": n, "dq": n,
                                   "fwd_sm90": 0, "dkv_sm90": 0,
                                   "dq_sm90": 0, "fwd_decode": 0,
-                                  "fwd_fp32": n}, counts
+                                  "fwd_fp32": n, "dkv_fp32": n,
+                                  "dq_fp32": n}, counts
     assert counts["sdpa_plain"] == 0, counts
     t0 = time.perf_counter()
     cpu_losses = train(cpu, "cpu")
@@ -2935,7 +3170,8 @@ def phase_ernie_e2e(batch=8, seq=128, layers=2):
     assert flash_part(counts) == {"fwd": 2 * layers, "dkv": 0, "dq": 0,
                                   "fwd_sm90": 0, "dkv_sm90": 0,
                                   "dq_sm90": 0, "fwd_decode": 0,
-                                  "fwd_fp32": 2 * layers}, counts
+                                  "fwd_fp32": 2 * layers, "dkv_fp32": 0,
+                                  "dq_fp32": 0}, counts
     assert counts["sdpa_plain"] == 0, counts
     assert max(err, err3) <= 1e-4, (err, err3)
     del card, cpu, predictor
@@ -3137,64 +3373,78 @@ def fp32_fwd_timing(fa, flush):
 
 
 def fp32_bwd_timing(fa, flush):
-    """The float32 backward (sm80 dK/dV and dQ; the float32 route), TF32
-    off, at `bert_e2e`'s shape (B 8, L 128, H 12, D 64, non-causal) and
-    at ERNIE's (B 32), unmasked and under the [B, 1, 1, 128] additive
-    padding mask: each against its plain version (`flash_errors`), then
+    """The float32 backward, TF32 off: the fp32 dK/dV and dQ (the float32
+    route) and the sm80 ones forced, at `bert_e2e`'s shape (B 8, L 128,
+    H 12, D 64, non-causal) and at ERNIE's (B 32), unmasked and under the
+    [B, 1, 1, 128] additive padding mask, and at the `train_fp32` case's
+    shape (B 4, L 1024, H 16, D 128, causal, no mask): each against its
+    plain version (`flash_errors`: the fp32 pair twice, equal bits), then
     in turns with float32 SDPA's backward through autograd (dq, dk and dv
-    in one call) under the same mask (sm80, SDPA, SDPA, sm80), each beside
-    its bound: float32 operations at 67 TFLOP/s (dK/dV 4 products, dQ 3)
-    or bytes, the larger.  Medians of 25 launches after 10 of warm-up: an
-    autograd backward's host side outlasts the launch cover now and then
-    (0.2-0.4 ms spikes against ~0.075 ms on an H100)."""
+    in one call; is_causal at the causal shape) under the same mask
+    (fp32, sm80, SDPA, SDPA, sm80, fp32), each beside its bound: float32
+    operations at 67 TFLOP/s (dK/dV 4 products, dQ 3, SDPA's backward 5)
+    or bytes, the larger, over the (query, key) pairs the mask leaves.
+    Medians of 25 launches after 10 of warm-up: an autograd backward's
+    host side outlasts the launch cover now and then (0.2-0.4 ms spikes
+    against ~0.075 ms on an H100)."""
     dtype = torch.float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {"library": "torch SDPA's backward through autograd (dq, dk, dv "
                       "together) on [B, H, L, D], float32, TF32 off, the "
-                      "same additive mask"}
-    L, H, D = 128, 12, 64
-    for name, B, seed in (("bert_e2e", 8, 18), ("ernie", 32, 20)):
+                      "same additive mask (is_causal at the causal shape)"}
+    for name, (B, L, H, D, causal), seed in (
+            ("bert_e2e", (8, 128, 12, 64, False), 18),
+            ("ernie", (32, 128, 12, 64, False), 20),
+            ("train_fp32", (4, 1024, 16, 128, True), 22)):
         q, k, v, do, _ = flash_inputs(B, L, L, H, H, D, None, dtype, seed)
         g = torch.Generator(device="cuda").manual_seed(seed + 1)
-        mask = bert_padding_mask(B, L, dtype, g)
+        mask = None if causal else bert_padding_mask(B, L, dtype, g)
         qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_()
                       for x in (q, k, v))
         doh = do.transpose(1, 2).contiguous()
         rec = {"shape": {"B": B, "L": L, "H": H, "D": D, "dtype": "float32",
-                         "causal": False, "tf32": False}}
-        for masked in (False, True):
+                         "causal": causal, "tf32": False}}
+        for masked in (False, True) if mask is not None else (False,):
             m = mask if masked else None
-            err = flash_errors(fa, q, k, v, do, m, False, 0, (None,),
-                               (None,))
-            e = err["bwd"][None]
-            assert e["launched"] == "sm80" and e["dkv"][2] and e["dq"][2], e
-            o, lse = fa.flash_fwd_cuda(q, k, v, m)
+            kw = dict(is_causal=causal)
+            err = flash_errors(fa, q, k, v, do, m, causal, 0, (None,),
+                               (None, "sm80"))
+            e, e80 = err["bwd"][None], err["bwd"]["sm80"]
+            assert e["launched"] == "fp32" and e["dkv"][2] and e["dq"][2] \
+                and e["repeat_equal"], (name, masked, e)
+            assert e80["launched"] == "sm80" and e80["dkv"][2] \
+                and e80["dq"][2], (name, masked, e80)
+            o, lse = fa.flash_fwd_cuda(q, k, v, m, **kw)
             delta = fa._delta(do, o)
-            lib_out = sdpa(qh, kh, vh, attn_mask=m)
-            fns = {"dkv": lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse,
-                                                        delta, m),
-                   "dq": lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse,
-                                                      delta, m),
-                   "sdpa_bwd": lambda: torch.autograd.grad(
-                       lib_out, (qh, kh, vh), doh, retain_graph=True)}
+            lib_out = sdpa(qh, kh, vh, attn_mask=m, is_causal=causal)
+            fns = {"sdpa_bwd": lambda: torch.autograd.grad(
+                lib_out, (qh, kh, vh), doh, retain_graph=True)}
+            for impl in ("fp32", "sm80"):
+                fns[f"dkv_{impl}"] = lambda impl=impl: fa.flash_bwd_dkv_cuda(
+                    q, k, v, do, lse, delta, m, **kw, _impl=impl)
+                fns[f"dq_{impl}"] = lambda impl=impl: fa.flash_bwd_dq_cuda(
+                    q, k, v, do, lse, delta, m, **kw, _impl=impl)
             for fn in fns.values():
                 for _ in range(10):
                     fn()
             turns = []
-            for impl in ("sm80", "sdpa", "sdpa", "sm80"):
-                for kname in (("dkv", "dq") if impl == "sm80"
-                              else ("sdpa_bwd",)):
+            for impl in ("fp32", "sm80", "sdpa", "sdpa", "sm80", "fp32"):
+                for kname in (("sdpa_bwd",) if impl == "sdpa" else
+                              (f"dkv_{impl}", f"dq_{impl}")):
                     turns.append((kname, cuda_ms(fns[kname], flush,
                                                  iters=25, median=True)))
-            ms = {n: sum(t for j, t in turns if j == n) / 2
-                  for n in ("dkv", "dq", "sdpa_bwd")}
+            ms = {n: sum(t for j, t in turns if j == n) / 2 for n in fns}
+            plain_ms = cuda_ms(lambda: fa.flash_bwd_plain(
+                q, k, v, do, lse, delta, m, **kw), flush, iters=5)
             keys = int((mask[:, 0, 0] == 0).sum()) if masked else B * L
+            pairs = (B * H * L * (L + 1) // 2 if causal
+                     else H * L * keys)       # visible (query, key) pairs
             tensor = B * L * H * D * 4
             rows = B * H * L * 4
             mbytes = B * L * 4 if masked else 0
-            product = 2 * H * L * keys * D
+            product = 2 * pairs * D
             bounds = {}
             for kname, nbytes, flops in (
                     ("dkv", 6 * tensor + 2 * rows + mbytes, 4 * product),
@@ -3204,21 +3454,35 @@ def fp32_bwd_timing(fa, flush):
                 b_ms = nbytes / HBM_BYTES_PER_S * 1e3
                 o_ms = flops / FP32_FLOPS * 1e3
                 bounds[kname] = {"bytes": nbytes, "flops": flops,
+                                 "bytes_ms": b_ms, "ops_ms": o_ms,
                                  "bound_ms": max(b_ms, o_ms),
                                  "bound_by": "bytes" if b_ms >= o_ms
                                  else "operations"}
+            pair_bound = bounds["dkv"]["bound_ms"] + bounds["dq"]["bound_ms"]
+            fp32_ms = ms["dkv_fp32"] + ms["dq_fp32"]
+            sm80_ms = ms["dkv_sm80"] + ms["dq_sm80"]
             rec["masked" if masked else "unmasked"] = {
-                "turns_ms": turns, "ms": ms, "bounds": bounds,
-                "dkv_plus_dq_ms": ms["dkv"] + ms["dq"],
-                "library_ms": ms["sdpa_bwd"],
-                "dkv_plus_dq_over_library": (ms["dkv"] + ms["dq"])
-                / ms["sdpa_bwd"],
+                "turns_ms": turns,
+                "ms": {"dkv": ms["dkv_fp32"], "dq": ms["dq_fp32"]},
+                "sm80_ms": {"dkv": ms["dkv_sm80"], "dq": ms["dq_sm80"]},
+                "library_ms": ms["sdpa_bwd"], "plain_ms": plain_ms,
+                "bounds": bounds, "dkv_plus_dq_ms": fp32_ms,
+                "sm80_dkv_plus_dq_ms": sm80_ms,
+                "dkv_plus_dq_bound_ms": pair_bound,
+                "sm80_over_fp32": sm80_ms / fp32_ms,
+                "fp32_over_library": fp32_ms / ms["sdpa_bwd"],
+                "sm80_over_library": sm80_ms / ms["sdpa_bwd"],
+                "share_of_bound": pair_bound / fp32_ms,
+                "sm80_share_of_bound": pair_bound / sm80_ms,
                 "dkv_max_err": e["dkv"][1], "dq_max_err": e["dq"][1],
-                "visible_keys": keys}
-            del lib_out, o, lse, delta
+                "dkv_max_abs_err": e["dkv"][0], "dq_max_abs_err": e["dq"][0],
+                "sm80_dkv_max_err": e80["dkv"][1],
+                "sm80_dq_max_err": e80["dq"][1],
+                "repeat_equal": e["repeat_equal"], "visible_pairs": pairs}
+            del lib_out, o, lse, delta, fns
         out[name] = rec
         del q, k, v, do, qh, kh, vh, doh
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3373,6 +3637,7 @@ def main():
     phase_resnet_e2e()
     paths.update(phase_bert())
     paths["bert_e2e"] = phase_bert_e2e()
+    paths["bert_fp32_train"] = phase_bert_fp32_train()
     paths.update(phase_ernie_infer())
     paths["ernie_e2e"] = phase_ernie_e2e()
     paged = phase_timings(launches + serve_llama["paged_decode"], lens)

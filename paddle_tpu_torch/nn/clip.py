@@ -11,7 +11,10 @@ import torch
 
 
 class ClipGradByGlobalNorm:
-    def __init__(self, clip_norm):
+    """Clip by the norm over every gradient; `group_name` is taken and
+    changes nothing, as in the JAX package (one group)."""
+
+    def __init__(self, clip_norm, group_name="default_group"):
         self.clip_norm = float(clip_norm)
 
     @torch.no_grad()

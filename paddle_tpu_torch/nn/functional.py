@@ -3,18 +3,18 @@
 Counterpart: `paddle_tpu/nn/functional.py` — `dropout` (`:117-129`),
 `scaled_dot_product_attention` (`:400-428`) and `cross_entropy`
 (`:432-454`, over `softmax_ce_k` in `paddle_tpu/ops/nn_kernels.py:415-430`).
-Ported here: what the GPT training step runs — upscale-in-train dropout,
-attention with dropout on its output, and hard-label cross entropy with
-`ignore_index` — and what the LLaMA family adds: `silu` (`:19`) and
-`rms_norm` (`rms_norm_k`, `paddle_tpu/ops/nn_kernels.py:266-272`); and
-what ResNet runs: `conv2d` (`:146-154`), `batch_norm` (`:354-382`),
+Ported here: what the GPT training step runs — dropout (both modes, and
+a mask over chosen axes), attention with dropout on its output, and
+cross entropy (hard or soft labels, class weights, label smoothing, any
+class axis, `ignore_index`) — and what the LLaMA family adds: `silu`
+(`:19`) and `rms_norm` (`rms_norm_k`,
+`paddle_tpu/ops/nn_kernels.py:266-272`); and what ResNet runs: `conv2d` (`:146-154`), `batch_norm` (`:354-382`),
 `max_pool2d`, `avg_pool2d` and `adaptive_avg_pool2d` (`:183-213`), each
 in NCHW or NHWC; and what the BERT / ERNIE encoders add: `relu`
 (`:14`), `tanh` (`:18`) and `gelu` (`:30`), the names that
 `nn.TransformerEncoderLayer` looks its `activation` up by.  NHWC tensors
 [b, H, W, c] run as NCHW-shaped views with channels-last strides
-(`torch.channels_last`), so no layout copy is made around the op.  Weighted, soft-label and smoothed cross entropy are
-not ported yet.
+(`torch.channels_last`), so no layout copy is made around the op.
 
 Randomness goes through an explicit `torch.Generator` (None: PyTorch's
 default generator of the tensor's device).  The JAX package draws from
@@ -28,16 +28,34 @@ import torch.nn.functional as F
 from .. import ops
 
 
-def dropout(x, p=0.5, training=True, generator=None):
-    """Upscale-in-train dropout: each element is kept with probability
-    1 - p and scaled by 1 / (1 - p); identity when not training or p == 0.
-    The keep mask is drawn from `generator` on x's device."""
-    if not training or p == 0.0:
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            *, generator=None):
+    """Dropout with the JAX package's parameters (`:117-129`): each element
+    is kept with probability 1 - p.  "upscale_in_train" scales what it
+    keeps by 1 / (1 - p) in training and is the identity otherwise;
+    "downscale_in_infer" keeps elements unscaled in training and
+    multiplies by 1 - p otherwise.  `axis` (an int or a list of ints)
+    draws the keep mask over those axes only and broadcasts it along the
+    others (Paddle's meaning: axis=[0, 1] of [N, C, H, W] keeps or drops
+    whole channels); the JAX package takes the argument and draws every
+    element.  The mask is drawn from `generator` on x's device."""
+    if mode not in ("upscale_in_train", "downscale_in_infer"):
+        raise ValueError(f"mode must be 'upscale_in_train' or "
+                         f"'downscale_in_infer', not {mode!r}")
+    if not training:
+        return x * (1.0 - p) if mode == "downscale_in_infer" else x
+    if p == 0.0:
         return x
     if p >= 1.0:
         return torch.zeros_like(x)
-    u = torch.rand(x.shape, generator=generator, device=x.device)
-    return torch.where(u >= p, x / (1.0 - p), torch.zeros_like(x))
+    shape = x.shape
+    if axis is not None:
+        axes = {a % x.dim() for a in
+                ([axis] if isinstance(axis, int) else axis)}
+        shape = [n if i in axes else 1 for i, n in enumerate(x.shape)]
+    u = torch.rand(shape, generator=generator, device=x.device)
+    kept = x / (1.0 - p) if mode == "upscale_in_train" else x
+    return torch.where(u >= p, kept, torch.zeros_like(x))
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
@@ -86,23 +104,51 @@ def rms_norm(x, weight=None, epsilon=1e-6):
     return ops.rms_norm(x, weight, epsilon)
 
 
-def cross_entropy(input, label, ignore_index=-100, reduction="mean"):
-    """Hard-label softmax cross entropy over the last axis, logits in
-    float32.  Labels equal to `ignore_index` give 0; "mean" divides the sum
-    by the number of valid labels (at least 1e-12), as the JAX package
-    does, so an all-ignored batch gives 0 and not NaN."""
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  label_smoothing=0.0):
+    """Softmax cross entropy over the class axis `axis`, logits in
+    float32, as `softmax_ce_k` and `cross_entropy` of the JAX package
+    compute it: loss = -sum(target * log_softmax(input)), the target a
+    label's one-hot row or, with `soft_label`, `label` itself; with
+    `label_smoothing` e the target becomes target * (1 - e) + e / classes.
+    Hard labels (input's shape without `axis`) equal to `ignore_index`
+    give 0, and `weight` [classes] scales each by its label's weight;
+    "mean" divides the sum by the valid labels' count (or their weights'
+    sum) at least 1e-12, so an all-ignored batch gives 0 and not NaN.
+    Soft labels' "mean" is the plain mean; "sum" sums."""
+    if reduction not in ("mean", "sum", "none"):
+        raise ValueError(f"reduction must be 'mean', 'sum' or 'none', not "
+                         f"{reduction!r}")
     logits = input.float()
-    n = logits.shape[-1]
-    loss = F.cross_entropy(logits.reshape(-1, n), label.reshape(-1).long(),
-                           ignore_index=ignore_index, reduction="none")
-    loss = loss.reshape(label.shape)
+    ax = axis % logits.dim()
+    n = logits.shape[ax]
+    eps = float(label_smoothing)
+    logp = torch.log_softmax(logits, dim=ax)
+    if soft_label:
+        tgt = label.float()
+        if eps > 0.0:
+            tgt = tgt * (1.0 - eps) + eps / n
+        loss = -(tgt * logp).sum(dim=ax)
+        return (loss if reduction == "none" else
+                loss.sum() if reduction == "sum" else loss.mean())
+    lab = label.long()
+    valid = lab != ignore_index
+    idx = torch.where(valid, lab, torch.zeros_like(lab))
+    loss = -logp.gather(ax, idx.unsqueeze(ax)).squeeze(ax)
+    if eps > 0.0:
+        loss = (1.0 - eps) * loss - eps / n * logp.sum(dim=ax)
+    loss = torch.where(valid, loss, torch.zeros_like(loss))
+    count = valid.to(loss.dtype)
+    if weight is not None:
+        w = weight.float()[idx]
+        loss = loss * w
+        count = count * w
     if reduction == "none":
         return loss
-    if reduction != "mean":
-        raise ValueError(f"reduction must be 'mean' or 'none', not "
-                         f"{reduction!r}")
-    valid = (label != ignore_index).to(loss.dtype)
-    return loss.sum() / valid.sum().clamp(min=1e-12)
+    if reduction == "sum":
+        return loss.sum()
+    return loss.sum() / count.sum().clamp(min=1e-12)
 
 
 # ------------------------------------------------------------ vision ops

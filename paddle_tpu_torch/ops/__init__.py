@@ -79,7 +79,7 @@ def _counters():
     f = _flash.flash_attention
     out = {f"flash_{k}": (f, f"launches_{k}") for k in (
         "fwd", "dkv", "dq", "fwd_sm90", "dkv_sm90", "dq_sm90",
-        "fwd_decode", "fwd_fp32")}
+        "fwd_decode", "fwd_fp32", "dkv_fp32", "dq_fp32")}
     out["paged_decode"] = (paged_decode_attention, "launches")
     out["sdpa_plain"] = (sdpa, "plain_calls")
     return out

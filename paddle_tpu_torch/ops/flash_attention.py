@@ -22,27 +22,29 @@ they are laid out):
   forward and dQ q-stationary, dK/dV kv-stationary); bfloat16 / float16,
   D 64 or 128, 16-byte aligned operands; masks in all three (the
   backward kernels instantiated for no mask, a key vector and full rows).
-- "fp32", `csrc/flash_fwd_fp32.cu`: the forward alone, in float32 on
-  the CUDA cores (exact float32 FMAs, no TF32): register micro-tiles fed
-  by float4 shared-memory loads, a cp.async ring of K/V tiles, per-element
-  tests on edge tiles only; masks, causal, window, GQA, D a multiple of 8
-  up to 128.
+- "fp32", `csrc/flash_fwd_fp32.cu` (forward) and `csrc/flash_bwd_fp32.cu`
+  (dK/dV and dQ): float32 on the CUDA cores (exact float32 FMAs, no
+  TF32): register micro-tiles fed by float4 shared-memory loads, a
+  cp.async ring of the streamed tiles, per-element tests on edge tiles
+  only; masks, causal, window, GQA, D a multiple of 8 up to 128.
 - "sm80", `csrc/flash_attention.cu`: forward, dK/dV and dQ on mma.sync
   tiles of 64 rows; every dtype, masks, D a multiple of 8 up to 128: the
-  rest, the float32 backward among it.
+  rest (bf16 / fp16 at a D other than 64 or 128, or operands the tensor
+  maps do not read).
 The families are picked from the arguments before any launch, by one rule
 for the forward and the backward: `_fwd_route(q, k, v, m4, dtype)` gives
 "decode" for short queries, "sm90" where those kernels take the
 operands, "fp32" for the rest in float32, "sm80" for the rest;
 `_sm90_route(q, k, v, m4, dtype)` gives the backward's family, one for
 dK/dV and dQ: "sm90" where those kernels take the operands, masked or
-not, "sm80" otherwise (lse does not depend on the family that made it).
+not, "fp32" for float32, "sm80" otherwise (lse does not depend on the
+family that made it).
 There is no fallback on failure: a failed build or launch raises.  The
 keyword `_impl` of `flash_fwd_cuda`, `flash_bwd_dkv_cuda` and
 `flash_bwd_dq_cuda` forces a family, for A/B timing and the card tests
 only; forcing one on arguments it does not take raises ValueError
 before any launch ("sm80" takes everything, "fp32" every float32
-forward).
+call).
 
 Layout is (B, L, H, D), GQA reads kv head h // (H // Hkv) without a
 repeat, causal masking is bottom-right aligned over the real lengths
@@ -54,8 +56,8 @@ The training path (bf16, D 128, causal, no mask, the q/k/v views of a
 fused qkv projection) takes the sm90 forward, dK/dV and dQ; generation's
 decode steps take the decode forward and its masked prefills the sm90
 forward; a padded BERT step the sm90 forward, dK/dV and dQ, all under
-the mask; float32 (ERNIE's inference, the card-vs-CPU checks) the fp32
-forward and the sm80 dK/dV and dQ.
+the mask; float32 (ERNIE's inference, a float32 fine-tune, the
+card-vs-CPU checks) the fp32 forward, dK/dV and dQ.
 
 Tensors on the CPU take the plain versions; tensors on a CUDA device
 launch the kernels or raise — there is no fallback.  The kernels take D a
@@ -65,8 +67,9 @@ multiple of 8 from 8 to 128 (the TPU kernel pads any D to 128 lanes);
 every launch of each kernel, of any family; `.launches_fwd_sm90`,
 `.launches_dkv_sm90` and `.launches_dq_sm90` count those of the sm90
 kernels, `.launches_fwd_decode` those of the decode forward (one per
-call, its merge launch included) and `.launches_fwd_fp32` those of the
-float32 forward.  The forward counts inside the operator's CUDA
+call, its merge launch included) and `.launches_fwd_fp32`,
+`.launches_dkv_fp32` and `.launches_dq_fp32` those of the float32
+kernels.  The forward counts inside the operator's CUDA
 implementation, so a program exported with the operator and loaded
 elsewhere counts its launches too.
 """
@@ -126,6 +129,8 @@ _ENTRIES = {
         "flash_attention_sm90_bwd_dq")},
     "flash_decode": {"flash_decode_fwd": _DECODE_ARGS},
     "flash_fwd_fp32": {"flash_fwd_fp32_fwd": _ARGS},
+    "flash_bwd_fp32": {n: _ARGS for n in (
+        "flash_bwd_fp32_dkv", "flash_bwd_fp32_dq")},
 }
 _libs = {}
 
@@ -361,14 +366,14 @@ def _sm90_takes(q, k, v, dtype):
 def _families(q, k, v, m4, dtype, fwd):
     """The families that take these arguments, the route's first: for the
     forward "decode" (Lq <= DECODE_MAX_LQ), "sm90", "fp32" (float32),
-    "sm80"; for the backward "sm90", "sm80".  The mask does not decide the
-    family."""
+    "sm80"; for the backward "sm90", "fp32" (float32), "sm80".  The mask
+    does not decide the family."""
     out = []
     if fwd and q.shape[1] <= DECODE_MAX_LQ:
         out.append("decode")
     if _sm90_takes(q, k, v, dtype):
         out.append("sm90")
-    if fwd and dtype == torch.float32:
+    if dtype == torch.float32:
         out.append("fp32")
     return tuple(out) + ("sm80",)
 
@@ -383,15 +388,14 @@ def _fwd_route(q, k, v, m4, dtype):
 def _sm90_route(q, k, v, m4, dtype):
     """The backward's family (dK/dV and dQ together) for these arguments,
     decided before any launch: "sm90" where those kernels take the
-    operands (masked or not), "sm80" otherwise."""
+    operands (masked or not), "fp32" for float32, "sm80" otherwise."""
     return _families(q, k, v, m4, dtype, False)[0]
 
 
 def _family(q, k, v, m4, impl, fwd=False):
     """The route of the forward (`fwd`) or the backward, or the family
     `impl` forces; a family that does not take the arguments raises
-    ValueError ("sm80" takes everything, "fp32" every float32
-    forward)."""
+    ValueError ("sm80" takes everything, "fp32" every float32 call)."""
     fams = _families(q, k, v, m4, q.dtype, fwd)
     if impl is None:
         return fams[0]
@@ -569,6 +573,9 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, mask=None, is_causal=False,
         _launch("flash_attention_sm90", "flash_attention_sm90_bwd_dkv", p,
                 held[0])
         flash_attention.launches_dkv_sm90 += 1
+    elif impl == "fp32":
+        _launch("flash_bwd_fp32", "flash_bwd_fp32_dkv", p, held[0])
+        flash_attention.launches_dkv_fp32 += 1
     else:
         _launch("flash_attention", "flash_attention_bwd_dkv", p, held[0])
     flash_attention.launches_dkv += 1
@@ -588,6 +595,9 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, mask=None, is_causal=False,
         _launch("flash_attention_sm90", "flash_attention_sm90_bwd_dq", p,
                 held[0])
         flash_attention.launches_dq_sm90 += 1
+    elif impl == "fp32":
+        _launch("flash_bwd_fp32", "flash_bwd_fp32_dq", p, held[0])
+        flash_attention.launches_dq_fp32 += 1
     else:
         _launch("flash_attention", "flash_attention_bwd_dq", p, held[0])
     flash_attention.launches_dq += 1
@@ -701,6 +711,8 @@ flash_attention.launches_fwd_decode = 0
 flash_attention.launches_fwd_fp32 = 0
 flash_attention.launches_dkv_sm90 = 0
 flash_attention.launches_dq_sm90 = 0
+flash_attention.launches_dkv_fp32 = 0
+flash_attention.launches_dq_fp32 = 0
 
 
 def flash_block_fwd(q, k, v, is_causal, scale=None):

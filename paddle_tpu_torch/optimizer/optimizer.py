@@ -24,14 +24,24 @@ update (`get_lr`, `:81-85`); the caller steps the scheduler.
 `parameters` may be a list of groups (dicts with "params") as in the
 JAX package (`:31-48`): a group's "learning_rate" is a COEFFICIENT on
 the global rate, and its "weight_decay" overrides the global decay for
-that group; both compose with `apply_decay_param_fun`.  Per-parameter
-`ParamAttr` fields are not ported.
+that group; both compose with `apply_decay_param_fun`.  A decay is a
+float or a `regularizer.L2Decay` (`_decay_value`, `:281-289`; an
+`L1Decay` raises NotImplementedError).  Per-parameter `ParamAttr` fields
+are not ported.
+
+`state_dict` / `set_state_dict` (`:246-279`) use the JAX package's keys:
+"step", "{param name}/{slot}" and "LR_Scheduler" when the rate is a
+scheduler, so a state crosses between the packages as numpy arrays of
+the same shapes; `minimize` is backward, step and clear_grad
+(`:227-237`, the eager branch).  `name=`, and `clear_grad`'s
+`set_to_zero`, are taken and change nothing, as in the JAX package.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..regularizer import _decay_value
 from .lr import LRScheduler
 
 _LOW = (torch.bfloat16, torch.float16)
@@ -48,8 +58,8 @@ class Optimizer:
     _couple_decay = True
 
     def __init__(self, learning_rate=0.001, parameters=None,
-                 weight_decay=None, grad_clip=None, multi_precision=False,
-                 apply_decay_param_fun=None):
+                 weight_decay=None, grad_clip=None, name=None,
+                 multi_precision=False, apply_decay_param_fun=None):
         if parameters is None:
             raise ValueError(
                 "parameters must be provided (dygraph-style optimizer)")
@@ -64,7 +74,7 @@ class Optimizer:
                 self._lr_scales.extend(
                     [float(group.get("learning_rate", 1.0))] * len(ps))
                 self._wd_overrides.extend(
-                    [None if wd is None else float(wd)] * len(ps))
+                    [None if wd is None else _decay_value(wd)] * len(ps))
         else:
             self._parameters = parameters
             self._lr_scales = [1.0] * len(parameters)
@@ -74,7 +84,7 @@ class Optimizer:
                              for i in range(len(self._parameters))]
         self._lr = learning_rate
         self._grad_clip = grad_clip
-        self._weight_decay = float(weight_decay or 0.0)
+        self._weight_decay = _decay_value(weight_decay)
         self._apply_decay_param_fun = apply_decay_param_fun
         self._use_master_weights = multi_precision
         self._state = None
@@ -188,6 +198,52 @@ class Optimizer:
         self._clip_grads()
         self.update(self.get_lr(), self._step_count)
 
-    def clear_grad(self):
+    def clear_grad(self, set_to_zero=False):
+        """Drop every parameter's gradient (`set_to_zero` is taken and
+        changes nothing, as in the JAX package)."""
         for p in self._parameters:
             p.grad = None
+
+    clear_gradients = clear_grad
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """loss.backward(), then step() and clear_grad(); the other
+        arguments are the static graph's, which the port does not have."""
+        loss.backward()
+        self.step()
+        self.clear_grad()
+
+    # ----------------------------------------------------------- checkpoint
+    def state_dict(self):
+        """{"step": steps taken, "{param name}/{slot}": the slot tensor
+        itself (no copy), "LR_Scheduler": the scheduler's state when the
+        rate is one}.  Slots appear once they exist (the first step or
+        `init_state`)."""
+        out = {"step": self._step_count}
+        if self._state is not None:
+            for name, slots in zip(self._param_names, self._state):
+                for s, t in slots.items():
+                    out[f"{name}/{s}"] = t
+        if isinstance(self._lr, LRScheduler):
+            out["LR_Scheduler"] = self._lr.state_dict()
+        return out
+
+    @torch.no_grad()
+    def set_state_dict(self, state):
+        """Load `state_dict`'s keys: the step count, every slot whose key
+        is present (a tensor or an array of the slot's shape, copied into
+        the slot in place; the slots are made first if needed) and the
+        scheduler's state."""
+        self._step_count = int(state.get("step", 0))
+        if self._state is None:
+            self.init_state()
+        for name, slots in zip(self._param_names, self._state):
+            for s, t in slots.items():
+                v = state.get(f"{name}/{s}")
+                if v is not None:
+                    if not isinstance(v, torch.Tensor):
+                        v = torch.from_numpy(np.array(v, dtype=np.float32))
+                    t.copy_(v)
+        if "LR_Scheduler" in state and isinstance(self._lr, LRScheduler):
+            self._lr.set_state_dict(state["LR_Scheduler"])

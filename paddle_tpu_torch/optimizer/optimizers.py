@@ -38,11 +38,14 @@ class Momentum(Optimizer):
 
 
 class Adam(Optimizer):
+    """Adam; `lazy_mode` is taken and changes nothing (the JAX package's
+    `:118` does the same: every gradient here is dense)."""
     SLOTS = ("moment1", "moment2")
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
-                 grad_clip=None, multi_precision=False, **kw):
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 **kw):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          multi_precision=multi_precision, **kw)
         self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
@@ -59,13 +62,14 @@ class Adam(Optimizer):
 
 class AdamW(Adam):
     """Adam with decoupled weight decay (`new_p - lr * wd * p` after the
-    rule, for the names `apply_decay_param_fun` accepts)."""
+    rule, for the names `apply_decay_param_fun` accepts).  `lr_ratio` is
+    taken and changes nothing, as in the JAX package (`:141`)."""
     _couple_decay = False
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
                  grad_clip=None, apply_decay_param_fun=None,
-                 multi_precision=False, **kw):
+                 multi_precision=False, lr_ratio=None, **kw):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          weight_decay, grad_clip,
                          apply_decay_param_fun=apply_decay_param_fun,

@@ -53,6 +53,14 @@ class LoRAConfig:
         self.target_modules = list(target_modules)
         self.trainable_bias = bool(trainable_bias)
 
+    def to_dict(self):
+        """The configuration as a dict, with the JAX package's keys
+        (`paddle_tpu/text/peft.py:53`)."""
+        return dict(r=self.r, lora_alpha=self.lora_alpha,
+                    lora_dropout=self.lora_dropout,
+                    target_modules=self.target_modules,
+                    trainable_bias=self.trainable_bias)
+
 
 class LoRALinear(nn.Module):
     """A frozen Linear plus a rank-r residual: y = base(x) + s * (xA)B.

@@ -96,7 +96,8 @@ def test_launch_counts_add_and_read():
     assert set(before) == {"flash_fwd", "flash_dkv", "flash_dq",
                            "flash_fwd_sm90", "flash_dkv_sm90",
                            "flash_dq_sm90", "flash_fwd_decode",
-                           "flash_fwd_fp32", "paged_decode", "sdpa_plain"}
+                           "flash_fwd_fp32", "flash_dkv_fp32",
+                           "flash_dq_fp32", "paged_decode", "sdpa_plain"}
     ops.add_launch_counts({"flash_fwd": 2, "paged_decode": 1}, times=3)
     after = ops.launch_counts()
     assert after["flash_fwd"] == before["flash_fwd"] + 6

@@ -11,8 +11,9 @@ the wrappers run for CPU tensors) against float64 dense attention and its
 autograd gradients, and the routes that pick a kernel family.  The card
 tests run each case through the families that take it: "sm80"
 (csrc/flash_attention.cu), "sm90" (csrc/flash_attention_sm90.cu: forward,
-dK/dV and dQ, masked or not), "fp32" (csrc/flash_fwd_fp32.cu: the
-float32 forward) and, for short queries,
+dK/dV and dQ, masked or not), "fp32" (csrc/flash_fwd_fp32.cu and
+csrc/flash_bwd_fp32.cu: the float32 forward, dK/dV and dQ) and, for
+short queries,
 "decode" (csrc/flash_decode.cu, the forward at every split count), forced
 with the wrappers' `_impl` and `_splits`; and the decode forward inside
 captured CUDA graphs.  The parity of this op with the JAX package is in
@@ -265,11 +266,11 @@ def _bwd_args(q):
 # name, the family of the forward, the family of dK/dV and dQ (Lq 64: no
 # case here is short enough for the decode forward).  The forward and the
 # backward follow one rule: a mask moves neither off sm90; float32 takes
-# the fp32 forward and the sm80 backward
+# the fp32 forward, dK/dV and dQ
 @pytest.mark.parametrize("name, family, dkv_family", [
     ("bf16_d128_causal_fused_qkv", "sm90", "sm90"),
     ("fp16_d64_gqa_window", "sm90", "sm90"),
-    ("float32", "fp32", "sm80"),
+    ("float32", "fp32", "fp32"),
     ("additive_mask", "sm90", "sm90"),
     ("d96", "sm80", "sm80"),
     ("misaligned_view", "sm80", "sm80"),
@@ -289,11 +290,14 @@ def test_sm90_route(name, family, dkv_family):
     # a backward launch's parameters take the route too (no launch here)
     _, _, impl = fa._bwd_params(q, k, v, *_bwd_args(q), mask, True, None, 0)
     assert impl == dkv_family
-    if dkv_family == "sm80":
+    if dkv_family != "sm90":
         with pytest.raises(ValueError):
             fa._family(q, k, v, m4, "sm90")
-    with pytest.raises(ValueError, match="backward"):
-        fa._family(q, k, v, m4, "fp32")
+    if q.dtype == torch.float32:
+        assert fa._family(q, k, v, m4, "fp32") == "fp32"
+    else:
+        with pytest.raises(ValueError, match="backward"):
+            fa._family(q, k, v, m4, "fp32")
     if family != "sm90":
         with pytest.raises(ValueError):
             fa._family(q, k, v, m4, "sm90", fwd=True)
@@ -309,8 +313,8 @@ def test_sm90_route(name, family, dkv_family):
 @pytest.mark.parametrize("name", ["float32", "float32_masked", "d96",
                                   "misaligned_view"])
 def test_dkv_forced_to_sm90_raises_before_any_launch(name):
-    """Forcing the sm90 dK/dV kernel on arguments the route sends to sm80
-    raises ValueError in the wrapper, before a library is loaded or a
+    """Forcing the sm90 dK/dV kernel on arguments the route sends to fp32
+    or sm80 raises ValueError in the wrapper, before a library is loaded or a
     kernel launched (these tensors are on the CPU, so any launch would
     fail otherwise)."""
     q, k, v, mask = _route_case(name)
@@ -340,7 +344,8 @@ def _short(Lq, dtype=torch.bfloat16, D=128, mask=False):
 def test_decode_route(Lq, dtype, mask):
     """Short queries (Lq <= DECODE_MAX_LQ), masked or not, in any dtype,
     take the decode forward, longer float32 ones the fp32 forward; the
-    backward keeps its own route (sm90 for bf16 / fp16, masked or not);
+    backward keeps its own route (sm90 for bf16 / fp16, masked or not,
+    fp32 for float32);
     "sm90", "fp32" and "sm80" may be forced on a short query where they
     take it, "decode" never on a longer one nor on the backward."""
     q, k, v, m = _short(Lq, dtype, mask=mask)
@@ -354,7 +359,7 @@ def test_decode_route(Lq, dtype, mask):
         ("decode",) * short + ("sm90",) * sm90 + ("fp32",) * (not sm90)
         + ("sm80",))
     assert fa._sm90_route(q, k, v, m4, dtype) == ("sm90" if sm90
-                                                  else "sm80")
+                                                  else "fp32")
     with pytest.raises(ValueError, match="backward"):
         fa._family(q, k, v, m4, "decode")
     if not short:
@@ -402,16 +407,16 @@ def test_tma_strides_replace_a_zero_stride_of_a_size1_dim():
 
 @pytest.mark.parametrize("dtype, family, bwd_family", [
     (torch.bfloat16, "sm90", "sm90"), (torch.float16, "sm90", "sm90"),
-    (torch.float32, "fp32", "sm80")])
+    (torch.float32, "fp32", "fp32")])
 def test_bert_padded_shape_routes_the_masked_backward(dtype, family,
                                                       bwd_family):
     """BERT's padded fine-tune (B 32, L 128, H 12, D 64, the q/k/v views of
     its [B, L, 3 H D] projection, the additive padding mask [32, 1, 1,
     128] that `text.bert.additive_mask` builds): the forward and dK/dV and
-    dQ take sm90 in bf16 / fp16, the fp32 forward and the sm80 backward in
-    float32, and the mask reaches the kernels as a key vector (row stride
-    0, batch stride Lk, no head stride), the sm90 backward's and the fp32
-    forward's key-vector instantiation."""
+    dQ take sm90 in bf16 / fp16 and fp32 in float32, and the mask reaches
+    the kernels as a key vector (row stride 0, batch stride Lk, no head
+    stride), the sm90 backward's and the fp32 kernels' key-vector
+    instantiation."""
     from paddle_tpu_torch.text.bert import additive_mask
     B, L, H, D = 32, 128, 12, 64
     qkv = torch.zeros(B, L, 3 * H * D, dtype=dtype)
@@ -429,7 +434,7 @@ def test_bert_padded_shape_routes_the_masked_backward(dtype, family,
     if family == "sm90":    # the kernels read the views through strides
         assert [fa._tma_strides(x) for x in (q, k, v)] == [
             [L * 3 * H * D, 3 * H * D, D]] * 3
-    if family == "fp32":    # the views reach the fp32 forward uncopied
+    if family == "fp32":    # the views reach the fp32 kernels uncopied
         for x in (q, k, v):
             y, st = fa._operand(x)
             assert y.data_ptr() == x.data_ptr()
@@ -443,19 +448,20 @@ def test_bert_padded_shape_routes_the_masked_backward(dtype, family,
 @pytest.mark.parametrize("mask", [False, True])
 def test_fp32_route(Lq, want, mask):
     """float32 forwards take the fp32 family above DECODE_MAX_LQ rows and
-    may have it forced at or below; the backward stays on sm80, and
-    "fp32" forced on it raises; bf16 and fp16 keep their families."""
+    may have it forced at or below; the float32 backward takes fp32 at
+    every length, with sm80 left to force; bf16 and fp16 keep their
+    families."""
     q, k, v, m = _short(Lq, torch.float32, D=64, mask=mask)
     m4 = fa._normalize_mask(m)
     assert fa._families(q, k, v, m4, torch.float32, True) == want
     assert fa._fwd_route(q, k, v, m4, torch.float32) == want[0]
     assert fa._family(q, k, v, m4, "fp32", fwd=True) == "fp32"
-    assert fa._families(q, k, v, m4, torch.float32, False) == ("sm80",)
-    assert fa._sm90_route(q, k, v, m4, torch.float32) == "sm80"
-    with pytest.raises(ValueError, match="backward"):
-        fa._family(q, k, v, m4, "fp32")
+    assert fa._families(q, k, v, m4, torch.float32, False) == ("fp32",
+                                                                "sm80")
+    assert fa._sm90_route(q, k, v, m4, torch.float32) == "fp32"
+    assert fa._family(q, k, v, m4, "fp32") == "fp32"
     _, _, impl = fa._bwd_params(q, k, v, *_bwd_args(q), m, False, None, 0)
-    assert impl == "sm80"
+    assert impl == "fp32"
     for dtype in (torch.bfloat16, torch.float16):
         qh, kh, vh = (x.to(dtype) for x in (q, k, v))
         fams = fa._families(qh, kh, vh, m4, dtype, True)
@@ -475,6 +481,37 @@ def test_fp32_forced_on_half_raises_before_any_launch(dtype, Lq):
     with pytest.raises(ValueError, match="fp32"):
         fa.flash_fwd_cuda(q, k, v, m, _impl="fp32")
     assert _counts() == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("kernel", ["dkv", "dq"])
+def test_fp32_backward_forced_on_half_raises_before_any_launch(dtype,
+                                                               kernel):
+    """Forcing the fp32 dK/dV or dQ kernel on bfloat16 / float16 raises
+    ValueError in the wrapper, before a library is loaded or a kernel
+    launched (these tensors are on the CPU, so any launch would fail
+    otherwise)."""
+    q, k, v, m = _short(64, dtype, D=64, mask=True)
+    fn = fa.flash_bwd_dkv_cuda if kernel == "dkv" else fa.flash_bwd_dq_cuda
+    before = _counts()
+    with pytest.raises(ValueError, match="fp32"):
+        fn(q, k, v, *_bwd_args(q), m, _impl="fp32")
+    assert _counts() == before
+
+
+@pytest.mark.parametrize("name", ["float32", "float32_masked"])
+def test_float32_backward_takes_fp32_and_sm80_when_forced(name):
+    """The float32 backward's route is fp32; sm80 is still taken when
+    forced (A/B timing), and the launch parameters are the same either
+    way."""
+    q, k, v, mask = _route_case(name)
+    args = (q, k, v, *_bwd_args(q), mask, True, None, 0)
+    p, _, impl = fa._bwd_params(*args)
+    p80, _, impl80 = fa._bwd_params(*args, "sm80")
+    assert (impl, impl80) == ("fp32", "sm80")
+    assert bytes(p) == bytes(p80)
+    assert fa._families(q, k, v, fa._normalize_mask(mask), q.dtype,
+                        False) == ("fp32", "sm80")
 
 
 def test_window_must_be_causal_and_not_negative():
@@ -515,7 +552,8 @@ def _counts():
     f = fa.flash_attention
     return (f.launches_fwd, f.launches_dkv, f.launches_dq,
             f.launches_fwd_sm90, f.launches_dkv_sm90, f.launches_dq_sm90,
-            f.launches_fwd_decode, f.launches_fwd_fp32)
+            f.launches_fwd_decode, f.launches_fwd_fp32, f.launches_dkv_fp32,
+            f.launches_dq_fp32)
 
 
 def bwd_error(got, want):
@@ -532,11 +570,10 @@ def test_kernels_match_plain_on_card(card, name, dtype, family):
     """Each case through one kernel family.  A case a family does not take
     (sm90: float32, D other than 64 or 128; fp32: bfloat16 / float16)
     must be routed elsewhere, and forcing the family on it must raise
-    before any launch; the sm90 forward, dK/dV and dQ and the fp32
-    forward take every mask.  The fp32 family is a forward alone: two
-    launches give the same bits.  The gradients are finite (rows that see
-    nothing give 0), and a second dK/dV and dQ launch gives the same bits
-    (no atomics)."""
+    before any launch; the sm90 and fp32 forward, dK/dV and dQ take every
+    mask.  Two fp32 forward launches give the same bits.  The gradients
+    are finite (rows that see nothing give 0), and a second dK/dV and dQ
+    launch gives the same bits (no atomics)."""
     q, k, v, do, mask, kw = make_inputs(name, dtype=dtype, device=card)
     m4 = fa._normalize_mask(mask)
     if family not in fa._families(q, k, v, m4, dtype, True):
@@ -550,7 +587,7 @@ def test_kernels_match_plain_on_card(card, name, dtype, family):
     o, lse = fa.flash_fwd_cuda(q, k, v, mask, **kw, _impl=family)
     torch.cuda.synchronize()
     assert _counts() == tuple(c + d for c, d in zip(
-        before, (1, 0, 0, sm90, 0, 0, 0, fp32)))
+        before, (1, 0, 0, sm90, 0, 0, 0, fp32, 0, 0)))
     ref_o, ref_lse = fa.flash_fwd_plain(q, k, v, mask, **kw)
     torch.testing.assert_close(o.float(), ref_o.float(), **FWD_TOL[dtype])
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
@@ -558,7 +595,7 @@ def test_kernels_match_plain_on_card(card, name, dtype, family):
         o2, lse2 = fa.flash_fwd_cuda(q, k, v, mask, **kw, _impl=family)
         torch.cuda.synchronize()
         assert torch.equal(o, o2) and torch.equal(lse, lse2)
-        return
+    before = _counts()
 
     delta = fa._delta(do, ref_o)
     dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, ref_lse, delta, mask, **kw,
@@ -566,7 +603,8 @@ def test_kernels_match_plain_on_card(card, name, dtype, family):
     dq = fa.flash_bwd_dq_cuda(q, k, v, do, ref_lse, delta, mask, **kw,
                               _impl=family)
     torch.cuda.synchronize()
-    assert _counts()[4:6] == (before[4] + sm90, before[5] + sm90)
+    assert _counts() == tuple(c + d for c, d in zip(
+        before, (0, 1, 1, 0, sm90, sm90, 0, 0, fp32, fp32)))
     want = fa.flash_bwd_plain(q, k, v, do, ref_lse, delta, mask, **kw)
     for nm, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert a.dtype == b.dtype and a.shape == b.shape
@@ -602,7 +640,7 @@ def test_decode_kernel_matches_plain_on_card(card, name, dtype, splits):
                                _splits=splits)
     torch.cuda.synchronize()
     assert _counts() == tuple(c + d for c, d in zip(
-        before, (1, 0, 0, 0, 0, 0, 1, 0)))
+        before, (1, 0, 0, 0, 0, 0, 1, 0, 0, 0)))
     assert o.dtype == dtype and lse.dtype == torch.float32
     for ref_o, ref_lse in (
             fa.flash_decode_plain(q, k, v, mask, splits=splits, **kw),
@@ -699,20 +737,31 @@ def test_strided_qkv_views_match_contiguous(card, dtype, family):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("family", ["sm80", "sm90"])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("family", ["sm80", "sm90", "fp32"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
 @pytest.mark.parametrize("L, H, Hkv", [(77, 4, 4), (300, 8, 2), (130, 4, 1)])
 def test_strided_views_dkv_match_contiguous(card, dtype, family, L, H, Hkv):
     """dK/dV on the views unbind gives of a fused projection (q of H
     heads, k and v of Hkv) equals dK/dV on contiguous copies, bit for bit
     (no atomics: the GQA group is summed in one block in a fixed order),
-    and matches the plain version."""
+    and matches the plain version; so does dQ on the fp32 family.  A
+    family that does not take the dtype (sm90: float32; fp32: bf16 /
+    fp16) raises before any launch."""
     rng = np.random.default_rng(6)
     fused = torch.from_numpy(rng.standard_normal(
         (2, L, H + 2 * Hkv, 64)).astype(np.float32)).to(card, dtype)
     q, k, v = fused.split([H, Hkv, Hkv], dim=2)
     do = torch.from_numpy(rng.standard_normal((2, L, H, 64)).astype(
         np.float32)).to(card, dtype)
+    if family not in fa._families(q, k, v, None, dtype, False):
+        before = _counts()
+        with pytest.raises(ValueError):
+            fa.flash_bwd_dkv_cuda(q, k, v, do, torch.zeros(2, H, L),
+                                  torch.zeros(2, H, L), is_causal=True,
+                                  _impl=family)
+        assert _counts() == before
+        return
     o, lse = fa.flash_fwd_plain(q, k, v, is_causal=True)
     delta = fa._delta(do, o)
     dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, is_causal=True,
@@ -722,10 +771,19 @@ def test_strided_views_dkv_match_contiguous(card, dtype, family, L, H, Hkv):
                                      is_causal=True, _impl=family)
     torch.cuda.synchronize()
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
-    _, want_dk, want_dv = fa.flash_bwd_plain(q, k, v, do, lse, delta,
-                                             is_causal=True)
+    want_dq, want_dk, want_dv = fa.flash_bwd_plain(q, k, v, do, lse, delta,
+                                                   is_causal=True)
     assert bwd_error(dk, want_dk) <= BWD_TOL[dtype]
     assert bwd_error(dv, want_dv) <= BWD_TOL[dtype]
+    if family == "fp32":
+        dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, is_causal=True,
+                                  _impl=family)
+        dq2 = fa.flash_bwd_dq_cuda(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), do, lse, delta,
+                                   is_causal=True, _impl=family)
+        torch.cuda.synchronize()
+        assert torch.equal(dq, dq2)
+        assert bwd_error(dq, want_dq) <= BWD_TOL[dtype]
 
 
 @pytest.mark.cuda
@@ -771,7 +829,7 @@ def test_exported_encoder_holds_the_op_and_counts_launches(card, dtype,
     grew = tuple(a - b for a, b in zip(_counts(), before))
     sm90 = cfg.num_hidden_layers if dtype == torch.bfloat16 else 0
     fp32 = cfg.num_hidden_layers - sm90
-    assert grew == (cfg.num_hidden_layers, 0, 0, sm90, 0, 0, 0, fp32)
+    assert grew == (cfg.num_hidden_layers, 0, 0, sm90, 0, 0, 0, fp32, 0, 0)
     with torch.no_grad():
         eager = model(torch.from_numpy(ids).to(card)).float().cpu().numpy()
     np.testing.assert_array_equal(logits.astype(np.float32), eager)

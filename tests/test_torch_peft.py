@@ -305,3 +305,14 @@ def test_generate_merge_generate_equals_jax():
                                                max_new_tokens=8).numpy())
     np.testing.assert_array_equal(after.numpy(), eager)
     np.testing.assert_array_equal(after.numpy(), fresh)
+
+
+@pytest.mark.parametrize("kw", [{}, dict(r=4, lora_alpha=8.0,
+                                         lora_dropout=0.1,
+                                         target_modules=[".*o_proj"],
+                                         trainable_bias=True)])
+def test_lora_config_to_dict_matches_jax(kw):
+    """`LoRAConfig.to_dict` gives the JAX package's dict, key for key."""
+    got = LoRAConfig(**kw).to_dict()
+    assert got == jpeft.LoRAConfig(**kw).to_dict()
+    assert LoRAConfig(**got).to_dict() == got
