@@ -22,8 +22,17 @@ and `optimizer.Momentum`; and the encoder family: the transformer encoder
 layers (`nn.transformer`), BERT and ERNIE-3.0 (`text.bert`,
 `text.ernie`), the LR schedulers (`optimizer.lr`), parameter groups,
 float16 loss scaling (`amp.GradScaler`), and inference export and
-deployment (`jit.save_inference`, `inference.create_predictor`).
+deployment (`jit.save_inference`, `inference.create_predictor`); and
+the training state: checkpoints and the random state (`framework`),
+`ParamAttr`, the nonfinite-step guard, the checkpoint manager and fault
+injection (`resilience`), `amp.auto_cast` (O1 and O2), gradient clipping
+by value and by norm, and the other eleven optimizers of the JAX
+package.
 """
-from .device import generator, resolve_device, seed
+from .device import generator, resolve_device
+from .framework import (CheckpointError, ParamAttr, get_rng_state,
+                        load_state, save_state, seed, set_rng_state)
 
-__all__ = ["generator", "resolve_device", "seed"]
+__all__ = ["CheckpointError", "ParamAttr", "generator", "get_rng_state",
+           "load_state", "resolve_device", "save_state", "seed",
+           "set_rng_state"]

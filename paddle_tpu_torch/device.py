@@ -5,11 +5,14 @@ accelerator) and `paddle_tpu/framework/random.py` (its seeded key
 stream).  The port runs on the card unless the caller names the CPU:
 with no device given and no CUDA device present, `resolve_device`
 raises instead of quietly running on the CPU.  Randomness goes through
-explicit `torch.Generator`s, one per call site that wants it.
+explicit `torch.Generator`s, one per call site that wants it; `seed`
+is `framework.random.seed`, which also records the seed for checkpoints.
 """
 from __future__ import annotations
 
 import torch
+
+from .framework.random import seed  # noqa: F401  (the one seed path)
 
 
 def resolve_device(device=None):
@@ -28,10 +31,3 @@ def generator(seed, device=None):
     """A torch.Generator on `device`, seeded with `seed`."""
     return torch.Generator(device=resolve_device(device)).manual_seed(
         int(seed))
-
-
-def seed(s):
-    """Seed PyTorch's global generators (CPU and every CUDA device), as
-    `paddle_tpu.seed` reseeds the JAX package's key stream.  Returns s."""
-    torch.manual_seed(int(s))
-    return s

@@ -5,13 +5,14 @@ import torch
 from torch import nn
 
 from . import functional, quant
-from .clip import ClipGradByGlobalNorm
+from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .conv import Conv2D
 from .norm import BatchNorm, BatchNorm2D
 from .pooling import AdaptiveAvgPool2D, AvgPool2D, MaxPool2D
 
 __all__ = ["AdaptiveAvgPool2D", "AvgPool2D", "BatchNorm", "BatchNorm2D",
-           "ClipGradByGlobalNorm", "Conv2D", "Dropout", "MaxPool2D",
+           "ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
+           "Conv2D", "Dropout", "MaxPool2D",
            "MultiHeadAttention", "RMSNorm", "TransformerEncoder",
            "TransformerEncoderLayer", "functional", "quant"]
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import amp as _amp
 from .. import ops
 
 
@@ -48,6 +49,12 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
         return x
     if p >= 1.0:
         return torch.zeros_like(x)
+    (x,) = _amp.cast_inputs("dropout_k", "keep", x)
+    with _amp.no_cast():
+        return _dropout(x, p, axis, mode, generator)
+
+
+def _dropout(x, p, axis, mode, generator):
     shape = x.shape
     if axis is not None:
         axes = {a % x.dim() for a in
@@ -120,6 +127,26 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"reduction must be 'mean', 'sum' or 'none', not "
                          f"{reduction!r}")
+    # the softmax_ce kernel (a deny op under amp.auto_cast), then the
+    # weighting and reduction as separate ops, as the JAX package splits
+    # them
+    input, label = _amp.cast_inputs("softmax_ce", "deny", input, label)
+    with _amp.no_cast():
+        loss, count = _softmax_ce(input, label, weight, ignore_index,
+                                  soft_label, axis, label_smoothing)
+    if reduction == "none":
+        return loss
+    if reduction == "sum":
+        return loss.sum()
+    if soft_label:
+        return loss.mean()
+    return loss.sum() / count.sum().clamp(min=1e-12)
+
+
+def _softmax_ce(input, label, weight, ignore_index, soft_label, axis,
+                label_smoothing):
+    """(per-element loss, its count: the valid labels' weights, or None
+    for soft labels)."""
     logits = input.float()
     ax = axis % logits.dim()
     n = logits.shape[ax]
@@ -129,9 +156,7 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
         tgt = label.float()
         if eps > 0.0:
             tgt = tgt * (1.0 - eps) + eps / n
-        loss = -(tgt * logp).sum(dim=ax)
-        return (loss if reduction == "none" else
-                loss.sum() if reduction == "sum" else loss.mean())
+        return -(tgt * logp).sum(dim=ax), None
     lab = label.long()
     valid = lab != ignore_index
     idx = torch.where(valid, lab, torch.zeros_like(lab))
@@ -144,11 +169,7 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
         w = weight.float()[idx]
         loss = loss * w
         count = count * w
-    if reduction == "none":
-        return loss
-    if reduction == "sum":
-        return loss.sum()
-    return loss.sum() / count.sum().clamp(min=1e-12)
+    return loss, count
 
 
 # ------------------------------------------------------------ vision ops

@@ -32,10 +32,11 @@ from __future__ import annotations
 
 import torch
 
+from .. import amp as _amp
 from . import flash_attention as _flash
 from . import nn_kernels
-from .nn_kernels import (dyn_update_seq, paged_write, rms_norm,
-                         s2d_stem_conv, s2d_stem_conv_nhwc)
+from .nn_kernels import (dyn_update_seq, paged_write, s2d_stem_conv,
+                         s2d_stem_conv_nhwc)
 from .paged_decode import paged_decode_attention
 
 __all__ = ["add_launch_counts", "dyn_update_seq", "launch_counts",
@@ -45,7 +46,15 @@ __all__ = ["add_launch_counts", "dyn_update_seq", "launch_counts",
 
 def paged_attention(q, k_pool, v_pool, tables, pos, scale=None):
     """q [b, s, H, D] attends the paged pool through `tables` [b, M] at
-    row offsets `pos` [b] (the position of q's first token)."""
+    row offsets `pos` [b] (the position of q's first token).  Under
+    `amp.auto_cast` an allow op ("paged_attention")."""
+    q, k_pool, v_pool = _amp.cast_inputs("paged_attention", "allow", q,
+                                         k_pool, v_pool)
+    with _amp.no_cast():
+        return _paged_attention(q, k_pool, v_pool, tables, pos, scale)
+
+
+def _paged_attention(q, k_pool, v_pool, tables, pos, scale):
     if q.device.type == "cuda" and q.shape[1] == 1:
         lens = (pos + 1).to(torch.int32)
         return paged_decode_attention(q.contiguous(), k_pool, v_pool,
@@ -54,11 +63,32 @@ def paged_attention(q, k_pool, v_pool, tables, pos, scale=None):
                                       scale=scale)
 
 
+def rms_norm(x, weight=None, eps=1e-6):
+    """`nn_kernels.rms_norm`; under `amp.auto_cast` with a weight a deny
+    op ("rms_norm": x and the weight in float32), without one its dtypes
+    stay, as in the JAX package."""
+    if weight is not None:
+        x, weight = _amp.cast_inputs("rms_norm", "deny", x, weight)
+    with _amp.no_cast():
+        return nn_kernels.rms_norm(x, weight, eps)
+
+
 def sdpa(q, k, v, mask=None, is_causal=False, scale=None,
          sliding_window=None, _mask_needs_grad=False):
     """Scaled dot-product attention on (B, L, H, D); see the module note
     for the route.  `_mask_needs_grad` (a trained additive mask) forces
-    the plain version, which differentiates through `scores + mask`."""
+    the plain version, which differentiates through `scores + mask`.
+    Under `amp.auto_cast` a masked call is an allow op ("sdpa"): q, k, v
+    and a floating mask cast to the AMP dtype; an unmasked call keeps its
+    dtypes, as the JAX package runs it outside its dispatch."""
+    if mask is not None:
+        q, k, v, mask = _amp.cast_inputs("sdpa", "allow", q, k, v, mask)
+    with _amp.no_cast():
+        return _sdpa(q, k, v, mask, is_causal, scale, sliding_window,
+                     _mask_needs_grad)
+
+
+def _sdpa(q, k, v, mask, is_causal, scale, sliding_window, _mask_needs_grad):
     if q.device.type == "cuda":
         if not _mask_needs_grad and (not sliding_window or is_causal) and \
                 _flash.supports(q.shape, k.shape, mask, q.dtype,

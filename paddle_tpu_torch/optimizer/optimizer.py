@@ -26,13 +26,22 @@ JAX package (`:31-48`): a group's "learning_rate" is a COEFFICIENT on
 the global rate, and its "weight_decay" overrides the global decay for
 that group; both compose with `apply_decay_param_fun`.  A decay is a
 float or a `regularizer.L2Decay` (`_decay_value`, `:281-289`; an
-`L1Decay` raises NotImplementedError).  Per-parameter `ParamAttr` fields
-are not ported.
+`L1Decay` raises NotImplementedError).  A parameter stamped by
+`framework.ParamAttr` (`optimize_attr`) folds in as in the JAX package
+(`:49-69`): its "learning_rate" multiplies its group's coefficient, its
+"regularizer" overrides the global decay where its group sets none, and
+"need_clip" False keeps its gradient out of the clip (`:192-199`).
+
+`update(lr, step)` takes the rate as a float (the eager `step()`) or as
+a 0-dim float32 tensor on the parameters' device (the guarded
+`TrainStep`, whose nonfinite gate zeroes the rate without waiting for
+the card); the rules multiply it in either way.
 
 `state_dict` / `set_state_dict` (`:246-279`) use the JAX package's keys:
-"step", "{param name}/{slot}" and "LR_Scheduler" when the rate is a
-scheduler, so a state crosses between the packages as numpy arrays of
-the same shapes; `minimize` is backward, step and clear_grad
+"step", "{param name}/{slot}" (the model's names once `TrainStep` or a
+checkpoint has seen the model, `param_{i}` before) and "LR_Scheduler"
+when the rate is a scheduler, so a state crosses between the packages
+as numpy arrays of the same shapes; `minimize` is backward, step and clear_grad
 (`:227-237`, the eager branch).  `name=`, and `clear_grad`'s
 `set_to_zero`, are taken and change nothing, as in the JAX package.
 """
@@ -79,9 +88,23 @@ class Optimizer:
             self._parameters = parameters
             self._lr_scales = [1.0] * len(parameters)
             self._wd_overrides = [None] * len(parameters)
-        # TrainStep renames these after the model's named_parameters()
-        self._param_names = [f"param_{i}"
-                             for i in range(len(self._parameters))]
+
+        def _oa(p):
+            return getattr(p, "optimize_attr", None) or {}
+
+        self._lr_scales = [
+            s * float(_oa(p).get("learning_rate", 1.0))
+            for p, s in zip(self._parameters, self._lr_scales)]
+        self._wd_overrides = [
+            _decay_value(_oa(p)["regularizer"])
+            if wd is None and "regularizer" in _oa(p) else wd
+            for p, wd in zip(self._parameters, self._wd_overrides)]
+        self._need_clip = [bool(_oa(p).get("need_clip", True))
+                           for p in self._parameters]
+        # TrainStep and the checkpoints rename these after the model
+        # (`_name_after`)
+        self._param_names = [getattr(p, "paddle_name", None) or f"param_{i}"
+                             for i, p in enumerate(self._parameters)]
         self._lr = learning_rate
         self._grad_clip = grad_clip
         self._weight_decay = _decay_value(weight_decay)
@@ -89,6 +112,16 @@ class Optimizer:
         self._use_master_weights = multi_precision
         self._state = None
         self._step_count = 0
+
+    def _name_after(self, model):
+        """Name the parameters as `model.named_parameters()` does (a
+        `ParamAttr` name stays first), so that decay masks and
+        state-dict keys read "bert.pooler.weight", as the JAX package's
+        parameters are named."""
+        names = {id(p): n for n, p in model.named_parameters()}
+        self._param_names = [
+            old if getattr(p, "paddle_name", None) else names.get(id(p), old)
+            for p, old in zip(self._parameters, self._param_names)]
 
     # ------------------------------------------------------------------- lr
     def get_lr(self):
@@ -146,10 +179,11 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, lr, step):
-        """Apply one update with learning rate `lr` at 1-based `step` to
-        every parameter that has a grad, in place; a parameter group
-        scales `lr` by its coefficient (in float32, as the JAX update
-        multiplies its float32 rate) and may override the decay."""
+        """Apply one update with learning rate `lr` (a float or a 0-dim
+        float32 tensor) at 1-based `step` to every parameter that has a
+        grad, in place; a parameter group scales `lr` by its coefficient
+        (in float32, as the JAX update multiplies its float32 rate) and
+        may override the decay."""
         if self._state is None:
             self.init_state()
         for p, name, slots, scale, wd in zip(
@@ -157,19 +191,23 @@ class Optimizer:
                 self._lr_scales, self._wd_overrides):
             if p.grad is None or not p.requires_grad:
                 continue
-            if not slots:
-                # every optimizer here gives a trainable parameter at least
-                # one slot: an empty dict is a parameter that was frozen
-                # when the slots were made (the reference raises a bare
-                # KeyError from its rule here)
+            if not slots and self._init_state_for(p):
+                # an optimizer with slots gives a trainable parameter at
+                # least one: an empty dict is then a parameter that was
+                # frozen when the slots were made (the reference raises a
+                # bare KeyError from its rule here); SGD has none
                 raise RuntimeError(
                     f"parameter {name!r} has a grad but no optimizer "
                     f"state: it was frozen when the state was made. "
                     f"Rebuild the optimizer (or call init_state()) after "
                     f"unfreezing it")
             dec = self._decayed(name)
-            lr_i = lr if scale == 1.0 else \
-                f32(np.float32(lr) * np.float32(scale))
+            if scale == 1.0:
+                lr_i = lr
+            elif isinstance(lr, torch.Tensor):
+                lr_i = lr * f32(scale)
+            else:
+                lr_i = f32(np.float32(lr) * np.float32(scale))
             wd_i = self._weight_decay if wd is None else wd
             gf = p.grad.float()
             pf = slots["master"] if "master" in slots else p.detach().float()
@@ -185,9 +223,11 @@ class Optimizer:
 
     # --------------------------------------------------------------- eager
     def _clip_grads(self):
+        """Clip, in place, the grads of the parameters with need_clip."""
         if self._grad_clip is not None:
-            self._grad_clip.clip_([p.grad for p in self._parameters
-                                   if p.grad is not None])
+            self._grad_clip.clip_([p.grad for p, c in zip(
+                self._parameters, self._need_clip)
+                if c and p.grad is not None])
 
     def step(self):
         """One eager step on the parameters' `.grad` tensors: clip, then

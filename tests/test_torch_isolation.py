@@ -59,6 +59,11 @@ def _imported_roots(path):
 def test_no_port_module_imports_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 10
+    rel = {os.path.relpath(p, REPO) for p in files}
+    assert {"paddle_tpu_torch/framework/checkpoint.py",
+            "paddle_tpu_torch/resilience/guard.py",
+            "paddle_tpu_torch/resilience/manager.py",
+            "paddle_tpu_torch/resilience/chaos.py"} <= rel
     bad = {os.path.relpath(p, REPO): sorted(set(_imported_roots(p))
                                             & FORBIDDEN)
            for p in files}
@@ -82,7 +87,13 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.nn.transformer, paddle_tpu_torch.text.bert, "
             "paddle_tpu_torch.text.ernie, paddle_tpu_torch.optimizer.lr, "
             "paddle_tpu_torch.amp.grad_scaler, paddle_tpu_torch.inference, "
-            "paddle_tpu_torch.jit.save_load\n"
+            "paddle_tpu_torch.jit.save_load, paddle_tpu_torch.framework, "
+            "paddle_tpu_torch.framework.checkpoint, "
+            "paddle_tpu_torch.framework.random, "
+            "paddle_tpu_torch.framework.param_attr, "
+            "paddle_tpu_torch.resilience, paddle_tpu_torch.resilience.chaos, "
+            "paddle_tpu_torch.resilience.guard, "
+            "paddle_tpu_torch.resilience.manager\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN | {'transformers'})!r})\n"
             "assert not bad, bad\n")
@@ -186,3 +197,45 @@ def test_encoder_family_entry_points_raise_without_a_device(monkeypatch):
         model = cls(cfg(**tiny), device="cpu")
         assert {p.device for p in model.parameters()} == \
             {torch.device("cpu")}
+
+
+def test_training_state_entry_points_stay_on_the_named_device(monkeypatch,
+                                                             tmp_path):
+    """Without a card the model raises unless the CPU is named; named,
+    a guarded TrainStep, `save_state` / `load_state` and
+    `CheckpointManager.restore` keep every parameter, slot and loss on
+    the CPU, and reach for no card."""
+    from paddle_tpu_torch.framework import load_state, save_state
+    from paddle_tpu_torch.nn import functional as PF
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.resilience import (CheckpointManager,
+                                             NonfiniteGuard)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tiny = dict(vocab_size=16, hidden_size=8, num_hidden_layers=1,
+                num_attention_heads=2, intermediate_size=16,
+                max_position_embeddings=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BertForSequenceClassification(BertConfig(**tiny))
+    cpu = torch.device("cpu")
+
+    def build():
+        model = BertForSequenceClassification(BertConfig(**tiny),
+                                              device="cpu")
+        return model, AdamW(parameters=model.parameters())
+
+    model, opt = build()
+    mgr = CheckpointManager(str(tmp_path / "m"))
+    step = train_step(model, lambda m, i, y: PF.cross_entropy(m(i), y), opt,
+                      guard=NonfiniteGuard(manager=mgr))
+    ids = torch.zeros(2, 8, dtype=torch.long)
+    assert step(ids, torch.zeros(2, dtype=torch.long)).device == cpu
+    save_state(str(tmp_path / "ck"), model=model, optimizer=opt, step=1)
+    mgr.save(1, train_step=step)
+    fresh, fopt = build()
+    load_state(str(tmp_path / "ck"), model=fresh, optimizer=fopt)
+    mgr.restore(model=fresh, optimizer=fopt)
+    for m, o in ((model, opt), (fresh, fopt)):
+        assert {p.device for p in m.parameters()} == {cpu}
+        assert {t.device for slots in o._state for t in slots.values()} \
+            == {cpu}
