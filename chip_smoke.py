@@ -52,6 +52,21 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
 5. e2e           — the same width at 2 layers in float32: the engine's
                    tokens are checked against a dense teacher-forced
                    forward of the same weights on the CPU;
+5a. serve_router — serve's traffic through a Router over two worker
+                   processes (ProcReplica, each its own CUDA context),
+                   GPT-3 1.3B bf16: tokens/s and the router's TTFT beside
+                   serve's, each worker's decode steps, paged launches
+                   (= steps x 24), plain sdpa calls (0), peak memory,
+                   build, first-step and spawn-to-ready seconds; every
+                   request finishes, no leak, no orphan, the workers'
+                   probe logits equal the parent's bit for bit;
+5b. router_drill — `tools/torch_chaos_check.py --router --proc` at that
+                   width in float32: r0 SIGKILLed mid-stream 3x
+                   (evictions / respawns / aborts 3 / 2 / 1), a dropped
+                   frame, a wedged worker hang-evicted and KILLed; every
+                   stream byte-identical to one uninterrupted in-process
+                   engine, dedup >= 1, 0 mismatches, no leak, no orphan;
+                   the smallest top-2 logit margin of the reference;
 6. train         — GPT-3 1.3B trained as bench.py::run_gpt trains it: seq
                    1024, batch 4, AMP O2 bf16 without master weights,
                    Adafactor(1e-4), TrainStep; 3 warm-up and 10 timed
@@ -208,10 +223,12 @@ and sm80, at bert_e2e's shape (B 8) and ERNIE's (B 32), unmasked and
 masked, and at the train_fp32 shape, in turns with float32 SDPA's
 backward through autograd (fp32, sm80, SDPA, SDPA, sm80, fp32).
 
-The kernels line counts the flash launches of phases 6-10, 13-16 and
-19-24 (bert_resume's: its first unbroken run); the sm80 forward, dK/dV
-and dQ launch on none of them (asserted,
-`on_main_paths: false`).
+The kernels line counts the flash launches of phases 5a-5b, 6-10, 13-16
+and 19-24 (bert_resume's: its first unbroken run; the worker processes'
+read from their metrics, the killed workers' lost with them); the sm80
+forward, dK/dV and dQ launch on none of them (asserted,
+`on_main_paths: false`).  The paged kernel's launches are serve's,
+serve_llama's and the workers' of 5a-5b.
 Each phase prints one JSON line.  Then one {"kernels": [...]} line, the
 card's name and power limit from nvidia-smi, and last
 {"ok": true, "device": {...}}.  Any failure raises and exits nonzero
@@ -518,7 +535,12 @@ def phase_serve():
     eng.close()
     del eng, model
     torch.cuda.empty_cache()
-    return launches, last_lens
+    return launches, last_lens, {
+        "prompts": [p.tolist() for p in prompts],
+        "streams": [list(r.generated) for r in reqs],
+        "output_tokens_per_s": tokens / wall,
+        "ttft_p50_s": ttft.percentile(50), "ttft_p99_s": ttft.percentile(99),
+        "decode_step_p50_ms": step_s.percentile(50) * 1e3}
 
 
 def phase_profile(eng, prompts, step_p50_s, steps=4):
@@ -613,6 +635,211 @@ def phase_e2e():
           "max_logit_gap": worst, "tol": 1e-4})
     assert worst <= 1e-4, \
         f"an engine token sits {worst} below the CPU maximum logit"
+
+
+# ------------------------------------------------------------ serving tier
+GPT13_SPEC = dict(preset="gpt3-1.3B",
+                  overrides=dict(hidden_dropout=0.0, attention_dropout=0.0))
+
+
+def phase_serve_router(serve):
+    """serve's traffic (its 16 prompts, 32 greedy tokens each) through a
+    Router over two ProcReplica worker processes on the one card, each
+    with its own CUDA context, GPT-3 1.3B in bf16 and serve's engine
+    settings.  Workers build from the drills' builder
+    (`tools/torch_chaos_check.build_engine`): a short warm-up, then their
+    counters start from zero.  Prints tokens/s and the router's TTFT
+    beside serve's, each worker's decode steps, paged launches, plain
+    sdpa calls, peak memory, build and first-step seconds, spawn-to-ready
+    seconds, and how many streams equal serve's (not a gate: a decode
+    batch of 8 rows rounds in bf16 otherwise than one of 16).  Gates:
+    every request finishes "length", no leak, every worker pid dead and
+    reaped after close(), the workers' probe logits equal the parent's
+    bit for bit, paged launches = decode steps x layers in each worker,
+    0 plain sdpa calls.  Returns the workers' launch counts and the
+    slower worker's spawn-to-ready seconds."""
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.serving import Router
+    from paddle_tpu_torch.serving import worker as sw
+    from paddle_tpu_torch.serving.transport import TransportPolicy
+    from tools import torch_chaos_check as tcc
+
+    engine = dict(num_blocks=2048, block_size=16, max_running=16,
+                  prefill_chunk=512)
+    spec = tcc.drill_spec(device="cuda", dtype="bfloat16", engine=engine,
+                          seed=0, **GPT13_SPEC)
+    parent = sw.build_gpt(spec).eval()
+    digest = tcc.probe_digest(parent)
+    layers = parent.cfg.num_layers
+    del parent
+    release()
+
+    handles = []
+    pol = TransportPolicy(timeout=120.0, retries=0)
+
+    def factory(name, hb_path, respawning=False):
+        h = sw.ProcReplica(spec, name, hb_path, policy=pol)
+        handles.append(h)
+        return h
+
+    t0 = time.monotonic()
+    router = Router(None, replicas=2, heartbeat_timeout=30.0,
+                    spawn_grace_s=600.0, respawn=False,
+                    replica_factory=factory)
+    spawn_s = time.monotonic() - t0
+    try:
+        ready, pending = tcc.ready_times(router, 600.0)
+        assert not pending, f"workers {pending} not ready"
+        ready = {k: v + spawn_s for k, v in ready.items()}
+        first = {n: tcc.worker_report(r)
+                 for n, r in router.metrics_snapshot().items()}
+        reg = metrics.registry()
+        reg.reset()
+        t0 = time.perf_counter()
+        reqs = [router.submit(p, max_new_tokens=32)
+                for p in serve["prompts"]]
+        deadline = time.monotonic() + 600.0
+        while router.has_work:
+            assert time.monotonic() < deadline, "router streams stalled"
+            router.step()
+        wall = time.perf_counter() - t0
+        ttft = reg.histogram("router_ttft_seconds")
+        workers = {n: tcc.worker_report(r)
+                   for n, r in router.metrics_snapshot().items()}
+        leaks = router.close()
+    finally:
+        for h in handles:
+            if h.proc.poll() is None:
+                h.abort()
+    alive = tcc.live_pids([h.proc.pid for h in handles])
+    tokens = sum(len(rr.emitted) for rr in reqs)
+    reasons = sorted({rr.finish_reason for rr in reqs})
+    same = sum(rr.emitted == s for rr, s in zip(reqs, serve["streams"]))
+    per = {n: {"decode_steps": w.get("serving_decode_steps_total", 0),
+               "requests": w.get("serving_requests_finished_total", 0),
+               "decode_step_p50_ms": (w["serving_decode_step_seconds"]["p50"]
+                                      or 0) * 1e3,
+               "paged_launches": w["launches"]["paged_decode"],
+               "flash": flash_part(w["launches"]),
+               "sdpa_plain_calls": w["launches"]["sdpa_plain"],
+               "peak_memory_gib": w.get("serving_peak_memory_bytes", 0)
+               / 2**30,
+               "build_s": w["serving_build_seconds"],
+               "first_step_s": w["serving_first_step_seconds"]}
+           for n, w in workers.items()}
+    emit({"phase": "serve_router", "model": GPT13_SPEC["preset"],
+          "dtype": "bfloat16", "workers": len(handles),
+          "requests": len(reqs),
+          "output_tokens": tokens, "wall_s": wall,
+          "output_tokens_per_s": tokens / wall,
+          "ttft_p50_s": ttft.percentile(50), "ttft_p99_s": ttft.percentile(99),
+          "serve_output_tokens_per_s": serve["output_tokens_per_s"],
+          "serve_ttft_p50_s": serve["ttft_p50_s"],
+          "serve_ttft_p99_s": serve["ttft_p99_s"],
+          "serve_decode_step_p50_ms": serve["decode_step_p50_ms"],
+          "speedup_vs_serve": tokens / wall / serve["output_tokens_per_s"],
+          "spawn_to_ready_s": ready, "per_worker": per,
+          "streams_equal_serve": same, "finish_reasons": reasons,
+          "leaks": leaks, "pids_alive_after_close": alive,
+          "probe_digest_equal": {n: w.get("probe_sha256") == digest
+                                 for n, w in first.items()}})
+    assert reasons == ["length"], f"requests finished with {reasons}"
+    assert all(lk == ([], []) for lk in leaks.values()), leaks
+    assert not alive, f"worker pids {alive} outlived close()"
+    assert all(w.get("probe_sha256") == digest for w in first.values()), \
+        f"worker probe logits differ from the parent's {digest}: {first}"
+    for n, w in per.items():
+        assert w["sdpa_plain_calls"] == 0, (n, w)
+        assert w["decode_steps"] > 0 and \
+            w["paged_launches"] == w["decode_steps"] * layers, (n, w)
+    counts = summed_launches(workers.values())
+    return {"paged": counts["paged_decode"], "flash": flash_part(counts),
+            "spawn_to_ready_s": max(ready.values())}
+
+
+def summed_launches(reports):
+    """The launch counters of `tcc.worker_report`s, summed."""
+    from paddle_tpu_torch import ops
+    return {k: sum(r["launches"].get(k, 0) for r in reports)
+            for k in ops.launch_counts()}
+
+
+# the router drill's prompts: few enough that the three phases (eight
+# worker starts) fit in about two minutes on the card
+ROUTER_DRILL_LENS = (96, 24, 200, 48, 150, 64)
+
+
+def phase_router_drill(spawn_to_ready_s):
+    """`tools/torch_chaos_check.py --router --proc` at GPT-3 1.3B width in
+    float32 on the card: two worker processes, r0 SIGKILLed mid-stream
+    three times (evictions / respawns / aborts 3 / 2 / 1, r0 abandoned),
+    one `serving.transport_drop` (a counted frame error, a crash
+    eviction), one worker wedged by `_wedge` (a hang eviction that needs
+    the KILL escalation).  The reference is an uninterrupted run of one
+    in-process engine on the card on the same seeded weights (TF32 off):
+    every surviving stream byte-identical to it, dedup >= 1, 0
+    mismatches, leak-free survivors, no orphan.  The spawn grace is 4x
+    serve_router's spawn-to-ready (at least 120 s), the hang timeout 4x
+    the slowest first step the workers report (at least 3 s).  Prints
+    the smallest top-2 logit margin over the reference streams.  Returns
+    the surviving workers' launch counts (a killed worker's die with
+    it)."""
+    from paddle_tpu_torch.serving import LLMEngine
+    from paddle_tpu_torch.serving import worker as sw
+    from tools import torch_chaos_check as tcc
+
+    new = 16
+    torch.backends.cuda.matmul.allow_tf32 = False
+    engine = dict(num_blocks=512, block_size=16, max_running=8,
+                  prefill_chunk=128)
+    spec = tcc.drill_spec(device="cuda", dtype="float32", engine=engine,
+                          seed=0, step_delay_s=0.01, **GPT13_SPEC)
+    ref_model = sw.build_gpt(spec).eval()
+    digest = tcc.probe_digest(ref_model)
+    layers = ref_model.cfg.num_layers
+    prompts = tcc.drill_prompts(11, ROUTER_DRILL_LENS,
+                                vocab=ref_model.cfg.vocab_size)
+    eng = LLMEngine(ref_model, **engine)
+    refs = eng.generate_batch(prompts, max_new_tokens=new)
+    assert eng.close() == ([], [])
+    margin = tcc.min_top2_margin(ref_model, prompts, refs)
+    del eng, ref_model
+    release()
+
+    res = tcc.run_router_proc(spec, prompts, refs, digest,
+                              spawn_grace_s=max(120.0,
+                                                4.0 * spawn_to_ready_s))
+    workers = {f"{phase}/{n}": w for phase, r in res["phases"].items()
+               for n, w in r["survivors"].items()}
+    counts = summed_launches(workers.values())
+    steps = {k: w.get("serving_decode_steps_total", 0)
+             for k, w in workers.items()}
+    emit({"phase": "router_drill", "model": GPT13_SPEC["preset"],
+          "dtype": "float32", "requests": len(prompts),
+          "prompt_tokens": sum(ROUTER_DRILL_LENS), "new_tokens": new,
+          "seconds": res["seconds"], "worker_starts": res["spawns"],
+          "spawn_to_ready_s": res["spawn_to_ready_s"],
+          "phase_seconds": {k: r["seconds"]
+                            for k, r in res["phases"].items()},
+          "counts": {k: r["counts"] for k, r in res["phases"].items()},
+          "sigkill_exits": {k: r.get("sigkill_exits")
+                            for k, r in res["phases"].items()},
+          "frame_errors": res["phases"].get("drop", {}).get("frame_errors"),
+          "hang_timeout_s": res["phases"].get("wedge", {})
+          .get("hang_timeout_s"),
+          "hang_silent_for_s": res["phases"].get("wedge", {})
+          .get("silent_for_s"),
+          "first_step_s": {k: w.get("serving_first_step_seconds")
+                           for k, w in workers.items()},
+          "survivor_decode_steps": steps,
+          "survivor_launches": {k: w["launches"]
+                                for k, w in workers.items()},
+          "min_top2_margin": margin, "failures": res["failures"]})
+    assert not res["failures"], res["failures"]
+    for k, w in workers.items():
+        assert w["launches"]["sdpa_plain"] == 0, (k, w)
+        assert w["launches"]["paged_decode"] == steps[k] * layers, (k, w)
+    return {"paged": counts["paged_decode"], "flash": flash_part(counts)}
 
 
 # cycles the card spins between the L2 flush and the start event (about
@@ -4153,8 +4380,10 @@ def main():
     phase_build()
     phase_kernels()
     phase_flash_kernels()
-    launches, lens = phase_serve()
+    launches, lens, serve = phase_serve()
     phase_e2e()
+    router = phase_serve_router(serve)
+    drill = phase_router_drill(router["spawn_to_ready_s"])
     paths = {"train": phase_train(), "train_e2e": phase_train_e2e()}
     paths.update({f"generate/{name}": counts
                   for name, counts in phase_generate().items()})
@@ -4172,9 +4401,14 @@ def main():
     paths["bert_resume"] = phase_bert_resume(fp32_p50, fp32_busy)
     paths.update(phase_ernie_infer())
     paths["ernie_e2e"] = phase_ernie_e2e()
-    paged = phase_timings(launches + serve_llama["paged_decode"], lens)
+    paths["serve_router"] = router["flash"]
+    paths["router_drill"] = drill["flash"]
+    paged = phase_timings(launches + serve_llama["paged_decode"]
+                          + router["paged"] + drill["paged"], lens)
     paged["launches_by_path"] = {"serve": launches,
-                                 "serve_llama": serve_llama["paged_decode"]}
+                                 "serve_llama": serve_llama["paged_decode"],
+                                 "serve_router": router["paged"],
+                                 "router_drill": drill["paged"]}
     flash = phase_flash_timings(paths)
     emit({"kernels": [paged] + flash})
     smi = subprocess.run(

@@ -7,10 +7,11 @@
             device; N bad steps in a row roll back to a checkpoint
   manager   CheckpointManager: step-numbered retention and GC, fall-back
             past torn checkpoints, the SIGTERM preemption flush
+  backoff   exponential backoff and crash-loop detection (the serving
+            router's respawns, the transport's retries)
 
-The reference's `reshard` (a restore onto another mesh) and `backoff`
-(restart policy of the launcher and loader) come with the distributed
-and data-loading slices.  `guard` and `manager` load when first used:
+The reference's `reshard` (a restore onto another mesh) comes with the
+distributed slice.  `guard` and `manager` load when first used:
 `framework.checkpoint` imports `chaos` from here.
 """
 from __future__ import annotations

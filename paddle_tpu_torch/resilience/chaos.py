@@ -23,10 +23,28 @@ The sites the port has:
     ckpt.crash_after_arrays     crash save_state: arrays committed, meta
                                 not published
     save.sigterm                SIGTERM this process mid-save_state
+    serving.pool_exhausted      the serving block pool refuses an
+                                allocation (the scheduler's preemption
+                                path must fire)
+    serving.request_poison      a serving request's logits turn NaN: the
+                                engine fails THAT request ("error") and
+                                frees its blocks, the batch goes on
+    serving.replica_kill        a router replica's step raises (the
+                                in-process stand-in for a dead worker):
+                                crash eviction and failover
+    serving.replica_hang        a router replica stops stepping and
+                                beating: the stale beat is a hang
+                                eviction, not a crash
+    serving.transport_drop      a frame on a worker's socket is dropped
+                                in transit: the receiver rejects the
+                                stream (FrameError) and the router
+                                evicts the worker as a crash
 
-The serving, loader, compile and collective sites of the JAX package
-come with the modules that hold them.  With no plan installed every site
-costs one `is None` test.
+Still to come with the modules that hold them: the loader sites
+(`loader.*`), `compile.fail_once`, the collective sites
+(`collective.*`), the compile-cache sites (`cache.*`) and
+`restart.mesh_change`.  With no plan installed every site costs one
+`is None` test.
 """
 from __future__ import annotations
 

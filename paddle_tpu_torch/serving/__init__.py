@@ -1,9 +1,20 @@
-"""Serving of the port: paged KV pool, scheduler and continuous-batching
-engine (counterpart: `paddle_tpu/serving`; the router, worker processes,
-transport and AOT artifacts are later slices, see ROADMAP.md)."""
+"""Serving of the port (counterpart: `paddle_tpu/serving`): the paged KV
+pool, scheduler and continuous-batching engine; the router over N
+replicas (`router`), the framed transport (`transport`) and the
+process-per-replica worker (`worker`).  The AOT serving artifacts
+(`aot.py`) are a later slice (ROADMAP.md, A9)."""
 from .block_pool import BlockPool, PoolExhausted
 from .engine import LLMEngine, ShedRequest
+from .router import (EngineReplica, ReplicaGone, ReplicaHandle,
+                     RoutedRequest, Router)
 from .scheduler import Request, Scheduler
+from .transport import (ChannelClosed, FrameError, TransportError,
+                        TransportPolicy, TransportTimeout)
+from .worker import ProcReplica, RemoteRequest, WorkerDied
 
-__all__ = ["BlockPool", "LLMEngine", "PoolExhausted", "Request",
-           "Scheduler", "ShedRequest"]
+__all__ = ["BlockPool", "PoolExhausted", "Request", "Scheduler",
+           "LLMEngine", "ShedRequest", "Router", "RoutedRequest",
+           "ReplicaHandle", "ReplicaGone", "EngineReplica",
+           "ProcReplica", "RemoteRequest", "WorkerDied",
+           "TransportError", "TransportPolicy", "TransportTimeout",
+           "FrameError", "ChannelClosed"]

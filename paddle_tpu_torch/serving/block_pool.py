@@ -18,6 +18,7 @@ import torch
 
 from ..device import resolve_device
 from ..observability import metrics as _metrics
+from ..resilience import chaos
 
 
 class PoolExhausted(RuntimeError):
@@ -72,14 +73,15 @@ class BlockPool:
 
     def allocate(self, n):
         """n block ids at refcount 1, or None when the pool can't serve
-        them right now (the scheduler's preemption trigger)."""
+        them right now (the scheduler's preemption trigger).  The
+        `serving.pool_exhausted` chaos site simulates that exhaustion."""
         n = int(n)
         if n > self.num_blocks:
             raise PoolExhausted(
                 f"request needs {n} blocks but the whole pool is only "
                 f"{self.num_blocks}; grow num_blocks or cap request "
                 f"lengths")
-        if n > len(self._free):
+        if chaos.fire("serving.pool_exhausted") or n > len(self._free):
             _metrics.registry().counter("serving_pool_exhausted_total").inc()
             return None
         out = [self._free.pop() for _ in range(n)]

@@ -15,8 +15,9 @@ What differs from the JAX engine, and why the tokens do not:
 * Decode steps on CUDA run the hand-written paged decode kernel;
   prefill chunks run the plain gather path, as the JAX engine sends
   them to XLA (`ops.paged_attention`).  Prefill skips the LM head.
-* Left out: the AOT export/load methods and the chaos fault sites
-  (ROADMAP.md lists both).
+* Left out: the AOT export/load methods (ROADMAP.md, A9).  The chaos
+  sites `serving.request_poison` (here) and `serving.pool_exhausted`
+  (`BlockPool.allocate`) are the JAX engine's.
 
 It serves GPT and the LLaMA family (LLaMA, Qwen2; GQA through the paged
 kernel).  As the JAX engine does, it refuses a sliding-window model
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 
 from ..observability import metrics as _metrics
+from ..resilience import chaos
 from ..text.generation import filter_logits
 from .block_pool import BlockPool, PoolExhausted
 from .scheduler import RUNNING, Request, Scheduler
@@ -132,6 +134,8 @@ class LLMEngine:
                       seed=seed, on_token=on_token, on_finish=on_finish,
                       resume_tokens=resume_tokens, arrival_t=arrival_t,
                       queue_deadline_s=queue_deadline_s, ttl_s=ttl_s)
+        if chaos.fire("serving.request_poison", tag=req.id):
+            req.poisoned = True
         self.scheduler.submit(req)
         self._reg.counter("serving_requests_submitted_total").inc()
         return req
@@ -332,6 +336,10 @@ class LLMEngine:
             self._emit(req, rows[i], now)
 
     def _emit(self, req, logits_row, now):
+        if req.poisoned:
+            # chaos serving.request_poison: this request's logits are
+            # ruined; the guard below fails IT, not the batch
+            logits_row = np.full_like(logits_row, np.nan)
         if not np.isfinite(logits_row).all():
             # non-finite logits fail THIS request, not the batch
             self._finish(req, "error")

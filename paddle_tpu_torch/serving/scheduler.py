@@ -67,6 +67,7 @@ class Request:
         self.preemptions = 0
         self.admit_skips = 0        # head-of-line blocked admit passes
         self.promoted = False       # aging: immune to victim selection
+        self.poisoned = False       # chaos serving.request_poison
 
         self.arrival_t = (time.monotonic() if arrival_t is None
                           else float(arrival_t))

@@ -1,15 +1,18 @@
 """The port stands alone: no JAX, no JAX package, no silent CPU runs.
 
 An AST scan shows that no module of `paddle_tpu_torch/`, and not
-`chip_smoke.py`, imports `jax`, `paddle_tpu` or `paddle`; a fresh
-interpreter importing the whole port (the training modules included)
-loads none of them; and the port's entry points raise, rather than run on
-the CPU, when no device is named and there is no CUDA device.
+`chip_smoke.py` and not `tools/torch_chaos_check.py`, imports `jax`,
+`paddle_tpu` or `paddle`; a fresh interpreter importing the whole port
+(the training and serving-tier modules included) loads none of them,
+and neither does a serving worker process after it has served; and the
+port's entry points raise, rather than run on the CPU, when no device is
+named and there is no CUDA device.
 """
 import ast
 import os
 import subprocess
 import sys
+import time
 
 import pytest
 import torch
@@ -38,7 +41,8 @@ FORBIDDEN = {"jax", "jaxlib", "paddle_tpu", "paddle"}
 
 def _port_files():
     root = os.path.join(REPO, "paddle_tpu_torch")
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tools", "torch_chaos_check.py")]
     for dirpath, _, names in os.walk(root):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
@@ -63,7 +67,13 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     assert {"paddle_tpu_torch/framework/checkpoint.py",
             "paddle_tpu_torch/resilience/guard.py",
             "paddle_tpu_torch/resilience/manager.py",
-            "paddle_tpu_torch/resilience/chaos.py"} <= rel
+            "paddle_tpu_torch/resilience/chaos.py",
+            "paddle_tpu_torch/resilience/backoff.py",
+            "paddle_tpu_torch/distributed/launch/heartbeat.py",
+            "paddle_tpu_torch/serving/router.py",
+            "paddle_tpu_torch/serving/transport.py",
+            "paddle_tpu_torch/serving/worker.py",
+            "tools/torch_chaos_check.py"} <= rel
     bad = {os.path.relpath(p, REPO): sorted(set(_imported_roots(p))
                                             & FORBIDDEN)
            for p in files}
@@ -93,7 +103,13 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.framework.param_attr, "
             "paddle_tpu_torch.resilience, paddle_tpu_torch.resilience.chaos, "
             "paddle_tpu_torch.resilience.guard, "
-            "paddle_tpu_torch.resilience.manager\n"
+            "paddle_tpu_torch.resilience.manager, "
+            "paddle_tpu_torch.resilience.backoff, "
+            "paddle_tpu_torch.distributed.launch, "
+            "paddle_tpu_torch.distributed.launch.heartbeat, "
+            "paddle_tpu_torch.serving.router, "
+            "paddle_tpu_torch.serving.transport, "
+            "paddle_tpu_torch.serving.worker, tools.torch_chaos_check\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN | {'transformers'})!r})\n"
             "assert not bad, bad\n")
@@ -239,3 +255,44 @@ def test_training_state_entry_points_stay_on_the_named_device(monkeypatch,
         assert {p.device for p in m.parameters()} == {cpu}
         assert {t.device for slots in o._state for t in slots.values()} \
             == {cpu}
+
+
+def test_a_spawned_worker_loads_no_jax(monkeypatch, tmp_path):
+    """A serving worker process (the drills' builder, on the CPU) serves
+    a request and closes; its interpreter then holds no JAX module and
+    nothing of the JAX package.  The worker's `-c` program is wrapped so
+    that it exits 7 when it finds one after `main()` returns."""
+    from paddle_tpu_torch.serving import worker as sw
+    from paddle_tpu_torch.serving.transport import TransportPolicy
+    from tools import torch_chaos_check as tcc
+
+    check = ("import sys\n{main}\nrc = main()\n"
+             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+             f"{sorted(FORBIDDEN)!r})\n"
+             "print('forbidden modules:', bad, file=sys.stderr)\n"
+             "sys.exit(7 if bad else rc)\n")
+    real = subprocess.Popen
+
+    def popen(cmd, **kw):
+        assert cmd[1] == "-c" and "worker import main" in cmd[2]
+        main = "from paddle_tpu_torch.serving.worker import main"
+        return real([cmd[0], "-c", check.format(main=main), *cmd[3:]], **kw)
+
+    monkeypatch.setattr(sw.subprocess, "Popen", popen)
+    spec = tcc.drill_spec(device="cpu", config=tcc.TINY,
+                          engine=tcc.TINY_ENGINE)
+    h = sw.ProcReplica(spec, "iso", str(tmp_path / "hb"),
+                       policy=TransportPolicy(timeout=120.0, retries=0))
+    try:
+        assert h.wait_ready(timeout=120.0)
+        rq = h.add_request([1, 2, 3], max_new_tokens=4)
+        deadline = time.monotonic() + 120.0
+        while rq.finish_reason is None:
+            assert time.monotonic() < deadline, "the worker stalled"
+            h.step()
+            time.sleep(0.002)
+        assert h.close() == ([], [])
+    finally:
+        h.abort()
+    assert rq.finish_reason == "length" and len(rq.generated) == 4
+    assert h.proc.returncode == 0
