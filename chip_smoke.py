@@ -208,7 +208,34 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    then the same in bf16 (sm90), logits near float32's;
 24. ernie_e2e    — 2 layers, float32: the predictor on the card against
                    the eager model on the CPU, logits within 1e-4, at two
-                   batch sizes of one dynamic-batch program.
+                   batch sizes of one dynamic-batch program;
+25. moe_train    — GPT-MoE 4.1B (GPT-3 1.3B at full width and depth, a
+                   top-2 MoE FFN of 8 experts in every other block,
+                   capacity factor 1.25, aux weight 0.01) trained as
+                   `train` trains GPT-3 1.3B: tokens/s, step p50/p99,
+                   MFU over the active parameters, peak memory, the loss
+                   and aux series; the first loss and each routed
+                   layer's aux against the float32 plain forward, each
+                   aux in MOE_AUX_BAND, every expert's w1 moved, 24 sm90
+                   forward, dK/dV and dQ launches a step, no plain sdpa;
+                   a profile naming the MoE stages (routing, dispatch,
+                   expert GEMMs, combine), forward and backward;
+26. moe_generate — GPT-MoE 4.1B bf16, batch 4, 512-token prompts, 64
+                   greedy tokens: the captured step against the
+                   uncaptured one and the first call (identical tokens),
+                   the eager loop's share of equal tokens, tokens/s, step
+                   p50/p99, prefill ms, peak memory, launches by family;
+27. moe_serve    — GPT-MoE 4.1B bf16 served by LLMEngine with serve's
+                   request mix: tokens/s, decode step, TTFT; every
+                   request finishes, no leak, paged launches = decode
+                   steps x 24, no plain sdpa;
+28. moe_e2e      — 2 layers at that width in float32, E 4, top-2, every
+                   block routed: 3 AdamW steps card against CPU (losses
+                   with aux, parameters), LLMEngine tokens against a
+                   dense float32 forward on the CPU, the captured
+                   jit_generate card against CPU token for token (and
+                   the eager loop on the card against it), and the
+                   smallest router probability gap met.
 
 flash_kernels also holds BERT's shape (B 32, L 128, H 12, D 64,
 non-causal; unmasked and under its additive padding mask) in bf16, fp16
@@ -224,11 +251,11 @@ masked, and at the train_fp32 shape, in turns with float32 SDPA's
 backward through autograd (fp32, sm80, SDPA, SDPA, sm80, fp32).
 
 The kernels line counts the flash launches of phases 5a-5b, 6-10, 13-16
-and 19-24 (bert_resume's: its first unbroken run; the worker processes'
+and 19-28 (bert_resume's: its first unbroken run; the worker processes'
 read from their metrics, the killed workers' lost with them); the sm80
 forward, dK/dV and dQ launch on none of them (asserted,
 `on_main_paths: false`).  The paged kernel's launches are serve's,
-serve_llama's and the workers' of 5a-5b.
+serve_llama's, the workers' of 5a-5b, moe_serve's and moe_e2e's.
 Each phase prints one JSON line.  Then one {"kernels": [...]} line, the
 card's name and power limit from nvidia-smi, and last
 {"ok": true, "device": {...}}.  Any failure raises and exits nonzero
@@ -585,10 +612,13 @@ def phase_profile(eng, prompts, step_p50_s, steps=4):
 
 def device_time(prof):
     """(device events, {kernel name: us}, busy us) of a torch.profiler
-    run; busy is the union of the device intervals."""
+    run; busy is the union of the device intervals.  The device spans of
+    record_function ranges (user annotations) are not kernels and are
+    left out."""
     from torch.autograd import DeviceType
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation)
     by_name, busy, edge = {}, 0.0, float("-inf")
     for start, end, name in spans:
         by_name[name] = by_name.get(name, 0.0) + (end - start)
@@ -4372,6 +4402,522 @@ def masked_prefill_timing(fa, flush):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+# ------------------------------------------------------------------- MoE
+# GPT-MoE 4.1B: GPT-3 1.3B at full width and depth (hidden 2048, 24
+# layers, 16 heads, intermediate 8192, vocab 50304) with a top-2 MoE FFN
+# of 8 experts in every other block (GShard's routing and the JAX
+# defaults: capacity factor 1.25, aux weight 0.01)
+GPT_MOE = dict(num_experts=8, moe_top_k=2, moe_every=2,
+               moe_capacity_factor=1.25, moe_aux_weight=0.01)
+# E * sum_e(mean prob_e * first-choice share_e) is 1 for a router that
+# spreads tokens evenly and approaches E when every token goes to one
+# expert with certainty: the band holds each layer's first-step aux off
+# zero and below E, which an aux scaled by 1 / E or by E would leave
+MOE_AUX_BAND = (0.9, float(GPT_MOE["num_experts"]))
+MOE_STAGES = ("moe_route", "moe_dispatch", "moe_experts", "moe_combine")
+
+
+def gpt_moe(seq, dtype=torch.float32, seed=0, device="cuda", **over):
+    """(cfg, model): GPT-MoE 4.1B (or `over` applied) with random weights
+    from `seed`, dropout off."""
+    from paddle_tpu_torch.text import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig.from_preset("gpt3-1.3B", max_position_embeddings=seq,
+                                hidden_dropout=0.0, attention_dropout=0.0,
+                                **dict(GPT_MOE, **over))
+    model = GPTForCausalLM(
+        cfg, device=device, dtype=dtype,
+        generator=torch.Generator(device=device).manual_seed(seed))
+    return cfg, model
+
+
+def moe_layers(model):
+    from paddle_tpu_torch.incubate import MoELayer
+    return [m for m in model.modules() if isinstance(m, MoELayer)]
+
+
+def active_params(model):
+    """The parameters a token passes through: all, less the experts it is
+    not routed to (E - top_k of each routed block's w1, b1, w2, b2)."""
+    n = sum(p.numel() for p in model.parameters())
+    for m in moe_layers(model):
+        expert = sum(p.numel() for p in (m.w1, m.b1, m.w2, m.b2))
+        n -= expert * (m.num_experts - m.top_k) // m.num_experts
+    return n
+
+
+def moe_stage_ms(prof, steps, attr="self_device_time_total"):
+    """Time a step of each MoE stage (`MOE_STAGES`) from a torch.profiler
+    run, forward and backward ("_bwd"), in ms.  An op's time (`attr`: the
+    device time of the kernels it launched itself, or on the CPU
+    `self_cpu_time_total`) goes to the record_function range around it;
+    a backward op's to the range of the forward op whose autograd node
+    it evaluates (the profiler's sequence numbers tie the two)."""
+    from torch.autograd import DeviceType
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+
+    def around(e, test):
+        while e is not None and not test(e.name):
+            e = e.cpu_parent
+        return e
+
+    forward = {}
+    for e in events:
+        rng = around(e, MOE_STAGES.__contains__)
+        if rng is not None and e.sequence_nr >= 0:
+            forward[e.sequence_nr] = rng.name
+    out = {}
+    for e in events:
+        t = getattr(e, attr)
+        if not t or e.name in MOE_STAGES:
+            continue
+        rng = around(e, MOE_STAGES.__contains__)
+        stage = rng.name if rng is not None else None
+        if stage is None:
+            node = around(e, lambda n: n.startswith(
+                "autograd::engine::evaluate_function"))
+            if node is not None and node.sequence_nr in forward:
+                stage = forward[node.sequence_nr] + "_bwd"
+        if stage is not None:
+            out[stage] = out.get(stage, 0.0) + t
+    return {k: v / steps / 1e3 for k, v in sorted(out.items())}
+
+
+def phase_moe_train(steps=10, warmup=3, batch=4, seq=1024):
+    """GPT-MoE 4.1B trained as `train` trains GPT-3 1.3B: seq 1024, batch
+    4, AMP O2 bf16 without master weights, Adafactor(1e-4), TrainStep,
+    gpt_loss_fn with the aux loss; 3 warm-up and 10 timed steps.  The
+    first loss (cross entropy plus 0.01 x the aux losses) and each routed
+    layer's aux against `plain_first_loss` on the float32 weights; each
+    flash kernel 24 times a step on sm90, no plain sdpa; every expert's
+    w1 moved.  MFU counts the active parameters (two experts of each
+    routed block), not the dispatch and combine.  Then a profile of 2
+    steps with the MoE stages named."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import train_step
+    from paddle_tpu_torch.optimizer import Adafactor
+    from paddle_tpu_torch.text import gpt_loss_fn
+
+    t_phase = time.perf_counter()
+    cfg, model = gpt_moe(seq)
+    layers = moe_layers(model)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
+                        device="cuda")
+    labels = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
+                           device="cuda")
+    ref_loss = plain_first_loss(gpt_loss_fn, model, ids, labels)
+    ref_aux = [m.aux_loss.item() for m in layers]
+    n_params = sum(p.numel() for p in model.parameters())
+    n_active = active_params(model)
+    opt = Adafactor(learning_rate=1e-4, parameters=model.parameters())
+    model, opt = amp.decorate(models=model, optimizers=opt,
+                              dtype="bfloat16", master_weight=False)
+    step = train_step(model, gpt_loss_fn, opt)
+    w1_before = [m.w1.detach()[:, :4].clone() for m in layers]
+    release()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, times, aux = [], [], []
+    for _ in range(warmup + steps):
+        t0 = time.perf_counter()
+        losses.append(step(ids, labels).item())     # waits for the card
+        times.append(time.perf_counter() - t0)
+        aux.append([m.aux_loss.detach().item() for m in layers])
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    moved = [bool((m.w1.detach()[:, :4] != w).flatten(1).any(1).all())
+             for m, w in zip(layers, w1_before)]
+    timed = np.array(times[warmup:])
+    p50 = float(np.percentile(timed, 50))
+    flops = train_flops(n_active, cfg, batch, seq)
+    aux_err = max(abs(a - r) / r for a, r in zip(aux[0], ref_aux))
+    fl = flash_part(counts)
+    rec = {"phase": "moe_train", "model": "gpt-moe-4.1B (gpt3-1.3B, "
+           "8 experts top-2 every other block)", "layers": cfg.num_layers,
+           "routed_layers": len(layers), "experts": cfg.num_experts,
+           "top_k": cfg.moe_top_k,
+           "capacity_factor": cfg.moe_capacity_factor,
+           "seq": seq, "batch": batch, "dtype": "bfloat16",
+           "amp": "O2, master_weight=False", "optimizer": "Adafactor(1e-4)",
+           "n_params": n_params, "n_active_params": n_active,
+           "warmup_steps": warmup, "timed_steps": steps,
+           "tokens_per_s": steps * batch * seq / float(timed.sum()),
+           "step_p50_ms": p50 * 1e3,
+           "step_p99_ms": float(np.percentile(timed, 99)) * 1e3,
+           "step_ms": [t * 1e3 for t in times],
+           "flops_per_step_active": flops,
+           "mfu_active": flops / float(timed.mean()) / BF16_FLOPS,
+           "mfu_peak_flops": BF16_FLOPS, "peak_memory_gib": peak,
+           "losses": losses, "aux_sum": [sum(a) for a in aux],
+           "aux_first_step": aux[0], "aux_first_float32_plain": ref_aux,
+           "aux_rel_err": aux_err, "aux_band": MOE_AUX_BAND,
+           "first_loss_float32_plain": ref_loss,
+           "first_loss_err": abs(losses[0] - ref_loss),
+           "first_loss_tol": BF16_FIRST_LOSS_TOL,
+           "experts_w1_moved": moved, "launches": counts}
+    n = cfg.num_layers * (warmup + steps)
+    assert all(np.isfinite(losses)), losses
+    assert all(np.isfinite(a) and MOE_AUX_BAND[0] <= a <= MOE_AUX_BAND[1]
+               for a in aux[0]), rec
+    assert aux_err <= BF16_FIRST_LOSS_TOL, rec
+    assert rec["first_loss_err"] <= BF16_FIRST_LOSS_TOL, rec
+    assert (fl["fwd"], fl["dkv"], fl["dq"]) == (n, n, n), fl
+    assert (fl["fwd_sm90"], fl["dkv_sm90"], fl["dq_sm90"]) == (n, n, n), fl
+    assert counts["sdpa_plain"] == 0, counts
+    assert all(moved), f"an expert's w1 did not move: {moved}"
+    rec["profile"] = moe_train_profile(step, ids, labels, p50)
+    rec["phase_seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    del step, opt, model, layers
+    release()
+    return fl
+
+
+def moe_train_profile(step, ids, labels, step_p50_s, steps=2):
+    """`steps` steps under torch.profiler: the busy share against the
+    unprofiled p50, device ms by kernel class (cuBLAS GEMMs, flash, the
+    rest) and by MoE stage, forward and backward."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(ids, labels)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events, by_name, busy_us = device_time(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    gemm = sum(us for name, us in by_name.items()
+               if any(tag in name.lower() for tag in GEMM_TAGS))
+    flash = sum(us for name, us in by_name.items() if "flash_" in name)
+    total = sum(by_name.values())
+    stages = moe_stage_ms(prof, steps)
+    busy_ms = busy_us / steps / 1e3
+    return {"steps": steps, "device_events": events,
+            "profiled_wall_ms_per_step": wall_us / steps / 1e3,
+            "unprofiled_step_p50_ms": step_p50_s * 1e3,
+            "device_busy_ms_per_step": busy_ms,
+            "device_busy_share": busy_ms / (step_p50_s * 1e3),
+            "kernel_class_ms_per_step": {
+                "gemm": gemm / steps / 1e3, "flash": flash / steps / 1e3,
+                "other": (total - gemm - flash) / steps / 1e3},
+            "moe_stage_ms_per_step": stages,
+            "moe_share_of_busy": sum(stages.values()) / busy_ms,
+            "top_device_ms_per_step": [[name[:90], us / steps / 1e3]
+                                       for name, us in top]}
+
+
+def phase_moe_generate(batch=4, prompt=512, new=64):
+    """GPT-MoE 4.1B in bf16, batch 4, 512-token prompts, 64 greedy tokens:
+    `generate(use_jit=True)` (the decode step captured, routing and all)
+    against the uncaptured static step and the first call (identical
+    tokens: the same kernels on the same calls) and the eager loop over
+    concat caches (its attention sums over another buffer length, so in
+    bf16 its tokens may part from the captured ones: the share is
+    printed); each path's flash launches by family (decode steps on the
+    decode kernel, prefills on sm90, 0 on sm80)."""
+    from paddle_tpu_torch.text import decode
+
+    t_phase = time.perf_counter()
+    cfg, model = gpt_moe(prompt + new, dtype=torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    ids = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g,
+                        device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first, build_s = sync_time(lambda: model.generate(ids,
+                                                      max_new_tokens=new))
+    zero_counts()
+    captured, cap_s = sync_time(lambda: model.generate(ids,
+                                                       max_new_tokens=new))
+    paths = {"captured": read_counts()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    key = (prompt, new, False, 1.0, None, None, None, batch)
+    prog = model._jit_decode_cache[key]
+    assert prog.graph is not None, "the decode step was not captured"
+    _, prefill_s = sync_time(lambda: prog.prefill(ids))
+    cap_steps = step_ms(prog.step, new - 1)
+
+    zero_counts()
+    eager, eager_s = sync_time(lambda: model.generate(ids, max_new_tokens=new,
+                                                      use_jit=False))
+    paths["eager"] = read_counts()
+    zero_counts()
+    static, static_s = sync_time(lambda: decode.jit_generate(
+        model, ids, max_new_tokens=new, _capture=False))
+    paths["static"] = read_counts()
+    prog = model._jit_decode_cache[key]
+    prog.prefill(ids)
+    static_steps = step_ms(prog.step, new - 1)
+    model._jit_decode_cache.clear()
+    del prog
+    families = {name: {"flash_fwd_sm80": c["flash_fwd"] - c["flash_fwd_sm90"]
+                       - c["flash_fwd_decode"] - c["flash_fwd_fp32"],
+                       "flash_fwd_sm90": c["flash_fwd_sm90"],
+                       "flash_fwd_decode": c["flash_fwd_decode"],
+                       "sdpa_plain_calls": c["sdpa_plain"]}
+                for name, c in paths.items()}
+    tok = batch * new
+    rec = {"phase": "moe_generate", "model": "gpt-moe-4.1B",
+           "dtype": "bfloat16", "layers": cfg.num_layers,
+           "n_params": sum(p.numel() for p in model.parameters()),
+           "batch": batch, "prompt_tokens": prompt, "new_tokens": new,
+           "captured": {"tokens_per_s": tok / cap_s, "wall_s": cap_s,
+                        "first_call_s": build_s,
+                        "decode_tokens_per_s": batch * 1e3
+                        / pct(cap_steps)["p50"],
+                        "step_ms": pct(cap_steps)},
+           "eager": {"tokens_per_s": tok / eager_s, "wall_s": eager_s},
+           "static_uncaptured": {"tokens_per_s": tok / static_s,
+                                 "wall_s": static_s,
+                                 "step_ms": pct(static_steps)},
+           "prefill_ms": prefill_s * 1e3, "peak_memory_gib": peak,
+           "tokens_equal": {
+               "captured_vs_first_call": bool(torch.equal(first, captured)),
+               "captured_vs_static": bool(torch.equal(captured, static)),
+               "captured_vs_eager_share": float(
+                   (captured == eager)[:, prompt:].float().mean()),
+               # each row's first new token where the eager loop parts
+               "captured_vs_eager_first_difference": [
+                   int(row.nonzero()[0]) if row.any() else None
+                   for row in (captured != eager)[:, prompt:].cpu()]},
+           "launches": paths, "flash_families": families}
+    n = new * cfg.num_layers
+    for name, c in paths.items():
+        fam = families[name]
+        assert c["sdpa_plain"] == 0, (name, c)
+        assert fam["flash_fwd_sm80"] == 0, (name, fam)
+        # the prefill once a layer on sm90, each of the new - 1 steps once
+        # a layer on the decode kernel
+        assert fam["flash_fwd_sm90"] == cfg.num_layers, (name, fam)
+        assert fam["flash_fwd_decode"] == n - cfg.num_layers, (name, fam)
+    assert torch.equal(first, captured), rec["tokens_equal"]
+    assert torch.equal(captured, static), rec["tokens_equal"]
+    rec["phase_seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    del model, first, captured, eager, static
+    release()
+    return {f"moe_generate/{n}": flash_part(c) for n, c in paths.items()}
+
+
+def phase_moe_serve():
+    """GPT-MoE 4.1B bf16 served by LLMEngine with serve's request mix (16
+    requests, prompts of 128 to 1024 tokens, 32 greedy tokens each):
+    every request finishes, no pool leak, the paged kernel once a layer
+    a decode step, no plain sdpa.  The served tokens are not held to a
+    dense forward: at E 8, top-2 a choice can drop because of the other
+    tokens of its step (ROADMAP.md C), which a dense forward does not
+    reproduce; moe_e2e holds the engine where nothing drops."""
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.serving import LLMEngine
+
+    t_phase = time.perf_counter()
+    cfg, model = gpt_moe(2048, dtype=torch.bfloat16)
+    eng = LLMEngine(model, num_blocks=2048, block_size=16, max_running=16,
+                    prefill_chunk=512)
+    rng = np.random.default_rng(0)
+    plens = rng.integers(128, 1025, size=16)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in plens]
+    eng.generate_batch([prompts[0][:64]], max_new_tokens=2)    # warm-up
+
+    reg = metrics.registry()
+    reg.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    reqs = [eng.add_request(p, max_new_tokens=32) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    steps = reg.counter("serving_decode_steps_total").value
+    step_s = reg.histogram("serving_decode_step_seconds")
+    ttft = reg.histogram("serving_ttft_seconds")
+    tokens = sum(len(r.generated) for r in reqs)
+    reasons = sorted({r.finish_reason for r in reqs})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    leaks = eng.close()
+    rec = {"phase": "moe_serve", "model": "gpt-moe-4.1B",
+           "dtype": "bfloat16", "layers": cfg.num_layers,
+           "requests": len(reqs), "prompt_tokens": int(plens.sum()),
+           "output_tokens": tokens, "wall_s": wall,
+           "output_tokens_per_s": tokens / wall, "decode_steps": steps,
+           "decode_step_p50_ms": step_s.percentile(50) * 1e3,
+           "decode_step_p99_ms": step_s.percentile(99) * 1e3,
+           "ttft_p50_s": ttft.percentile(50),
+           "ttft_p99_s": ttft.percentile(99), "peak_memory_gib": peak,
+           "launches": counts, "paged_kernel_launches": counts["paged_decode"],
+           "finish_reasons": reasons, "leaks": leaks,
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    assert reasons == ["length"], f"requests finished with {reasons}"
+    assert leaks == ([], []), f"pool leaks {leaks}"
+    assert counts["paged_decode"] == steps * cfg.num_layers and steps > 0, \
+        f"{counts['paged_decode']} paged launches for {steps} decode steps"
+    assert counts["sdpa_plain"] == 0, counts
+    del eng, model
+    release()
+    return counts["paged_decode"]
+
+
+def router_gaps(model):
+    """Forward pre-hooks on each MoELayer of `model` that keep the
+    smallest gap between a token's first and second router probability
+    and between its second and third (the margins its two argmax
+    choices are made by) over every call; returns the list they update
+    and the hook handles."""
+    gaps = [float("inf")]
+
+    def hook(mod, args):
+        x = args[0].detach().reshape(-1, args[0].shape[-1]).float()
+        p = torch.softmax(x @ mod.gate_weight.detach().float(), -1)
+        top = p.topk(mod.top_k + 1, dim=-1).values
+        gaps[0] = min(gaps[0], float((top[:, :-1] - top[:, 1:]).min()))
+
+    return gaps, [m.register_forward_pre_hook(hook)
+                  for m in moe_layers(model)]
+
+
+def phase_moe_e2e(steps=3, batch=2, seq=128, new=16):
+    """GPT-MoE at full width, 2 layers, float32, E 4, top-2, a routed FFN
+    in each block (eval capacity = n, so nothing drops in eval): 3 AdamW
+    steps on the card against the CPU (the losses with aux, the final
+    parameters); LLMEngine tokens against a dense teacher-forced forward
+    on the CPU; the captured jit_generate on the card token for token
+    against the CPU, and the eager loop on the card against both.  The
+    smallest router probability gap the CPU model
+    met is printed: a flip there would be float32 rounding, not a
+    fault."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.jit import train_step
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.serving import LLMEngine
+    from paddle_tpu_torch.text import decode, generate, gpt_loss_fn
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    over = dict(num_layers=2, num_experts=4, moe_every=1)
+    cfg, card = gpt_moe(512, seed=4, **over)
+    _, cpu = gpt_moe(512, seed=4, device="cpu", **over)
+    cpu.load_state_dict(card.state_dict())
+    init = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    gaps, hooks = router_gaps(cpu)
+    rng = np.random.default_rng(4)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)))
+
+    def train(model, dev):
+        step = train_step(model, gpt_loss_fn,
+                          AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                parameters=model.parameters()))
+        return [step(ids.to(dev), labels.to(dev)).item()
+                for _ in range(steps)]
+
+    zero_counts()
+    card_losses = train(card, "cuda")
+    counts = read_counts()
+    t0 = time.perf_counter()
+    cpu_losses = train(cpu, "cpu")
+    cpu_train_s = time.perf_counter() - t0
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses,
+                                                       cpu_losses))
+    num = den = 0.0
+    card_params = dict(card.named_parameters())
+    for n, p in cpu.named_parameters():
+        num += float((card_params[n].detach().cpu() - p.detach())
+                     .double().square().sum())
+        den += float((p.detach() - init[n]).double().square().sum())
+    param_err = (num / den) ** 0.5
+    train_counts = flash_part(counts)
+    n = steps * cfg.num_layers
+    assert train_counts == {"fwd": n, "dkv": n, "dq": n, "fwd_sm90": 0,
+                            "dkv_sm90": 0, "dq_sm90": 0, "fwd_decode": 0,
+                            "fwd_fp32": n, "dkv_fp32": n,
+                            "dq_fp32": n}, train_counts
+    assert counts["sdpa_plain"] == 0, counts
+
+    # the engine (paged decode kernel in float32) against a dense
+    # teacher-forced forward of the same (trained) weights on the CPU
+    cpu.load_state_dict(card.state_dict())
+    zero_counts()
+    eng = LLMEngine(card, num_blocks=256, block_size=16, max_running=4,
+                    prefill_chunk=128)
+    prompts = [rng.integers(0, cfg.vocab_size, size=k).tolist()
+               for k in (17, 90, 200, 301)]
+    outs = eng.generate_batch(prompts, max_new_tokens=8)
+    leaks = eng.close()
+    engine_counts = read_counts()
+    cpu.eval()
+    worst = 0.0
+    for prompt, gen in zip(prompts, outs):
+        with torch.no_grad():
+            logits = cpu(torch.tensor([prompt + gen[:-1]]))[
+                0, len(prompt) - 1:]
+        chosen = logits[torch.arange(len(gen)), torch.tensor(gen)]
+        worst = max(worst, float((logits.max(-1).values - chosen).max()))
+
+    # the captured decode step on the card against the CPU
+    gids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)))
+    zero_counts()
+    on_card = decode.jit_generate(card, gids.cuda(), max_new_tokens=new)
+    gen_counts = read_counts()
+    key = (seq, new, False, 1.0, None, None, None, batch)
+    captured = card._jit_decode_cache[key].graph is not None
+    on_card = on_card.cpu()
+    zero_counts()
+    eager = generate(card, gids.cuda(), max_new_tokens=new).cpu()
+    eager_counts = read_counts()
+    t0 = time.perf_counter()
+    on_cpu = decode.jit_generate(cpu, gids, max_new_tokens=new)
+    cpu_gen_s = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
+    rec = {"phase": "moe_e2e", "model": "gpt-moe width, 2 layers, E 4, "
+           "top-2, every block routed", "dtype": "float32",
+           "optimizer": "AdamW(1e-4, wd 0.01)", "batch": batch, "seq": seq,
+           "steps": steps, "card_losses": card_losses,
+           "cpu_losses": cpu_losses, "loss_max_rel_err": loss_err,
+           "loss_tol": 1e-5, "param_rel_err": param_err, "param_tol": 1e-3,
+           "cpu_train_seconds": cpu_train_s,
+           "engine_tokens_checked": sum(len(g) for g in outs),
+           "engine_max_logit_gap": worst, "engine_tol": 1e-4,
+           "engine_leaks": leaks,
+           "jit_generate_card_equals_cpu": bool(torch.equal(on_card,
+                                                            on_cpu)),
+           "eager_card_equals_jit_generate": bool(torch.equal(eager,
+                                                              on_card)),
+           "step_captured": captured, "cpu_generate_seconds": cpu_gen_s,
+           "router_min_prob_gap": gaps[0],
+           "launches": {"train": train_counts, "engine": engine_counts,
+                        "jit_generate": gen_counts, "eager": eager_counts},
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    assert loss_err <= 1e-5, f"card and CPU losses differ by {loss_err}"
+    assert param_err <= 1e-3, f"card and CPU parameters differ: {param_err}"
+    assert leaks == ([], []), leaks
+    assert worst <= 1e-4, \
+        f"an engine token sits {worst} below the CPU maximum logit"
+    steps_run = engine_counts["paged_decode"]
+    assert steps_run > 0 and steps_run % cfg.num_layers == 0, engine_counts
+    assert captured, "the decode step was not captured"
+    assert torch.equal(on_card, on_cpu), "card and CPU tokens differ"
+    assert torch.equal(eager, on_card), "eager and captured tokens differ"
+    for c in (gen_counts, eager_counts):
+        assert c["sdpa_plain"] == 0 and \
+            c["flash_fwd_fp32"] == cfg.num_layers and \
+            c["flash_fwd_decode"] == (new - 1) * cfg.num_layers, c
+    del card, cpu, eng
+    release()
+    return {"moe_e2e": train_counts,
+            "moe_e2e/jit_generate": flash_part(gen_counts),
+            "moe_e2e/eager": flash_part(eager_counts)}, steps_run
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on "
@@ -4401,14 +4947,22 @@ def main():
     paths["bert_resume"] = phase_bert_resume(fp32_p50, fp32_busy)
     paths.update(phase_ernie_infer())
     paths["ernie_e2e"] = phase_ernie_e2e()
+    paths["moe_train"] = phase_moe_train()
+    paths.update(phase_moe_generate())
+    moe_paged = phase_moe_serve()
+    moe_e2e, moe_e2e_paged = phase_moe_e2e()
+    paths.update(moe_e2e)
     paths["serve_router"] = router["flash"]
     paths["router_drill"] = drill["flash"]
     paged = phase_timings(launches + serve_llama["paged_decode"]
-                          + router["paged"] + drill["paged"], lens)
+                          + router["paged"] + drill["paged"] + moe_paged
+                          + moe_e2e_paged, lens)
     paged["launches_by_path"] = {"serve": launches,
                                  "serve_llama": serve_llama["paged_decode"],
                                  "serve_router": router["paged"],
-                                 "router_drill": drill["paged"]}
+                                 "router_drill": drill["paged"],
+                                 "moe_serve": moe_paged,
+                                 "moe_e2e": moe_e2e_paged}
     flash = phase_flash_timings(paths)
     emit({"kernels": [paged] + flash})
     smi = subprocess.run(

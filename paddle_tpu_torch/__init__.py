@@ -27,8 +27,12 @@ the training state: checkpoints and the random state (`framework`),
 `ParamAttr`, the nonfinite-step guard, the checkpoint manager and fault
 injection (`resilience`), `amp.auto_cast` (O1 and O2), gradient clipping
 by value and by norm, and the other eleven optimizers of the JAX
-package.
+package; and the incubate package: the MoE layer and GPT-MoE
+(`incubate.nn.MoELayer`, `GPTConfig(num_experts=...)`), the fused
+transformer layers and functions (`incubate.nn`), LookAhead and
+ModelAverage (`incubate.optimizer`).
 """
+from . import incubate  # noqa: F401
 from .device import generator, resolve_device
 from .framework import (CheckpointError, ParamAttr, get_rng_state,
                         load_state, save_state, seed, set_rng_state)

@@ -9,7 +9,10 @@ CUDA generators are restored by checkpoint's `preserve_rng_state`, and
 the explicit `torch.Generator`s that the port's dropout draws from
 (`Dropout.generator`, `GPTAttention.generator`) are set back to their
 state at the forward for the re-run and returned to where they were after
-it.
+it.  Keyword arguments go to the function (`recompute(block, x,
+return_aux=True)` carries a routed block's aux loss out of the
+checkpoint); the re-run routes the same tokens the same way, since the
+MoE router draws nothing at random.
 """
 from __future__ import annotations
 
@@ -30,11 +33,16 @@ def _generators(function):
     return list(found.values())
 
 
-def recompute(function, *args):
-    """recompute(layer_or_fn, *args) — run `function` without keeping its
-    intermediates for the backward, which re-runs it under the random
-    state of the forward."""
-    gens = _generators(function)
+def recompute(function, *args, **kwargs):
+    """recompute(layer_or_fn, *args, **kwargs) — run `function(*args,
+    **kwargs)` without keeping its intermediates for the backward, which
+    re-runs it under the random state of the forward (with
+    `preserve_rng_state=False`: under the state it finds then).
+    `use_reentrant` is taken and changes nothing, as in the JAX
+    package."""
+    preserve = kwargs.pop("preserve_rng_state", True)
+    kwargs.pop("use_reentrant", None)
+    gens = _generators(function) if preserve else []
     at_forward = [g.get_state() for g in gens]
 
     @contextlib.contextmanager
@@ -49,6 +57,6 @@ def recompute(function, *args):
                 g.set_state(s)
 
     return checkpoint(function, *args, use_reentrant=False,
-                      preserve_rng_state=True,
+                      preserve_rng_state=preserve,
                       context_fn=lambda: (contextlib.nullcontext(),
-                                          rerun_rng()))
+                                          rerun_rng()), **kwargs)

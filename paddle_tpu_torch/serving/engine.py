@@ -10,7 +10,14 @@ What differs from the JAX engine, and why the tokens do not:
 * Nothing is compiled, so a prefill chunk runs at its exact length (no
   bucket padding) and a decode step carries only the live rows (no dead
   slots); each step's block table is cut to the columns its rows use.
-  Padding and dead slots only ever added masked, dropped work.
+  For a dense model padding and dead slots only ever added masked,
+  dropped work.  A GPT-MoE routes every token of a call together, and
+  its eval capacity, ceil(2 * top_k * n / E), counts the call's n
+  tokens: where E > 2 * top_k a choice can drop because of the other
+  tokens of its step, and the JAX engine's pad tokens take capacity
+  too.  There the two engines' tokens can differ, and neither stream is
+  independent of its batch (ROADMAP.md C); at E <= 2 * top_k nothing
+  drops and the tokens agree.
 * The pool is updated in place; no pool arrays are handed back.
 * Decode steps on CUDA run the hand-written paged decode kernel;
   prefill chunks run the plain gather path, as the JAX engine sends
@@ -25,8 +32,9 @@ kernel).  As the JAX engine does, it refuses a sliding-window model
 
 Greedy sampling is argmax; sampled mode filters through
 `text.generation.filter_logits` and draws from
-`np.random.default_rng([seed, position])`, so a request's stream does not
-depend on the batch it rides in.  Telemetry (TTFT, TPOT, queue wait,
+`np.random.default_rng([seed, position])`, so a request's draws do not
+depend on the batch it rides in (its logits do for a GPT-MoE whose
+choices can drop, above).  Telemetry (TTFT, TPOT, queue wait,
 decode step time, pool and queue gauges) goes to the port's metrics
 registry.
 """

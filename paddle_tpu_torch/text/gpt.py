@@ -13,9 +13,13 @@ jitted decode loops) and the concat branch (`:136-143`, the eager
 `generate`), `GPTModel`'s positions for each (`:222-241`), `new_caches`
 (`:301-316`) and `generate` (`:318-325`), recompute of the blocks in
 training (`use_recompute`, `:248-258`), train-mode dropout, the
-pretraining criterion (`:327-333`) and `gpt_loss_fn` (`:336-347`, dense
-only: MoE's aux loss comes with the MoE slice).  Tensor parallelism,
-MoE and ring attention are later slices of the port (ROADMAP.md).
+pretraining criterion (`:327-333`), `gpt_loss_fn` (`:336-347`) and the
+MoE configuration: `num_experts` > 0 puts an `incubate.nn.MoELayer` in
+place of the MLP of every `moe_every`-th block (`:171-188`), its aux
+loss crosses `recompute` as an explicit output (`:244-258`) and
+`gpt_loss_fn` adds `moe_aux_weight` times their sum.  Tensor, sequence
+and context parallelism are the distributed slice's (ROADMAP.md A11):
+their flags raise NotImplementedError when set.
 
 Dropout draws from explicit generators: `set_dropout_generator` gives
 one `torch.Generator` to every dropout of the model (None: the device's
@@ -31,6 +35,7 @@ from .. import ops
 from ..device import generator as make_generator
 from ..device import resolve_device
 from ..distributed.recompute import recompute
+from ..incubate.nn.moe import MoELayer, moe_aux_loss
 from ..nn import Dropout
 from ..nn import functional as PF
 from .decode import (_update_paged_cache, _update_prealloc_cache,
@@ -53,7 +58,10 @@ class GPTConfig:
                  num_heads=12, intermediate_size=None,
                  max_position_embeddings=2048, hidden_dropout=0.1,
                  attention_dropout=0.1, initializer_range=0.02,
-                 use_recompute=False):
+                 use_recompute=False, sequence_parallel=False,
+                 context_parallel=False, tensor_parallel=None,
+                 num_experts=0, moe_top_k=2, moe_capacity_factor=1.25,
+                 moe_every=1, moe_aux_weight=0.01):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -64,6 +72,22 @@ class GPTConfig:
         self.attention_dropout = attention_dropout
         self.initializer_range = initializer_range
         self.use_recompute = use_recompute
+        self.sequence_parallel = sequence_parallel
+        self.context_parallel = context_parallel
+        self.tensor_parallel = bool(tensor_parallel)
+        # MoE (GShard / Switch): num_experts > 0 routes the FFN of every
+        # `moe_every`-th block
+        self.num_experts = num_experts
+        self.moe_top_k = moe_top_k
+        self.moe_capacity_factor = moe_capacity_factor
+        self.moe_every = moe_every
+        self.moe_aux_weight = moe_aux_weight
+        on = [name for name in ("tensor_parallel", "sequence_parallel",
+                                "context_parallel") if getattr(self, name)]
+        if on:
+            raise NotImplementedError(
+                f"{', '.join(on)}: the port's distributed slice is not "
+                f"ported yet (ROADMAP.md A11)")
 
     @classmethod
     def from_preset(cls, name, **kw):
@@ -128,18 +152,34 @@ class GPTMLP(nn.Module):
 
 
 class GPTBlock(nn.Module):
-    def __init__(self, cfg, device=None, dtype=None):
+    def __init__(self, cfg, layer_idx=0, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.ln_1 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, **kw)
         self.attn = GPTAttention(cfg, **kw)
         self.ln_2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, **kw)
-        self.mlp = GPTMLP(cfg, **kw)
+        if cfg.num_experts > 0 and (layer_idx + 1) % cfg.moe_every == 0:
+            # drawn again by GPTForCausalLM.reset_parameters
+            self.mlp = MoELayer(cfg.hidden_size, cfg.intermediate_size,
+                                num_experts=cfg.num_experts,
+                                top_k=cfg.moe_top_k,
+                                capacity_factor=cfg.moe_capacity_factor,
+                                **kw)
+        else:
+            self.mlp = GPTMLP(cfg, **kw)
         self.dropout = Dropout(cfg.hidden_dropout)
 
-    def forward(self, x, cache=None):
+    def forward(self, x, cache=None, return_aux=False):
+        """The block's output; with `return_aux`, (output, the routed
+        MLP's aux loss or a float32 zero), so that the aux loss leaves
+        recompute's checkpoint as an output."""
         x = x + self.dropout(self.attn(self.ln_1(x), cache=cache))
-        return x + self.dropout(self.mlp(self.ln_2(x)))
+        x = x + self.dropout(self.mlp(self.ln_2(x)))
+        if return_aux:
+            aux = getattr(self.mlp, "aux_loss", None)
+            return x, aux if aux is not None else \
+                torch.zeros((), device=x.device)
+        return x
 
 
 class GPTModel(nn.Module):
@@ -151,8 +191,8 @@ class GPTModel(nn.Module):
         self.wpe = nn.Embedding(cfg.max_position_embeddings,
                                 cfg.hidden_size, **kw)
         self.drop = Dropout(cfg.hidden_dropout)
-        self.h = nn.ModuleList([GPTBlock(cfg, **kw)
-                                for _ in range(cfg.num_layers)])
+        self.h = nn.ModuleList([GPTBlock(cfg, i, **kw)
+                                for i in range(cfg.num_layers)])
         self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=1e-5, **kw)
 
     def forward(self, input_ids, position_ids=None, caches=None):
@@ -172,7 +212,13 @@ class GPTModel(nn.Module):
         x = self.drop(self.wte(input_ids) + self.wpe(position_ids))
         for i, block in enumerate(self.h):
             if self.cfg.use_recompute and self.training and caches is None:
-                x = recompute(block, x)
+                if isinstance(block.mlp, MoELayer):
+                    # the aux loss leaves the checkpoint as an output and
+                    # is attached again outside it
+                    x, aux = recompute(block, x, return_aux=True)
+                    block.mlp.restore_aux_loss(aux)
+                else:
+                    x = recompute(block, x)
             else:
                 x = block(x, cache=None if caches is None else caches[i])
         return self.ln_f(x)
@@ -184,8 +230,10 @@ class GPTForCausalLM(nn.Module):
     Built on `device` (the CUDA device unless told otherwise; raises when
     there is none) in `dtype`, with weights drawn like the JAX package's:
     Normal(0, initializer_range) for every Linear weight and embedding,
-    zero biases, unit LayerNorm scales.  `generator` (a torch.Generator on
-    `device`) makes the draw reproducible; by default one seeded with 0."""
+    zero biases, unit LayerNorm scales, and a routed block's expert and
+    router weights from Normal(0, 0.02) (`MoELayer`'s own draw).
+    `generator` (a torch.Generator on `device`) makes the draw
+    reproducible; by default one seeded with 0."""
 
     def __init__(self, cfg, device=None, dtype=torch.float32,
                  generator=None):
@@ -207,6 +255,8 @@ class GPTForCausalLM(nn.Module):
             elif isinstance(mod, nn.LayerNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
+            elif isinstance(mod, MoELayer):
+                mod.reset_parameters(generator)
 
     def set_dropout_generator(self, generator):
         """Draw every dropout mask of the model (hidden and attention) from
@@ -249,8 +299,16 @@ class GPTPretrainingCriterion(nn.Module):
 
 def gpt_loss_fn(model, input_ids, labels):
     """The pretraining loss TrainStep drives: cross entropy of the logits
-    against `labels` (float32, mean over the labels that are not -100)."""
-    return PF.cross_entropy(model(input_ids), labels, reduction="mean")
+    against `labels` (float32, mean over the labels that are not -100),
+    plus `moe_aux_weight` times the routed blocks' aux losses when the
+    config routes any."""
+    loss = PF.cross_entropy(model(input_ids), labels, reduction="mean")
+    cfg = getattr(model, "cfg", None)
+    if cfg is not None and getattr(cfg, "num_experts", 0):
+        aux = moe_aux_loss(model)
+        if aux is not None:
+            loss = loss + cfg.moe_aux_weight * aux
+    return loss
 
 
 def _new_caches(model, kv_heads, batch_size, dtype, max_length):

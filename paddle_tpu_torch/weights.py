@@ -3,14 +3,18 @@
 `load_paddle_tpu_state(model, arrays)` takes the `{name: np.ndarray}`
 that a `paddle_tpu` model's `state_dict()` gives (each value through
 `np.asarray`) and copies it into the port's model of the same
-architecture (GPT, LLaMA, Mistral, Qwen2, ResNet, BERT, ERNIE, and any
-of them wrapped by LoRA or converted to weight-only), name for name.  The JAX
+architecture (GPT, GPT-MoE, LLaMA, Mistral, Qwen2, ResNet, BERT, ERNIE,
+the incubate package's fused layers, and any of them wrapped by LoRA or
+converted to weight-only), name for name.  The JAX
 package keeps a Linear weight as [in, out] (`paddle_tpu/nn/common.py::
 Linear`); `torch.nn.Linear` keeps [out, in], so those weights (every
 projection, LLaMA's untied `lm_head`, a ResNet's `fc`, BERT's and
 ERNIE's `*_proj`, `linear1` / `linear2`, `pooler` and `classifier`, and the
 `*.base.weight` of a LoRA layer) are transposed on the way.  The rest
-keeps its layout: embeddings, norm weights and biases, OIHW conv
+keeps its layout: embeddings, norm weights and biases, a routed
+block's stacked experts (`mlp.gate_weight` [d, E], `mlp.w1` [E, d, f],
+`mlp.w2` [E, f, d] and their biases), the fused layers' raw [in, out]
+weights (`qkv_weight`, `linear_weight`, `linear1_weight`, ...), OIHW conv
 weights, batch-norm running statistics, LoRA's `lora_A` [in, r] and
 `lora_B` [r, out] (the port keeps the JAX layout for them), and a
 weight-only layer's int8 `quant_weight` [in, out] and `weight_scale`,

@@ -3,7 +3,8 @@
 An AST scan shows that no module of `paddle_tpu_torch/`, and not
 `chip_smoke.py` and not `tools/torch_chaos_check.py`, imports `jax`,
 `paddle_tpu` or `paddle`; a fresh interpreter importing the whole port
-(the training and serving-tier modules included) loads none of them,
+(the training, serving-tier and incubate modules included) loads none
+of them,
 and neither does a serving worker process after it has served; and the
 port's entry points raise, rather than run on the CPU, when no device is
 named and there is no CUDA device.
@@ -73,6 +74,12 @@ def test_no_port_module_imports_jax_or_the_jax_package():
             "paddle_tpu_torch/serving/router.py",
             "paddle_tpu_torch/serving/transport.py",
             "paddle_tpu_torch/serving/worker.py",
+            "paddle_tpu_torch/incubate/__init__.py",
+            "paddle_tpu_torch/incubate/optimizer.py",
+            "paddle_tpu_torch/incubate/nn/__init__.py",
+            "paddle_tpu_torch/incubate/nn/moe.py",
+            "paddle_tpu_torch/incubate/nn/functional.py",
+            "paddle_tpu_torch/incubate/nn/fused_transformer.py",
             "tools/torch_chaos_check.py"} <= rel
     bad = {os.path.relpath(p, REPO): sorted(set(_imported_roots(p))
                                             & FORBIDDEN)
@@ -109,7 +116,11 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.distributed.launch.heartbeat, "
             "paddle_tpu_torch.serving.router, "
             "paddle_tpu_torch.serving.transport, "
-            "paddle_tpu_torch.serving.worker, tools.torch_chaos_check\n"
+            "paddle_tpu_torch.serving.worker, paddle_tpu_torch.incubate, "
+            "paddle_tpu_torch.incubate.nn, paddle_tpu_torch.incubate.nn.moe, "
+            "paddle_tpu_torch.incubate.nn.functional, "
+            "paddle_tpu_torch.incubate.nn.fused_transformer, "
+            "paddle_tpu_torch.incubate.optimizer, tools.torch_chaos_check\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN | {'transformers'})!r})\n"
             "assert not bad, bad\n")
@@ -255,6 +266,36 @@ def test_training_state_entry_points_stay_on_the_named_device(monkeypatch,
         assert {p.device for p in m.parameters()} == {cpu}
         assert {t.device for slots in o._state for t in slots.values()} \
             == {cpu}
+
+
+def test_moe_and_incubate_entry_points_stay_on_the_named_device(
+        monkeypatch):
+    """A GPT-MoE raises without a card unless the CPU is named; named,
+    its experts, its aux loss, a TrainStep's loss and the LookAhead and
+    ModelAverage copies stay on the CPU."""
+    from paddle_tpu_torch.incubate import LookAhead, ModelAverage
+    from paddle_tpu_torch.optimizer import SGD
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = GPTConfig(vocab_size=16, hidden_size=8, num_layers=2, num_heads=2,
+                    max_position_embeddings=8, num_experts=4,
+                    use_recompute=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GPTForCausalLM(cfg)
+    cpu = torch.device("cpu")
+    model = GPTForCausalLM(cfg, device="cpu")
+    assert {p.device for p in model.parameters()} == {cpu}
+    ids = torch.zeros(1, 8, dtype=torch.long)
+    step = train_step(model, gpt_loss_fn, Adafactor(
+        parameters=model.parameters()))
+    assert step(ids, ids).device == cpu
+    assert model.gpt.h[0].mlp.aux_loss.device == cpu
+    la = LookAhead(SGD(parameters=model.parameters()), k=1)
+    ma = ModelAverage(parameters=model.parameters())
+    gpt_loss_fn(model, ids, ids).backward()
+    la.step()
+    ma.step()
+    assert {t.device for t in la._slow + ma._avg} == {cpu}
 
 
 def test_a_spawned_worker_loads_no_jax(monkeypatch, tmp_path):
