@@ -12,6 +12,11 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    and spills for each sm90 flash kernel, each decode
                    kernel and each fp32 forward and backward kernel (the
                    fp32 backward's 12 with 0 spills, asserted);
+1a. aot_compile  — exports and compiles with AOTInductor every package
+                   that 4a, 5a, 5b and 23 load, four processes at once
+                   (serve_aot's 2 programs, serve_aot_e2e's 2, ERNIE's
+                   float32 and bf16 packages), and waits for them: each
+                   job's seconds; no timed phase runs beside a compile;
 2. kernels       — holds the paged decode kernel (context split across
                    blocks) against its plain PyTorch version on the card
                    at the serving path's shapes and at the split edges
@@ -49,18 +54,38 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    leak-free, and the paged kernel must have launched once
                    per layer per decode step; then a profile of a few
                    steady decode steps (device time by kernel);
+4a. serve_aot    — serve's model, engine and requests from AOTInductor
+                   packages: the inventory (decode, prefill 512: serve's
+                   chunk of 512 with the one-bucket ladder [512], 2
+                   programs, so that the compiles fit the script's time;
+                   a shorter chunk pads to 512) compiled (seconds and
+                   bytes a program, each package under 5 % of the
+                   weight bytes: the weights are inputs), loaded strictly into a fresh
+                   engine and served: tokens/s, decode step, TTFT, peak
+                   memory beside serve's, a profile of AOT decode steps;
+                   every call through a package, paged launches (called
+                   back from the packages) = steps x 24, no plain sdpa,
+                   no leak, bf16 tokens within MARGIN_TOL of a float32
+                   forward's maximum;
 5. e2e           — the same width at 2 layers in float32: the engine's
                    tokens are checked against a dense teacher-forced
                    forward of the same weights on the CPU;
-5a. serve_router — serve's traffic through a Router over two worker
+5a. serve_aot_e2e — that model and engine with the ladder [128]: the
+                   engine serving from packages compiled on the card
+                   against the eager engine on the card and on the CPU,
+                   token for token;
+5b. serve_router — serve's traffic through a Router over two worker
                    processes (ProcReplica, each its own CUDA context),
                    GPT-3 1.3B bf16: tokens/s and the router's TTFT beside
                    serve's, each worker's decode steps, paged launches
                    (= steps x 24), plain sdpa calls (0), peak memory,
                    build, first-step and spawn-to-ready seconds; every
                    request finishes, no leak, no orphan, the workers'
-                   probe logits equal the parent's bit for bit;
-5b. router_drill — `tools/torch_chaos_check.py --router --proc` at that
+                   probe logits equal the parent's bit for bit; worker
+                   r1 starts from serve_aot's packages (`load_aot`): its
+                   ready event reports all of them loaded, it serves
+                   through them alone, and its start prints beside r0's;
+5c. router_drill — `tools/torch_chaos_check.py --router --proc` at that
                    width in float32: r0 SIGKILLed mid-stream 3x
                    (evictions / respawns / aborts 3 / 2 / 1), a dropped
                    frame, a wedged worker hang-evicted and KILLed; every
@@ -206,6 +231,10 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    6 times (fp32), the logits equal the eager model's,
                    and the flash forward's device time a run;
                    then the same in bf16 (sm90), logits near float32's;
+                   in each dtype also save_inference(aot=True) ->
+                   load_inference(strict_aot=True): is_aot, run p50/p99
+                   in turns with the exported program's, the same flash
+                   launches, logits within ERNIE_AOT_TOL of its;
 24. ernie_e2e    — 2 layers, float32: the predictor on the card against
                    the eager model on the CPU, logits within 1e-4, at two
                    batch sizes of one dynamic-batch program;
@@ -250,19 +279,22 @@ and sm80, at bert_e2e's shape (B 8) and ERNIE's (B 32), unmasked and
 masked, and at the train_fp32 shape, in turns with float32 SDPA's
 backward through autograd (fp32, sm80, SDPA, SDPA, sm80, fp32).
 
-The kernels line counts the flash launches of phases 5a-5b, 6-10, 13-16
-and 19-28 (bert_resume's: its first unbroken run; the worker processes'
-read from their metrics, the killed workers' lost with them); the sm80
-forward, dK/dV and dQ launch on none of them (asserted,
-`on_main_paths: false`).  The paged kernel's launches are serve's,
-serve_llama's, the workers' of 5a-5b, moe_serve's and moe_e2e's.
-Each phase prints one JSON line.  Then one {"kernels": [...]} line, the
+The kernels line counts the flash launches of phases 4a, 5b-5c, 6-10,
+13-16 and 19-28 (bert_resume's: its first unbroken run; ernie_infer's
+exported and AOT runs; the worker processes' read from their metrics,
+the killed workers' lost with them); the sm80 forward, dK/dV and dQ
+launch on none of them (asserted, `on_main_paths: false`).  The paged
+kernel's launches are serve's, serve_aot's, serve_aot_e2e's,
+serve_llama's, the workers' of 5b-5c, moe_serve's and moe_e2e's.
+The phases run in the order of their numbers.  Each phase prints one
+JSON line.  Then one {"kernels": [...]} line, the
 card's name and power limit from nvidia-smi, and last
 {"ok": true, "device": {...}}.  Any failure raises and exits nonzero
 before the last line; without a CUDA device it exits 1 at once.
 """
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -570,7 +602,7 @@ def phase_serve():
         "decode_step_p50_ms": step_s.percentile(50) * 1e3}
 
 
-def phase_profile(eng, prompts, step_p50_s, steps=4):
+def phase_profile(eng, prompts, step_p50_s, steps=4, phase="profile"):
     """Where a steady decode step's time goes: the same 16 prompts are
     prefilled again, then `steps` decode steps of 16 rows run under
     torch.profiler (CUPTI kernel records).  The profiler's own host cost
@@ -598,7 +630,7 @@ def phase_profile(eng, prompts, step_p50_s, steps=4):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     paged = sum(us for name, us in by_name.items() if "paged_decode" in name)
     busy_ms = busy / steps / 1e3
-    emit({"phase": "profile", "decode_steps": steps, "rows": len(reqs),
+    emit({"phase": phase, "decode_steps": steps, "rows": len(reqs),
           "device_events": spans,
           "profiled_wall_ms_per_step": wall_us / steps / 1e3,
           "unprofiled_step_p50_ms": step_p50_s * 1e3,
@@ -667,12 +699,300 @@ def phase_e2e():
         f"an engine token sits {worst} below the CPU maximum logit"
 
 
+# ---------------------------------------------------------- AOT serving
+# serve's engine settings: the inventory is the decode program and the
+# prefill buckets 32, 64, 128, 256 and 512 of the default ladder
+SERVE_ENGINE = dict(num_blocks=2048, block_size=16, max_running=16,
+                    prefill_chunk=512)
+# a package holds no weights: each must be under this share of them
+AOT_PACKAGE_SHARE = 0.05
+
+
+def gpt13(dtype=torch.bfloat16, seed=0, **over):
+    """GPT-3 1.3B on the card, random weights from a seeded generator."""
+    from paddle_tpu_torch.text import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig.from_preset("gpt3-1.3B", hidden_dropout=0.0,
+                                attention_dropout=0.0, **over)
+    return GPTForCausalLM(
+        cfg, device="cuda", dtype=dtype,
+        generator=torch.Generator(device="cuda").manual_seed(seed)).eval()
+
+
+def gpt_margin(model, prompts, streams):
+    """The largest (row maximum - chosen token's logit) over the tokens of
+    `streams`, from a dense float32 forward of `model` (converted in
+    place) on the card, TF32 off."""
+    from torch.nn import functional as F
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model.float()
+    worst = 0.0
+    for p, gen in zip(prompts, streams):
+        seq = torch.tensor([list(p) + list(gen)], device="cuda")
+        with torch.no_grad():
+            h = model.gpt(seq[:, :-1])[:, len(p) - 1:]
+            logits = F.linear(h, model.gpt.wte.weight).float()
+        worst = max(worst, margin(logits, seq, len(p)))
+    return worst
+
+
+def aot_program_calls(reg):
+    """{route: calls} of `serving_program_calls_total` in `reg` (a
+    registry or a worker's metrics snapshot)."""
+    recs = reg.snapshot() if hasattr(reg, "snapshot") else reg
+    return {rec["labels"]["route"]: rec["value"] for rec in recs
+            if rec["name"] == "serving_program_calls_total"}
+
+
+# serve_aot's engine: serve's, with the one-bucket ladder [512] (a chunk
+# pads to 512), so that its inventory is 2 programs, not 6: the script
+# compiles them before any timed phase and must end within its time
+SERVE_AOT_ENGINE = dict(SERVE_ENGINE, buckets=[512])
+# serve_aot_e2e's engine: e2e's, with the one-bucket ladder [128]
+E2E_AOT_ENGINE = dict(num_blocks=256, block_size=16, max_running=4,
+                      prefill_chunk=128, buckets=[128])
+
+
+# aot_compile's jobs: one process each, all at once
+AOT_JOBS = ("serve", "e2e", "ernie_float32", "ernie_bfloat16")
+
+
+def phase_aot_compile():
+    """Every AOTInductor export and compile of the script, before any
+    timed phase, so that no phase is timed beside a compile: one
+    `chip_smoke.py --aot-export NAME DIR` process a job of AOT_JOBS
+    (`aot_export`), all at once, each in a session of its own with its
+    output in DIR: "serve" (serve_aot's inventory, 2 programs), "e2e"
+    (serve_aot_e2e's, 2 programs) and ERNIE's `save_inference(aot=True)`
+    in float32 and in bf16.  A compile keeps about one host core busy for
+    minutes (GPT-3 1.3B's decode program 155.9 s alone,
+    `tools/torch_aot_probe.py`, NVIDIA H100 80GB HBM3 at 700 W), so they
+    run side by side.  Prints each job's seconds and the phase's; returns
+    {name: (its TemporaryDirectory, what it printed)}.  A failed job
+    raises with its stderr, and no process outlives a failure."""
+    import signal
+    import tempfile
+    t0 = time.perf_counter()
+    jobs, done = {}, {}
+    try:
+        for name in AOT_JOBS:
+            tmp = tempfile.TemporaryDirectory(prefix=f"aot_{name}_")
+            jobs[name] = tmp, None
+            with open(os.path.join(tmp.name, "export.out"), "w") as out, \
+                    open(os.path.join(tmp.name, "export.err"), "w") as err:
+                jobs[name] = tmp, subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--aot-export", name, tmp.name], stdout=out,
+                    stderr=err, start_new_session=True)
+        for name, (tmp, proc) in jobs.items():
+            rc = proc.wait()
+            with open(os.path.join(tmp.name, "export.err")) as f:
+                assert rc == 0, \
+                    f"aot export {name} exited {rc}: {f.read()[-4000:]}"
+            with open(os.path.join(tmp.name, "export.out")) as f:
+                done[name] = tmp, json.loads(
+                    f.read().strip().splitlines()[-1])
+    except BaseException:
+        for tmp, proc in jobs.values():
+            if proc is not None and proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+            tmp.cleanup()
+        raise
+    emit({"phase": "aot_compile", "jobs": list(AOT_JOBS),
+          "job_wall_s": {n: info["wall_s"] for n, (_, info) in done.items()},
+          "phase_seconds": time.perf_counter() - t0})
+    return done
+
+
+def aot_export(name, path):
+    """`chip_smoke.py --aot-export NAME DIR`: "serve" and "e2e" export
+    their model's inventory into DIR (`export_serving_artifacts`: each
+    program compiles in a child process of its own), "ernie_float32" and
+    "ernie_bfloat16" run `ernie_aot_export`.  Prints {"wall_s": ...}."""
+    from paddle_tpu_torch.serving import LLMEngine, export_serving_artifacts
+    t0 = time.perf_counter()
+    if name.startswith("ernie_"):
+        ernie_aot_export(path, name[len("ernie_"):])
+    else:
+        kw, eng_kw = {
+            "serve": ({}, SERVE_AOT_ENGINE),
+            "e2e": (dict(dtype=torch.float32, seed=1, num_layers=2),
+                    E2E_AOT_ENGINE)}[name]
+        eng = LLMEngine(gpt13(**kw), **eng_kw)
+        export_serving_artifacts(eng, path)
+        assert eng.close() == ([], [])
+    print(json.dumps({"wall_s": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+def phase_serve_aot(serve, aot):
+    """serve's model (GPT-3 1.3B, bf16, seed 0), engine settings (with
+    the ladder [512], SERVE_AOT_ENGINE) and request mix served from
+    AOTInductor packages.  The inventory (`program_keys`: decode and
+    prefill 512), compiled by `phase_aot_compile` (each program's export
+    and compile seconds, and its bytes: each under AOT_PACKAGE_SHARE of
+    the weights, since the weights are inputs), is loaded into a fresh
+    engine over the same model with strict=True and the mix served:
+    tokens/s, decode step p50/p99, TTFT p50/p99, peak memory beside
+    serve's; then a profile of 4 AOT decode steps
+    (`phase_profile`, device ms by kernel, busy share).  Gates: every
+    program loaded, none refused, no call eager or fallen back, paged
+    launches = decode steps x 24 (the operator called back from the
+    packages), 0 sm80 and 0 plain sdpa, every request "length", no leak,
+    each token within MARGIN_TOL of a float32 forward's maximum.  Returns
+    the directory (kept for serve_router's AOT worker), the inventory
+    size and the launch counts."""
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.serving import LLMEngine, load_serving_artifacts
+
+    tmp, export = aot["serve"]
+    path = tmp.name
+    with open(os.path.join(path, "serving_manifest.json")) as f:
+        manifest = json.load(f)
+    model = gpt13()
+    layers = model.cfg.num_layers
+    wbytes = weight_bytes(model)
+    reg = metrics.registry()
+    reg.reset()
+    programs = {name: {k: e[k] for k in ("bytes", "export_s", "compile_s")}
+                | {"weight_share": e["bytes"] / wbytes}
+                for name, e in manifest["programs"].items()}
+
+    eng = LLMEngine(model, **SERVE_AOT_ENGINE)
+    t0 = time.perf_counter()
+    keys = load_serving_artifacts(eng, path, strict=True)
+    load_s = time.perf_counter() - t0
+    loaded = reg.counter("serving_aot_loaded_total").value
+    refused = reg.counter("serving_aot_refused_total").value
+    prompts = [np.asarray(p) for p in serve["prompts"]]
+    eng.generate_batch([prompts[0][:64]], max_new_tokens=2)    # warm-up
+    reg.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    reqs = [eng.add_request(p, max_new_tokens=32) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = reg.counter("serving_decode_steps_total").value
+    step_s = reg.histogram("serving_decode_step_seconds")
+    ttft = reg.histogram("serving_ttft_seconds")
+    calls = aot_program_calls(reg)
+    fallback = reg.counter("serving_aot_fallback_total").value
+    tokens = sum(len(r.generated) for r in reqs)
+    reasons = sorted({r.finish_reason for r in reqs})
+    leaks = eng.pool.check_leaks()
+    streams = [list(r.generated) for r in reqs]
+    phase_profile(eng, prompts, step_s.percentile(50),
+                  phase="serve_aot_profile")
+    eng.close()
+    del eng
+    release()
+    worst = gpt_margin(model, prompts, streams)
+    fl = flash_part(counts)
+    emit({"phase": "serve_aot", "model": "gpt3-1.3B", "dtype": "bfloat16",
+          "layers": layers, "engine": SERVE_AOT_ENGINE,
+          "inventory": [list(k) for k in keys], "programs": programs,
+          "export_process_wall_s": export["wall_s"],
+          "load_s": load_s,
+          "weight_bytes": wbytes, "loaded": loaded, "refused": refused,
+          "requests": len(reqs), "output_tokens": tokens, "wall_s": wall,
+          "output_tokens_per_s": tokens / wall, "decode_steps": steps,
+          "decode_step_p50_ms": step_s.percentile(50) * 1e3,
+          "decode_step_p99_ms": step_s.percentile(99) * 1e3,
+          "ttft_p50_s": ttft.percentile(50), "ttft_p99_s": ttft.percentile(99),
+          "peak_memory_gib": peak, "program_calls": calls,
+          "fallbacks": fallback, "launches": counts,
+          "serve_output_tokens_per_s": serve["output_tokens_per_s"],
+          "serve_decode_step_p50_ms": serve["decode_step_p50_ms"],
+          "serve_ttft_p50_s": serve["ttft_p50_s"],
+          "serve_ttft_p99_s": serve["ttft_p99_s"],
+          "streams_equal_serve": sum(a == b for a, b in
+                                     zip(streams, serve["streams"])),
+          "finish_reasons": reasons, "leaks": leaks,
+          "max_margin": worst, "margin_tol": MARGIN_TOL})
+    assert len(keys) == len(manifest["programs"]) == loaded, (keys, loaded)
+    assert refused == 0 and fallback == 0, (refused, fallback)
+    assert calls.get("live", 0) == 0 and calls.get("aot", 0) > steps, calls
+    assert all(p["weight_share"] < AOT_PACKAGE_SHARE
+               for p in programs.values()), programs
+    assert reasons == ["length"], f"requests finished with {reasons}"
+    assert leaks == ([], []), f"pool leaks {leaks}"
+    assert counts["paged_decode"] == steps * layers and steps > 0, \
+        f"{counts['paged_decode']} paged launches for {steps} decode steps"
+    assert counts["sdpa_plain"] == 0 and fl["fwd"] == fl["fwd_sm90"] + \
+        fl["fwd_decode"] + fl["fwd_fp32"], counts
+    assert worst <= MARGIN_TOL, f"a served token sits {worst} below the max"
+    del model
+    release()
+    return {"dir": path, "programs": len(keys),
+            "paged": counts["paged_decode"], "flash": fl}
+
+
+def phase_serve_aot_e2e(aot):
+    """GPT-3 1.3B's width at 2 layers in float32 (TF32 off), e2e's
+    prompts and E2E_AOT_ENGINE (decode and prefill 128): the engine
+    serving from the packages `phase_aot_compile` compiled on the card,
+    loaded strictly, against the same engine served eagerly on the card
+    and on the CPU, token for token.  Returns the paged launches."""
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.serving import LLMEngine, load_serving_artifacts
+    from paddle_tpu_torch.text import GPTForCausalLM
+
+    tmp, export = aot["e2e"]
+    path = tmp.name
+    with open(os.path.join(path, "serving_manifest.json")) as f:
+        manifest = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = gpt13(torch.float32, seed=1, num_layers=2)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, model.cfg.vocab_size, size=n).tolist()
+               for n in (17, 90, 200, 301)]
+    reg = metrics.registry()
+    eng = LLMEngine(model, **E2E_AOT_ENGINE)
+    live = eng.generate_batch(prompts, max_new_tokens=8)
+    assert eng.close() == ([], [])
+    eng = LLMEngine(model, **E2E_AOT_ENGINE)
+    keys = load_serving_artifacts(eng, path, strict=True)
+    reg.reset()
+    zero_counts()
+    aot_tokens = eng.generate_batch(prompts, max_new_tokens=8)
+    counts = read_counts()
+    calls = aot_program_calls(reg)
+    steps = reg.counter("serving_decode_steps_total").value
+    assert eng.close() == ([], [])
+    cpu = GPTForCausalLM(model.cfg, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    ceng = LLMEngine(cpu.eval(), **E2E_AOT_ENGINE)
+    on_cpu = ceng.generate_batch(prompts, max_new_tokens=8)
+    emit({"phase": "serve_aot_e2e", "model": "gpt3-1.3B width, 2 layers",
+          "dtype": "float32", "inventory": [list(k) for k in keys],
+          "export_process_wall_s": export["wall_s"],
+          "compile_s": {k: e["compile_s"]
+                        for k, e in manifest["programs"].items()},
+          "requests": len(prompts),
+          "aot_equal_live": aot_tokens == live,
+          "aot_equal_cpu": aot_tokens == on_cpu,
+          "program_calls": calls, "paged_launches": counts["paged_decode"],
+          "decode_steps": steps})
+    assert len(keys) == 2 and calls.get("live", 0) == 0, (keys, calls)
+    assert aot_tokens == live == on_cpu, (aot_tokens, live, on_cpu)
+    assert counts["paged_decode"] == steps * 2, (counts, steps)
+    del model, cpu
+    release()
+    return counts["paged_decode"]
+
+
 # ------------------------------------------------------------ serving tier
 GPT13_SPEC = dict(preset="gpt3-1.3B",
                   overrides=dict(hidden_dropout=0.0, attention_dropout=0.0))
 
 
-def phase_serve_router(serve):
+def phase_serve_router(serve, aot=None):
     """serve's traffic (its 16 prompts, 32 greedy tokens each) through a
     Router over two ProcReplica worker processes on the one card, each
     with its own CUDA context, GPT-3 1.3B in bf16 and serve's engine
@@ -686,8 +1006,13 @@ def phase_serve_router(serve):
     every request finishes "length", no leak, every worker pid dead and
     reaped after close(), the workers' probe logits equal the parent's
     bit for bit, paged launches = decode steps x layers in each worker,
-    0 plain sdpa calls.  Returns the workers' launch counts and the
-    slower worker's spawn-to-ready seconds."""
+    0 plain sdpa calls.  With `aot` (serve_aot's artifacts), worker r1
+    starts with `load_aot=` them and their ladder [512]
+    (SERVE_AOT_ENGINE): its ready event must report every
+    program loaded, and it must serve through them alone (no eager or
+    fallen-back call); its spawn-to-ready, build, AOT load and first-step
+    seconds print beside the cold worker r0's.  Returns the workers'
+    launch counts and the slower worker's spawn-to-ready seconds."""
     from paddle_tpu_torch.observability import metrics
     from paddle_tpu_torch.serving import Router
     from paddle_tpu_torch.serving import worker as sw
@@ -698,6 +1023,9 @@ def phase_serve_router(serve):
                   prefill_chunk=512)
     spec = tcc.drill_spec(device="cuda", dtype="bfloat16", engine=engine,
                           seed=0, **GPT13_SPEC)
+    if aot is not None:
+        aot_spec = dict(spec, load_aot=aot["dir"],
+                        engine=dict(spec["engine"], buckets=[512]))
     parent = sw.build_gpt(spec).eval()
     digest = tcc.probe_digest(parent)
     layers = parent.cfg.num_layers
@@ -708,7 +1036,9 @@ def phase_serve_router(serve):
     pol = TransportPolicy(timeout=120.0, retries=0)
 
     def factory(name, hb_path, respawning=False):
-        h = sw.ProcReplica(spec, name, hb_path, policy=pol)
+        warm = aot is not None and name == "r1"
+        h = sw.ProcReplica(aot_spec if warm else spec, name, hb_path,
+                           policy=pol)
         handles.append(h)
         return h
 
@@ -723,6 +1053,8 @@ def phase_serve_router(serve):
         ready = {k: v + spawn_s for k, v in ready.items()}
         first = {n: tcc.worker_report(r)
                  for n, r in router.metrics_snapshot().items()}
+        aot_loaded = {h.name: h.ready_info.get("aot_loaded")
+                      for h in handles}
         reg = metrics.registry()
         reg.reset()
         t0 = time.perf_counter()
@@ -734,8 +1066,9 @@ def phase_serve_router(serve):
             router.step()
         wall = time.perf_counter() - t0
         ttft = reg.histogram("router_ttft_seconds")
-        workers = {n: tcc.worker_report(r)
-                   for n, r in router.metrics_snapshot().items()}
+        snaps = router.metrics_snapshot()
+        workers = {n: tcc.worker_report(r) for n, r in snaps.items()}
+        calls = {n: aot_program_calls(r) for n, r in snaps.items()}
         leaks = router.close()
     finally:
         for h in handles:
@@ -755,7 +1088,11 @@ def phase_serve_router(serve):
                "peak_memory_gib": w.get("serving_peak_memory_bytes", 0)
                / 2**30,
                "build_s": w["serving_build_seconds"],
-               "first_step_s": w["serving_first_step_seconds"]}
+               "first_step_s": w["serving_first_step_seconds"],
+               "aot_loaded": aot_loaded.get(n),
+               "aot_load_s": w.get("serving_aot_load_seconds"),
+               "program_calls": calls.get(n),
+               "fallbacks": w.get("serving_aot_fallback_total", 0)}
            for n, w in workers.items()}
     emit({"phase": "serve_router", "model": GPT13_SPEC["preset"],
           "dtype": "bfloat16", "workers": len(handles),
@@ -782,6 +1119,11 @@ def phase_serve_router(serve):
         assert w["sdpa_plain_calls"] == 0, (n, w)
         assert w["decode_steps"] > 0 and \
             w["paged_launches"] == w["decode_steps"] * layers, (n, w)
+    if aot is not None:
+        w = per["r1"]
+        assert w["aot_loaded"] == aot["programs"], w
+        assert w["program_calls"].get("live", 0) == 0 and \
+            w["program_calls"].get("aot", 0) > 0 and not w["fallbacks"], w
     counts = summed_launches(workers.values())
     return {"paged": counts["paged_decode"], "flash": flash_part(counts),
             "spawn_to_ready_s": max(ready.values())}
@@ -3822,7 +4164,35 @@ def export_predictor(model, spec):
         return inference.create_predictor(inference.Config(tmp)), secs
 
 
-def phase_ernie_infer(steps=30, warmup=5, batch=32, seq=128):
+def ernie_medium():
+    """ERNIE-3.0-medium as run_ernie_infer builds it, on the card, weights
+    from generator seed 0, in eval mode."""
+    from paddle_tpu_torch.text import (ErnieForSequenceClassification,
+                                       ernie_config_from_preset)
+    cfg = ernie_config_from_preset("ernie-3.0-medium-zh",
+                                   hidden_dropout_prob=0.0)
+    model = ErnieForSequenceClassification(
+        cfg, num_classes=2, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    return model.eval()
+
+
+def ernie_aot_export(path, dtype, batch=32, seq=128):
+    """`chip_smoke.py --aot-export ernie_DTYPE DIR` (`aot_export`):
+    ERNIE-3.0-medium (`ernie_medium`) saved with `save_inference(aot=
+    True)` at [batch, seq] into DIR, in float32 or under AMP O2 bf16, as
+    ernie_infer exports it."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import InputSpec, save_inference
+    model = ernie_medium()
+    if dtype == "bfloat16":
+        amp.decorate(models=model, dtype="bfloat16")
+    save_inference(model, path,
+                   [InputSpec([batch, seq], "int64", "input_ids")],
+                   aot=True)
+
+
+def phase_ernie_infer(aot, steps=30, warmup=5, batch=32, seq=128):
     """ERNIE-3.0-medium inference as bench.py::run_ernie_infer runs it:
     ernie_config_from_preset("ernie-3.0-medium-zh", hidden_dropout_prob=
     0.0), ErnieForSequenceClassification, eval, save_inference over
@@ -3835,19 +4205,15 @@ def phase_ernie_infer(steps=30, warmup=5, batch=32, seq=128):
     flash forward's device time a run comes from the profile.  Then the same in
     bf16 (AMP O2 before the export): sm90 launches, logits within
     ERNIE_BF16_TOL of the float32 run's.  Returns {path: flash launch
-    counts}."""
+    counts}.  Each dtype's AOT package (`ernie_aot_export`, compiled by
+    `phase_aot_compile`) is loaded and held against the exported program
+    (`ernie_aot`)."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.jit import InputSpec
-    from paddle_tpu_torch.text import (ErnieForSequenceClassification,
-                                       ernie_config_from_preset)
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = ernie_config_from_preset("ernie-3.0-medium-zh",
-                                   hidden_dropout_prob=0.0)
-    model = ErnieForSequenceClassification(
-        cfg, num_classes=2, device="cuda",
-        generator=torch.Generator(device="cuda").manual_seed(0))
-    model.eval()
+    model = ernie_medium()
+    cfg = model.ernie.cfg
     ids = np.random.RandomState(0).randint(
         0, cfg.vocab_size, (batch, seq)).astype("int64")
     L = cfg.num_hidden_layers
@@ -3902,7 +4268,12 @@ def phase_ernie_infer(steps=30, warmup=5, batch=32, seq=128):
         assert counts["sdpa_plain"] == 0, counts
         assert diff <= ERNIE_EAGER_TOL, (dtype, diff)
         logits[dtype] = got
-        paths[f"ernie_infer_{'bf16' if sm90 else 'fp32'}"] = fl
+        name = f"ernie_infer_{'bf16' if sm90 else 'fp32'}"
+        paths[name] = fl
+        tmp, export = aot[f"ernie_{dtype}"]
+        rec[dtype]["aot"], paths[f"{name}_aot"] = ernie_aot(
+            tmp.name, predictor, ids, dtype, fl, steps)
+        rec[dtype]["aot"]["export_process_wall_s"] = export["wall_s"]
         del predictor
     gap = float(np.abs(logits["bfloat16"] - logits["float32"]).max())
     rec.update(bf16_vs_fp32_max_abs=gap,
@@ -3912,6 +4283,55 @@ def phase_ernie_infer(steps=30, warmup=5, batch=32, seq=128):
     del model
     release()
     return paths
+
+
+# an AOT package against the exported program it was compiled beside:
+# the compiler fuses each LayerNorm's reductions and the residual adds
+# into one kernel and sums them in another order (float32: a few units
+# in the last place a layer, 6 layers, logits near 1); in bf16 it also
+# keeps fused intermediates in float32 where the program rounds each
+# op's output to bf16, so the bf16-vs-float32 gap bounds it
+ERNIE_AOT_TOL = {"float32": 1e-4, "bfloat16": ERNIE_BF16_TOL}
+
+
+def ernie_aot(path, predictor, ids, dtype, fl, steps, rounds=4, turn=5):
+    """The `save_inference(aot=True)` export of the same model at the same
+    shape in `path`, `load_inference(strict_aot=True)`: `is_aot`, the
+    package's bytes, run p50/p99 in turns with the exported program's
+    (`rounds` turns of `turn` runs: exported, AOT), flash launches of
+    `steps` AOT runs equal to the exported program's (`fl`), and the
+    logits against the exported program's (ERNIE_AOT_TOL).  Returns (the
+    record, the AOT runs' flash launches)."""
+    from paddle_tpu_torch.jit import load_inference
+    from paddle_tpu_torch.jit import save_load
+    x = torch.from_numpy(ids).cuda()
+    pkg = os.path.getsize(os.path.join(path, save_load._AOT))
+    t0 = time.perf_counter()
+    layer = load_inference(path, strict_aot=True)
+    load_s = time.perf_counter() - t0
+    assert layer.is_aot
+    for _ in range(3):
+        layer(x)
+    zero_counts()
+    for _ in range(steps):
+        out = layer(x)
+    counts = read_counts()
+    aot_fl = flash_part(counts)
+    ms = {"exported": [], "aot": []}
+    for _ in range(rounds):
+        ms["exported"] += step_ms(predictor.run, turn)
+        ms["aot"] += step_ms(lambda: layer(x), turn)
+    h = predictor.get_output_handle(predictor.get_output_names()[0])
+    predictor.run()
+    want = h.copy_to_cpu()
+    err = float(np.abs(out.float().cpu().numpy() - want).max())
+    rec = {"is_aot": layer.is_aot, "package_bytes": pkg, "load_s": load_s,
+           "run_ms": {k: pct(v) for k, v in ms.items()},
+           "launches": counts, "max_abs_err_vs_exported": err,
+           "tol": ERNIE_AOT_TOL[dtype]}
+    assert aot_fl == fl and counts["sdpa_plain"] == 0, (aot_fl, fl)
+    assert err <= ERNIE_AOT_TOL[dtype], (dtype, err)
+    return rec, aot_fl
 
 
 def phase_ernie_e2e(batch=8, seq=128, layers=2):
@@ -4923,12 +5343,27 @@ def main():
         print("chip_smoke: no CUDA device; this script drives the port on "
               "an NVIDIA card", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--aot-export"]:
+        return aot_export(*sys.argv[2:4])
     phase_build()
+    aot = phase_aot_compile()
+    try:
+        return run_phases(aot)
+    finally:
+        for tmp, _ in aot.values():
+            tmp.cleanup()
+
+
+def run_phases(aot):
+    """Every phase after the build and the compiles, in the order of
+    their numbers (see the module note)."""
     phase_kernels()
     phase_flash_kernels()
     launches, lens, serve = phase_serve()
+    serve_aot = phase_serve_aot(serve, aot)
     phase_e2e()
-    router = phase_serve_router(serve)
+    aot_e2e_paged = phase_serve_aot_e2e(aot)
+    router = phase_serve_router(serve, serve_aot)
     drill = phase_router_drill(router["spawn_to_ready_s"])
     paths = {"train": phase_train(), "train_e2e": phase_train_e2e()}
     paths.update({f"generate/{name}": counts
@@ -4945,19 +5380,23 @@ def main():
     paths["bert_e2e"] = phase_bert_e2e()
     paths["bert_fp32_train"], fp32_p50, fp32_busy = phase_bert_fp32_train()
     paths["bert_resume"] = phase_bert_resume(fp32_p50, fp32_busy)
-    paths.update(phase_ernie_infer())
+    paths.update(phase_ernie_infer(aot))
     paths["ernie_e2e"] = phase_ernie_e2e()
     paths["moe_train"] = phase_moe_train()
     paths.update(phase_moe_generate())
     moe_paged = phase_moe_serve()
     moe_e2e, moe_e2e_paged = phase_moe_e2e()
     paths.update(moe_e2e)
+    paths["serve_aot"] = serve_aot["flash"]
     paths["serve_router"] = router["flash"]
     paths["router_drill"] = drill["flash"]
-    paged = phase_timings(launches + serve_llama["paged_decode"]
+    paged = phase_timings(launches + serve_aot["paged"] + aot_e2e_paged
+                          + serve_llama["paged_decode"]
                           + router["paged"] + drill["paged"] + moe_paged
                           + moe_e2e_paged, lens)
     paged["launches_by_path"] = {"serve": launches,
+                                 "serve_aot": serve_aot["paged"],
+                                 "serve_aot_e2e": aot_e2e_paged,
                                  "serve_llama": serve_llama["paged_decode"],
                                  "serve_router": router["paged"],
                                  "router_drill": drill["paged"],

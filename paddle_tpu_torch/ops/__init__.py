@@ -4,7 +4,12 @@ Counterpart: `paddle_tpu/ops/pallas/__init__.py`, which overrides the
 `sdpa` and `paged_attention` registry entries with Pallas kernels.
 
 * `paged_attention` — a decode step (s == 1) on CUDA runs the CUDA paged
-  kernel, which raises on a shape it does not take.  Prefill chunks
+  kernel, which raises on a shape it does not take: eagerly through its
+  wrapper, and under tracing (`torch.export`, `torch.compile`) through
+  the operator `paddle_tpu_torch::paged_decode`, so that an exported
+  program keeps it as one node.  The operator's dispatch costs the host
+  more a call than the wrapper alone (PERF.md), and the eager decode
+  step is host-bound, so eager calls do not take it.  Prefill chunks
   (s > 1) run the plain gather path, as the JAX package sends them to its
   XLA gather path: that split by s is the reference's own design.  CPU
   tensors run the plain version.
@@ -37,7 +42,7 @@ from . import flash_attention as _flash
 from . import nn_kernels
 from .nn_kernels import (dyn_update_seq, paged_write, s2d_stem_conv,
                          s2d_stem_conv_nhwc)
-from .paged_decode import paged_decode_attention
+from .paged_decode import _scale, paged_decode_attention, paged_decode_op
 
 __all__ = ["add_launch_counts", "dyn_update_seq", "launch_counts",
            "paged_attention", "paged_decode_attention", "paged_write",
@@ -57,6 +62,10 @@ def paged_attention(q, k_pool, v_pool, tables, pos, scale=None):
 def _paged_attention(q, k_pool, v_pool, tables, pos, scale):
     if q.device.type == "cuda" and q.shape[1] == 1:
         lens = (pos + 1).to(torch.int32)
+        if torch.compiler.is_compiling() or type(q) is not torch.Tensor:
+            return paged_decode_op(q.contiguous(), k_pool, v_pool, tables,
+                                   lens.contiguous(),
+                                   _scale(scale, q.shape[-1]))
         return paged_decode_attention(q.contiguous(), k_pool, v_pool,
                                       tables, lens.contiguous(), scale=scale)
     return nn_kernels.paged_attention(q, k_pool, v_pool, tables, pos,

@@ -55,11 +55,17 @@ def paged_write(pool, val, tables, pos, limit=None):
     `pool`.  The JAX version returns a new array instead.
 
     Positions at or past limit[b] are dropped, as `paged_write_k` drops
-    them with `mode="drop"`: PyTorch has no dropping scatter, so those
-    rows are removed before the `index_put_` (on CUDA that selection
-    waits for the card).  `limit=None` writes every position: the port's
-    engine feeds exact chunks and live rows only, so it has nothing to
-    drop and does not pay that wait."""
+    them with `mode="drop"`.  PyTorch has no dropping scatter, and
+    selecting the kept entries would give a shape that only the card
+    knows, so every dropped entry is sent to one slot instead, the
+    target of the call's first kept entry, and carries what that entry
+    writes (when no entry is kept: the first entry's target and what
+    the pool holds there).  Writes to one slot then agree, whichever
+    lands last, and nothing waits for the card (an exported program
+    traces it with static shapes).  The eager engine feeds exact chunks
+    and live rows, so it passes no limit; its programs compiled ahead of
+    time pad a prefill chunk to its bucket and drop the pad through
+    `limit`."""
     bs = pool.shape[1]
     s = val.shape[1]
     positions = (pos.long()[:, None]
@@ -70,7 +76,14 @@ def paged_write(pool, val, tables, pos, limit=None):
     val = val.to(pool.dtype)
     if limit is not None:
         keep = positions < limit.long()[:, None]
-        blk, off, val = blk[keep], off[keep], val[keep]
+        i = keep.flatten().int().argmax().reshape(1)
+        tb = blk.flatten().index_select(0, i)
+        to = off.flatten().index_select(0, i)
+        tv = torch.where(keep.flatten().index_select(0, i)[:, None, None],
+                         val.flatten(0, 1).index_select(0, i), pool[tb, to])
+        blk = torch.where(keep, blk, tb)
+        off = torch.where(keep, off, to)
+        val = torch.where(keep[:, :, None, None], val, tv)
     pool.index_put_((blk, off), val)
     return pool
 

@@ -25,6 +25,15 @@ back.  `paged_decode_attention.launches` counts the kernel's launches.
 The keyword `_splits` forces a split count (`_splits=1`: one block walks
 each row's whole context, the one-pass layout), for A/B timing and the
 card tests only.
+
+The kernel is also the operator `paddle_tpu_torch::paged_decode`
+(`paged_decode_op`), the form `ops.paged_attention` calls under tracing
+(eager calls take `paged_decode_attention` itself, whose host cost is
+lower): `torch.export` keeps it as one node, and a program compiled ahead of time with
+AOTInductor calls it back through its proxy executor.  CPU tensors take
+the plain version, CUDA tensors `paged_decode_attention` (the launch is
+counted there, inside a compiled program too), and a fake implementation
+gives the shape to the tracer.
 """
 from __future__ import annotations
 
@@ -202,3 +211,24 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lens, scale=None, *,
 
 
 paged_decode_attention.launches = 0
+
+
+@torch.library.custom_op(
+    "paddle_tpu_torch::paged_decode", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k_pool, Tensor v_pool, Tensor tables, "
+           "Tensor lens, float scale) -> Tensor")
+def paged_decode_op(q, k_pool, v_pool, tables, lens, scale):
+    """`paged_decode_attention` as one operator, the scale resolved: CPU
+    tensors take the plain version."""
+    return paged_decode_attention_plain(q, k_pool, v_pool, tables, lens,
+                                        scale)
+
+
+@paged_decode_op.register_kernel("cuda")
+def _paged_decode_op_cuda(q, k_pool, v_pool, tables, lens, scale):
+    return paged_decode_attention(q, k_pool, v_pool, tables, lens, scale)
+
+
+@paged_decode_op.register_fake
+def _paged_decode_op_fake(q, k_pool, v_pool, tables, lens, scale):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)

@@ -22,9 +22,23 @@ What differs from the JAX engine, and why the tokens do not:
 * Decode steps on CUDA run the hand-written paged decode kernel;
   prefill chunks run the plain gather path, as the JAX engine sends
   them to XLA (`ops.paged_attention`).  Prefill skips the LM head.
-* Left out: the AOT export/load methods (ROADMAP.md, A9).  The chaos
-  sites `serving.request_poison` (here) and `serving.pool_exhausted`
-  (`BlockPool.allocate`) are the JAX engine's.
+* The program inventory is the JAX engine's (`program_keys`: the decode
+  program and one prefill program per bucket of the ladder up to
+  `prefill_chunk`'s), and `serving.aot` compiles it ahead of time into
+  AOTInductor packages (`program_structs` gives each program's builder,
+  example inputs and dynamic dims).  A program takes the model's weights
+  and the pool as inputs, never as constants, and writes the pool in
+  place.  With packages loaded (`_aot_execs`): a prefill chunk runs its
+  bucket's program, padded to the bucket, its pad positions dropped by
+  the write's `limit`; a decode step runs the decode program, whose rows
+  and table columns are dynamic dims (a step passes its live rows and
+  cut table, as the eager step does, so there are no dead slots to
+  drop).  A call whose inputs the package was not compiled for warns,
+  drops the package and runs eagerly (`serving_aot_fallback_total`);
+  `retire_aot` drops packages on purpose.  The eager path and a program
+  run one function (`_decode_fn`, `_prefill_fn`).
+* The chaos sites `serving.request_poison` (here) and
+  `serving.pool_exhausted` (`BlockPool.allocate`) are the JAX engine's.
 
 It serves GPT and the LLaMA family (LLaMA, Qwen2; GQA through the paged
 kernel).  As the JAX engine does, it refuses a sliding-window model
@@ -40,14 +54,17 @@ registry.
 """
 from __future__ import annotations
 
+import functools
 import time
+import warnings
 
 import numpy as np
 import torch
 
+from ..jit.aoti import AOTShapeMismatch, FunctionalProgram, module_weights
 from ..observability import metrics as _metrics
 from ..resilience import chaos
-from ..text.generation import filter_logits
+from ..text.generation import BucketPolicy, filter_logits
 from .block_pool import BlockPool, PoolExhausted
 from .scheduler import RUNNING, Request, Scheduler
 
@@ -67,16 +84,14 @@ class ShedRequest(RuntimeError):
 
 class LLMEngine:
     def __init__(self, model, num_blocks=64, block_size=16, max_running=8,
-                 prefill_chunk=64, max_model_len=None, dtype=None,
-                 shed_queue_depth=None, shed_free_blocks=None,
+                 prefill_chunk=64, buckets=None, max_model_len=None,
+                 dtype=None, shed_queue_depth=None, shed_free_blocks=None,
                  promote_after=4):
         if getattr(model.cfg, "sliding_window", None):
             raise NotImplementedError(
                 "sliding_window models cannot serve from the paged pool "
                 "yet (the pool keeps the full context)")
         self.model = model
-        # the decoder under the LM head, which prefill skips
-        self._body = model.gpt if hasattr(model, "gpt") else model.llama
         model.eval()
         self.pool = BlockPool.for_model(model, num_blocks,
                                         block_size=block_size, dtype=dtype)
@@ -91,11 +106,16 @@ class LLMEngine:
         self._draining = False
         self._closed = False
         self.prefill_chunk = int(prefill_chunk)
+        self.policy = buckets if isinstance(buckets, BucketPolicy) \
+            else BucketPolicy(buckets=buckets)
         max_pos = getattr(model.cfg, "max_position_embeddings", None)
         self.max_model_len = int(max_model_len or max_pos
                                  or num_blocks * block_size)
         if max_pos is not None:
             self.max_model_len = min(self.max_model_len, int(max_pos))
+        self.table_cols = self.pool.blocks_for(self.max_model_len)
+        self._weight_names, self._weights = module_weights(model)
+        self._aot_execs = {}    # key -> loaded AOTProgram
         self._finished = []
         self._reg = _metrics.registry()
 
@@ -293,18 +313,116 @@ class LLMEngine:
         leaks = self.pool.check_leaks()
         self.pool.k = []
         self.pool.v = []
+        self._aot_execs.clear()
         self._closed = True
         self._draining = True
         return leaks
 
+    # ------------------------------------------------------------ programs
+    def retire_aot(self, key=None):
+        """Drop loaded AOT programs (all, or one key): later calls run
+        eagerly.  Returns the retired keys."""
+        keys = [key] if key is not None else list(self._aot_execs)
+        for k in keys:
+            self._aot_execs.pop(k, None)
+        return keys
+
+    def _run_program(self, key, fn, *args):
+        """`fn(model, *args)` (the eager path), or the loaded package of
+        `key` on (weights, *args).  A call the package was not compiled
+        for warns, drops the package and runs eagerly."""
+        prog = self._aot_execs.get(key)
+        if prog is not None:
+            try:
+                out = prog(self._weights, *args)
+                self._reg.counter("serving_program_calls_total",
+                                  route="aot").inc()
+                return out
+            except AOTShapeMismatch as e:
+                warnings.warn(
+                    f"serving AOT program {key} rejected this call ({e}); "
+                    f"falling back to the eager path", UserWarning,
+                    stacklevel=2)
+                del self._aot_execs[key]
+                self._reg.counter("serving_aot_fallback_total").inc()
+        self._reg.counter("serving_program_calls_total", route="live").inc()
+        with torch.no_grad():
+            return fn(self.model, *args)
+
+    def program_keys(self, prompt_lens=()):
+        """The program inventory a replica needs: the decode program plus
+        one prefill program per ladder bucket up to the chunk's bucket
+        (the whole sub-ladder: the prefill lane splits one token budget
+        across the admitted requests, so every smaller chunk occurs), and
+        the buckets of `prompt_lens`' first chunks (the JAX engine's
+        `program_keys`)."""
+        cap = self.policy.bucket(self.prefill_chunk)
+        buckets, n = set(), 1
+        while True:
+            b = self.policy.bucket(n)
+            buckets.add(b)
+            if b >= cap:
+                break
+            n = b + 1
+        for n in prompt_lens:
+            buckets.add(self.policy.bucket(
+                min(max(int(n) - 1, 1), self.prefill_chunk)))
+        return [("decode",)] + sorted(("prefill", b) for b in buckets)
+
+    def program_structs(self, key):
+        """(builder, example inputs, dynamic dims) of one program for
+        `jit.aoti.compile_packages`: `builder()` gives the
+        `FunctionalProgram`, whose inputs are the weights and then the
+        example inputs.  The decode program takes R live rows and tables
+        of M columns (dynamic: R <= max_running, M <= table_cols); a
+        prefill program one row of its bucket's tokens, a table of M
+        columns and the write limit."""
+        ks, vs = list(self.pool.k), list(self.pool.v)
+        dev, i32 = self.device, torch.int32
+        M = self._dim("M", self.table_cols)
+        fixed = [None] * len(ks)
+        if key[0] == "decode":
+            R = self._dim("R", self.scheduler.max_running)
+            r, m = self._example(R), self._example(M)
+            args = (self._weights, ks, vs,
+                    torch.zeros(r, m, dtype=i32, device=dev),
+                    torch.zeros(r, dtype=i32, device=dev),
+                    torch.zeros(r, 1, dtype=torch.long, device=dev))
+            dynamic = ([None] * len(self._weights), fixed, fixed,
+                       _dims({0: R, 1: M}), _dims({0: R}), _dims({0: R}))
+            return (functools.partial(FunctionalProgram, self.model,
+                                      _decode_fn, self._weight_names),
+                    args, dynamic)
+        if key[0] == "prefill":
+            m = self._example(M)
+            args = (self._weights, ks, vs,
+                    torch.zeros(1, m, dtype=i32, device=dev),
+                    torch.zeros(1, dtype=i32, device=dev),
+                    torch.zeros(1, int(key[1]), dtype=torch.long,
+                                device=dev),
+                    torch.ones(1, dtype=i32, device=dev))
+            dynamic = ([None] * len(self._weights), fixed, fixed,
+                       _dims({1: M}), None, None, None)
+            return (functools.partial(FunctionalProgram, self.model,
+                                      _prefill_fn, self._weight_names),
+                    args, dynamic)
+        raise KeyError(f"unknown serving program key {key!r}")
+
+    @staticmethod
+    def _dim(name, hi):
+        """A dynamic dim of bounds [1, hi]; None (static) when hi is 1."""
+        return None if hi <= 1 else (name, 1, int(hi))
+
+    @staticmethod
+    def _example(dim):
+        """An example size for a dim: 2 for a dynamic one (export
+        specializes sizes 0 and 1), else 1."""
+        return 1 if dim is None else 2
+
     # ------------------------------------------------------------ forward
-    def _caches(self, tables, pos):
-        """One paged cache dict per layer over the live pool tensors.  No
-        "limit": every fed position is real, so nothing is dropped."""
-        table = torch.from_numpy(tables).to(self.device)
-        pos = torch.from_numpy(pos).to(self.device)
-        return [{"k": self.pool.k[i], "v": self.pool.v[i], "table": table,
-                 "pos": pos} for i in range(self.pool.num_layers)]
+    def _inputs(self, tables, pos):
+        return (torch.from_numpy(tables).to(self.device),
+                torch.from_numpy(pos).to(self.device))
 
     def _tables(self, reqs, n_tokens):
         """[len(reqs), M] int32 block tables cut to the columns that hold
@@ -316,13 +434,26 @@ class LLMEngine:
         return tables
 
     def _prefill(self, req, n):
+        """Write chunk n of the request's feed into the pool: eagerly at
+        its exact length, or through its bucket's program, padded, with
+        the pad positions dropped by the write limit."""
         chunk = req.feed_tokens()[req.ctx:req.ctx + n]
-        tokens = torch.tensor([chunk], dtype=torch.long, device=self.device)
-        caches = self._caches(self._tables([req], [req.ctx + n]),
-                              np.asarray([req.ctx], np.int32))
-        with torch.no_grad():
-            # the pool writes are the only output: skip the LM head
-            self._body(tokens, caches=caches)
+        bucket = self.policy.bucket(n)
+        key = ("prefill", bucket)
+        table, pos = self._inputs(self._tables([req], [req.ctx + n]),
+                                  np.asarray([req.ctx], np.int32))
+        if key in self._aot_execs:
+            ids = np.zeros((1, bucket), np.int64)
+            ids[0, :n] = chunk
+            tokens = torch.from_numpy(ids).to(self.device)
+            limit = torch.tensor([req.ctx + n], dtype=torch.int32,
+                                 device=self.device)
+        else:
+            tokens = torch.tensor([chunk], dtype=torch.long,
+                                  device=self.device)
+            limit = None
+        self._run_program(key, _prefill_fn, self.pool.k, self.pool.v,
+                          table, pos, tokens, limit)
         req.ctx += n
         self._reg.counter("serving_prefill_tokens_total").inc(n)
 
@@ -331,9 +462,9 @@ class LLMEngine:
         pos = np.asarray([req.ctx for req in ready], np.int32)
         tokens = torch.tensor([[req.feed_tokens()[req.ctx]] for req in ready],
                               dtype=torch.long, device=self.device)
-        caches = self._caches(self._tables(ready, pos + 1), pos)
-        with torch.no_grad():
-            logits = self.model(tokens, caches=caches)[:, -1, :].float()
+        table, pos_t = self._inputs(self._tables(ready, pos + 1), pos)
+        logits = self._run_program(("decode",), _decode_fn, self.pool.k,
+                                   self.pool.v, table, pos_t, tokens)
         rows = logits.cpu().numpy()
         now = time.monotonic()
         self._reg.counter("serving_decode_steps_total").inc()
@@ -390,6 +521,49 @@ class LLMEngine:
             self._reg.counter("serving_requests_failed_total").inc()
         if req.on_finish is not None:
             req.on_finish(req)
+
+
+def _dims(d):
+    """{dim: (name, lo, hi)} without the static dims (None entries)."""
+    d = {i: v for i, v in d.items() if v is not None}
+    return d or None
+
+
+def _caches(ks, vs, table, pos, limit=None):
+    caches = [{"k": k, "v": v, "table": table, "pos": pos}
+              for k, v in zip(ks, vs)]
+    if limit is not None:
+        for c in caches:
+            c["limit"] = limit
+    return caches
+
+
+def _decode_fn(model, ks, vs, table, pos, tokens):
+    """One decode step: tokens [R, 1] at positions pos [R] through block
+    tables [R, M]; writes the pool in place and returns the float32
+    logits [R, vocab] of the step."""
+    logits = model(tokens, caches=_caches(ks, vs, table, pos))
+    return logits[:, -1, :].float()
+
+
+def _prefill_fn(model, ks, vs, table, pos, tokens, limit=None):
+    """One prefill chunk: tokens [1, s] at positions pos .. pos + s - 1
+    written into the pool, the LM head skipped.  With `limit` (a padded
+    chunk) positions at or past it write nothing, and the position ids of
+    a GPT are clamped to its table (pad positions only; the JAX gather
+    clamps them the same way).  Returns the 0-d count of written
+    positions with `limit` (the program's one output), else None."""
+    caches = _caches(ks, vs, table, pos, limit)
+    if hasattr(model, "gpt"):
+        pids = None
+        if limit is not None:
+            pids = (pos.long()[:, None] + torch.arange(
+                tokens.shape[1], device=tokens.device)[None, :]).clamp(
+                max=model.cfg.max_position_embeddings - 1)
+        model.gpt(tokens, position_ids=pids, caches=caches)
+    else:
+        model.llama(tokens, caches=caches)
+    return None if limit is None else (limit - pos).sum()
 
 
 def _sample_row(req, logits_row):

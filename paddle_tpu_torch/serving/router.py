@@ -35,8 +35,12 @@ chaos sites) and `serving.worker.ProcReplica` (a worker process behind
 the framed socket transport; pass ``replica_factory=``, and
 ``spawn_grace_s`` for its start-up).
 
-Left out: the JAX router's ``warm_start`` hook, which loads AOT serving
-artifacts into a respawned engine (ROADMAP.md, A9).
+``warm_start(engine)`` is called on the engine of every in-process
+replica the router spawns, before it serves: it loads AOT serving
+artifacts (`serving.aot.load_serving_artifacts`), so a respawned replica
+serves from the packages too.  It is best effort: a failure warns and
+the replica serves eagerly; each respawn it warmed counts
+``router_respawn_warm_start_total``.
 
 Chaos sites: ``serving.replica_kill`` (the replica's step raises, as a
 dead process would), ``serving.replica_hang`` (the replica stops
@@ -260,13 +264,14 @@ class Router:
     def __init__(self, engine_factory, replicas=2, heartbeat_timeout=5.0,
                  heartbeat_dir=None, respawn=True, backoff=None,
                  crash_loop_threshold=3, crash_loop_window=60.0,
-                 failover_overlap=1, replica_factory=None,
-                 spawn_grace_s=None):
+                 failover_overlap=1, warm_start=None,
+                 replica_factory=None, spawn_grace_s=None):
         self._factory = engine_factory
         # replica_factory(name, hb_path, respawning=) -> ReplicaHandle
         # replaces the default in-process EngineReplica build: how a
         # process-per-replica tier installs serving.worker.ProcReplica
-        # (engine_factory is then unused and may be None)
+        # (engine_factory and warm_start are then unused and may be None;
+        # a worker warm-starts from its spec's load_aot)
         self._replica_factory = replica_factory
         # grace window for a replica's FIRST heartbeat after (re)spawn:
         # a worker process importing + compiling must not be evicted as
@@ -286,6 +291,7 @@ class Router:
         # router can PROVE the resumed stream matches before new tokens
         # flow; 0 trusts the resume invariant blindly
         self.failover_overlap = max(0, int(failover_overlap))
+        self._warm_start = warm_start
         self._slots = [
             _ReplicaSlot(f"r{i}",
                          os.path.join(self.hb_dir, f"hb.r{i}"),
@@ -313,8 +319,18 @@ class Router:
             slot.handle = self._replica_factory(slot.name, slot.hb_path,
                                                 respawning=respawning)
         else:
-            slot.handle = EngineReplica(slot.name, self._factory(),
-                                        slot.hb_path)
+            engine = self._factory()
+            if self._warm_start is not None:
+                try:
+                    self._warm_start(engine)
+                    if respawning:
+                        self._reg.counter(
+                            "router_respawn_warm_start_total").inc()
+                except Exception as e:   # warm start is best-effort
+                    warnings.warn(f"router replica {slot.name} warm "
+                                  f"start failed ({e}); serving eagerly",
+                                  UserWarning)
+            slot.handle = EngineReplica(slot.name, engine, slot.hb_path)
             slot.handle.beat()     # live file before any staleness
         slot.watch = hb.BeatWatch(slot.hb_path, self.heartbeat_timeout,
                                   grace=self.spawn_grace_s)

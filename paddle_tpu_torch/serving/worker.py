@@ -41,9 +41,11 @@ take the other replicas, or the router, down with it.  Two halves:
   escalates SIGTERM -> SIGKILL on the worker's process group and reaps
   it: no orphan survives the router.
 
-Left out: the AOT warm start (``load_aot``, ROADMAP.md A9) and
-``LazyGuard`` model builds (``lazy=True``); both raise
-NotImplementedError rather than start cold without saying so.
+A spec's ``load_aot`` names a directory of exported serving artifacts
+(`serving.aot`): the worker loads them into its engine once it is built
+and reports how many it loaded as ``aot_loaded`` in its ready event.
+Left out: ``LazyGuard`` model builds (``lazy=True``), which raise
+NotImplementedError rather than build another way without saying so.
 `tools/torch_chaos_check.py --router --proc` drills the tier with 3x
 SIGKILL mid-stream, a dropped frame and a wedged worker.
 """
@@ -55,6 +57,7 @@ import socket
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
@@ -129,25 +132,25 @@ def gpt_spec(config=None, preset=None, overrides=None, seed=0,
     finds no card raises and exits), `dtype` a torch dtype name.
     ``engine`` holds LLMEngine kwargs.  A custom model: put ``{"builder":
     "pkg.mod:fn"}`` in the returned dict; the worker calls ``fn(spec)``
-    and expects an LLMEngine back.  ``step_delay_s`` throttles the worker
-    loop (drills use it to hold streams open long enough to kill them
-    mid-stream).  ``load_aot`` and ``lazy`` raise NotImplementedError."""
-    _refuse_left_out(load_aot, lazy)
+    and expects an LLMEngine back.  ``load_aot`` is a directory of
+    exported serving artifacts: the worker warm-starts from it (best
+    effort: a refused program is served eagerly) and reports
+    ``aot_loaded`` in its ready event.  ``step_delay_s`` throttles the
+    worker loop (drills use it to hold streams open long enough to kill
+    them mid-stream).  ``lazy`` raises NotImplementedError."""
+    _refuse_lazy(lazy)
     return {"seed": int(seed),
             "model": {"kind": "gpt", "preset": preset,
                       "config": dict(config or {}),
                       "overrides": dict(overrides or {})},
             "engine": dict(engine or {}),
+            "load_aot": load_aot,
             "device": None if device is None else str(device),
             "dtype": str(dtype),
             "step_delay_s": float(step_delay_s)}
 
 
-def _refuse_left_out(load_aot, lazy):
-    if load_aot:
-        raise NotImplementedError(
-            "load_aot: the port has no AOT serving artifacts yet "
-            "(ROADMAP.md, A9); a worker would start cold")
+def _refuse_lazy(lazy):
     if lazy:
         raise NotImplementedError(
             "lazy=True: the port has no LazyGuard yet (ROADMAP.md, queue "
@@ -537,7 +540,7 @@ def build_gpt(spec):
     from ..device import resolve_device
     from ..text import GPTConfig, GPTForCausalLM
     m = spec.get("model") or {}
-    _refuse_left_out(spec.get("load_aot"), m.get("lazy"))
+    _refuse_lazy(m.get("lazy"))
     if m.get("preset"):
         cfg = GPTConfig.from_preset(m["preset"],
                                     **(m.get("overrides") or {}))
@@ -556,7 +559,9 @@ def build_gpt(spec):
 
 
 def _build(spec):
-    """(engine, heartbeat) from the init spec, in the WORKER process."""
+    """(engine, heartbeat, aot_loaded) from the init spec, in the WORKER
+    process; the spec's ``load_aot`` artifacts are loaded into the
+    engine after it is built."""
     import importlib
 
     from ..distributed.launch import heartbeat as hb
@@ -570,16 +575,30 @@ def _build(spec):
         eng = LLMEngine(build_gpt(spec), **(spec.get("engine") or {}))
     heartbeat = hb.Heartbeat(spec["hb_path"]) \
         if spec.get("hb_path") else None
-    return eng, heartbeat
+    aot_loaded = 0
+    if spec.get("load_aot"):
+        from .aot import load_serving_artifacts
+        t0 = time.perf_counter()
+        try:
+            aot_loaded = len(load_serving_artifacts(eng,
+                                                    spec["load_aot"]))
+            _metrics.registry().gauge("serving_aot_load_seconds").set(
+                time.perf_counter() - t0)
+        except Exception as e:       # warm start is best-effort
+            warnings.warn(f"worker AOT warm start failed ({e}); "
+                          f"serving eagerly", UserWarning)
+    return eng, heartbeat, aot_loaded
 
 
 class _WorkerLoop:
     """The engine step loop on the worker side of the socket."""
 
-    def __init__(self, ch, engine, heartbeat, step_delay_s=0.0):
+    def __init__(self, ch, engine, heartbeat, aot_loaded=0,
+                 step_delay_s=0.0):
         self.ch = ch
         self.engine = engine
         self.heartbeat = heartbeat
+        self.aot_loaded = aot_loaded
         self.step_delay_s = float(step_delay_s)
         self._reqs = {}              # rid -> engine Request
         self._stop_sig = None
@@ -607,6 +626,7 @@ class _WorkerLoop:
         # done its job once the engine exists
         signal.signal(signal.SIGTERM, self._record_signal)
         self.ch.send({"ev": "ready", "pid": os.getpid(),
+                      "aot_loaded": self.aot_loaded,
                       "gauges": self._gauges()})
         self._beat()
         eng = self.engine
@@ -742,8 +762,8 @@ def main(argv=None):
         print(f"worker {args.name}: no init frame", file=sys.stderr)
         return 2
     spec = init.get("spec") or {}
-    eng, heartbeat = _build(spec)
-    loop = _WorkerLoop(ch, eng, heartbeat,
+    eng, heartbeat, aot_loaded = _build(spec)
+    loop = _WorkerLoop(ch, eng, heartbeat, aot_loaded=aot_loaded,
                        step_delay_s=spec.get("step_delay_s", 0.0))
     try:
         return loop.run()

@@ -17,7 +17,8 @@ into the port (`load_paddle_tpu_state`); inputs are made with numpy.
   the same device) and match the JAX predictor's; an `InputSpec` with a
   `None` batch dim gives one program that takes two batch sizes;
   `load_inference` runs the program alone; the export leaves the model's
-  train / eval modes as they were; `aot=True` raises.
+  train / eval modes as they were; `aot=True` over a `None` dim raises
+  ValueError (the AOT packages themselves: `test_torch_aot.py`).
 
 Tolerance against JAX: float32 on both sides, summed in another order:
 rtol 1e-5, atol 1e-5 (1e-4 absolute for the masked-LM logits, which sum
@@ -183,10 +184,16 @@ def test_dynamic_batch_program_takes_two_batch_sizes(tmp_path):
 
 
 def test_predictor_refuses_a_run_before_its_input_and_aot(tmp_path):
+    """A run before any input is refused, and so is an AOT export of a
+    `None` dim (a compiled package is specialized to its shapes), as the
+    JAX package refuses it."""
     _, tm = _pair("ErnieForSequenceClassification", seed=4)
     spec = [InputSpec([2, 8], "int64", "input_ids")]
-    with pytest.raises(NotImplementedError, match="A9"):
-        save_inference(tm, str(tmp_path), spec, aot=True)
+    with pytest.raises(ValueError, match="concrete input shapes"):
+        save_inference(tm, str(tmp_path / "dyn"),
+                       [InputSpec([None, 8], "int64", "input_ids")],
+                       aot=True)
+    assert not (tmp_path / "dyn").exists()
     save_inference(tm, str(tmp_path), spec)
     predictor = inference.create_predictor(inference.Config(str(tmp_path)))
     with pytest.raises(ValueError, match="copy_from_cpu"):

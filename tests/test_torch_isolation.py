@@ -1,10 +1,10 @@
 """The port stands alone: no JAX, no JAX package, no silent CPU runs.
 
 An AST scan shows that no module of `paddle_tpu_torch/`, and not
-`chip_smoke.py` and not `tools/torch_chaos_check.py`, imports `jax`,
+`chip_smoke.py` and not a `tools/torch_*.py` script, imports `jax`,
 `paddle_tpu` or `paddle`; a fresh interpreter importing the whole port
-(the training, serving-tier and incubate modules included) loads none
-of them,
+(the training, serving-tier, AOT and incubate modules included) loads
+none of them,
 and neither does a serving worker process after it has served; and the
 port's entry points raise, rather than run on the CPU, when no device is
 named and there is no CUDA device.
@@ -42,8 +42,10 @@ FORBIDDEN = {"jax", "jaxlib", "paddle_tpu", "paddle"}
 
 def _port_files():
     root = os.path.join(REPO, "paddle_tpu_torch")
-    files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "tools", "torch_chaos_check.py")]
+    files = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(REPO, "tools", n)
+        for n in os.listdir(os.path.join(REPO, "tools"))
+        if n.startswith("torch_") and n.endswith(".py")]
     for dirpath, _, names in os.walk(root):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
@@ -74,13 +76,16 @@ def test_no_port_module_imports_jax_or_the_jax_package():
             "paddle_tpu_torch/serving/router.py",
             "paddle_tpu_torch/serving/transport.py",
             "paddle_tpu_torch/serving/worker.py",
+            "paddle_tpu_torch/serving/aot.py",
+            "paddle_tpu_torch/jit/aoti.py",
             "paddle_tpu_torch/incubate/__init__.py",
             "paddle_tpu_torch/incubate/optimizer.py",
             "paddle_tpu_torch/incubate/nn/__init__.py",
             "paddle_tpu_torch/incubate/nn/moe.py",
             "paddle_tpu_torch/incubate/nn/functional.py",
             "paddle_tpu_torch/incubate/nn/fused_transformer.py",
-            "tools/torch_chaos_check.py"} <= rel
+            "tools/torch_chaos_check.py",
+            "tools/torch_aot_probe.py"} <= rel
     bad = {os.path.relpath(p, REPO): sorted(set(_imported_roots(p))
                                             & FORBIDDEN)
            for p in files}
@@ -116,7 +121,8 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.distributed.launch.heartbeat, "
             "paddle_tpu_torch.serving.router, "
             "paddle_tpu_torch.serving.transport, "
-            "paddle_tpu_torch.serving.worker, paddle_tpu_torch.incubate, "
+            "paddle_tpu_torch.serving.worker, paddle_tpu_torch.serving.aot, "
+            "paddle_tpu_torch.jit.aoti, paddle_tpu_torch.incubate, "
             "paddle_tpu_torch.incubate.nn, paddle_tpu_torch.incubate.nn.moe, "
             "paddle_tpu_torch.incubate.nn.functional, "
             "paddle_tpu_torch.incubate.nn.fused_transformer, "

@@ -119,6 +119,25 @@ def test_paged_write_matches_jax(limit):
     np.testing.assert_array_equal(t_pool.numpy(), ref)
 
 
+@pytest.mark.parametrize("limit", [
+    [4, 9, 3],     # row 2 keeps nothing; row 1 writes its blocks
+    [1, 3, 3],     # no row keeps anything: the pool is unchanged
+])
+def test_paged_write_drops_whole_rows_over_shared_blocks(limit):
+    """A row that keeps no position, its table over the blocks that a
+    later-written row of the same call fills, takes nothing from them:
+    the dropped entries carry what the slot they are sent to receives."""
+    pool, val, _, _ = _write_case()
+    tables = np.asarray([[1, 2, 3], [4, 5, 6], [4, 5, 6]], np.int32)
+    pos = np.asarray([1, 3, 3], np.int32)
+    limit = np.asarray(limit, np.int32)
+    ref = np.asarray(paged_write_k(*_jax(pool, val, tables, pos, limit),
+                                   block_size=pool.shape[1]))
+    t_pool = torch.from_numpy(pool.copy())
+    tk.paged_write(t_pool, *_torch(val, tables, pos, limit))
+    np.testing.assert_array_equal(t_pool.numpy(), ref)
+
+
 def test_paged_write_without_limit_writes_every_position():
     pool, val, tables, pos = _write_case()
     full = (pos + val.shape[1]).astype(np.int32)
@@ -176,3 +195,36 @@ def test_sdpa_on_cuda_raises_and_names_the_flash_slice(monkeypatch):
                                 dtype=torch.bfloat16)
     assert tops.sdpa(odd, odd, odd, is_causal=True) == "plain"
     assert tops.sdpa.plain_calls == before + 1
+
+
+def test_paged_decode_operator_on_cpu_matches_jax():
+    """`paddle_tpu_torch::paged_decode` on CPU tensors is the plain
+    version, as the JAX kernel computes it."""
+    q, kp, vp, tables, pos = _case()
+    lens = (pos + 1).astype(np.int32)
+    ref = np.asarray(jax_pa.paged_decode_attention(
+        *_jax(q, kp, vp, tables, lens), interpret=True))
+    out = torch.ops.paddle_tpu_torch.paged_decode(
+        *_torch(q, kp, vp, tables, lens), q.shape[-1] ** -0.5)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=2e-5, atol=2e-6)
+
+
+def test_traced_cuda_decode_step_is_one_operator_node():
+    """Traced over fake CUDA tensors (as `torch.export` traces a program
+    for the card), a decode step's attention is one call of the operator
+    and no call of the ctypes wrapper; this needs no card."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.fx.experimental.proxy_tensor import make_fx
+    before = pd.paged_decode_attention.launches
+    with FakeTensorMode():
+        q = torch.empty(2, 1, 4, 64, device="cuda", dtype=torch.bfloat16)
+        pool = torch.empty(16, 16, 2, 64, device="cuda",
+                           dtype=torch.bfloat16)
+        tables = torch.zeros(2, 4, device="cuda", dtype=torch.int32)
+        pos = torch.zeros(2, device="cuda", dtype=torch.int32)
+        graph = make_fx(lambda q, k, v, t, p: tops.paged_attention(
+            q, k, v, t, p))(q, pool, pool, tables, pos)
+    calls = [n.target for n in graph.graph.nodes
+             if n.op == "call_function"]
+    assert calls.count(torch.ops.paddle_tpu_torch.paged_decode.default) == 1
+    assert pd.paged_decode_attention.launches == before

@@ -181,8 +181,12 @@ def test_worker_without_a_card_exits_instead_of_serving(tmp_path,
 
 
 def test_left_out_options_raise_and_name_their_item():
-    with pytest.raises(NotImplementedError, match="A9"):
-        sw.gpt_spec(config=tcc.TINY, load_aot="/nowhere")
+    """`lazy=True` is left out and raises, in the spec and in the build;
+    `load_aot` is ported (a worker loading artifacts:
+    `test_torch_aot.py`) and goes into the spec as the JAX one does."""
+    spec = sw.gpt_spec(config=tcc.TINY, load_aot="/nowhere")
+    assert spec["load_aot"] == jax_sw.gpt_spec(
+        config=tcc.TINY, load_aot="/nowhere")["load_aot"]
     with pytest.raises(NotImplementedError, match="LazyGuard"):
         sw.gpt_spec(config=tcc.TINY, lazy=True)
     with pytest.raises(NotImplementedError, match="LazyGuard"):
