@@ -100,6 +100,15 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    times a step, all three on the sm90 kernels, and sdpa
                    must have taken its plain path no time; then
                    a profile of 2 steps;
+6a. fleet        — the distributed slice at world size 1 over NCCL:
+                   `fleet.build_train_step` (dp 1, mp 1, sharding_stage
+                   2) trains train's GPT-3 1.3B from the same weights and
+                   batch, 10 steps: the losses equal TrainStep's bit for
+                   bit, 24 sm90 forward, dK/dV and dQ launches a step,
+                   step p50 and busy share; then `ring_attention` at the
+                   training shape equals `flash_attention` (output and
+                   the three gradients, bit for bit), one sm90 forward,
+                   dK/dV and dQ a call;
 7. train_e2e     — the same width at 2 layers in float32, AdamW, 3 steps:
                    the port on the card (through the kernels) against the
                    port on the CPU (through the plain versions), same
@@ -279,7 +288,8 @@ and sm80, at bert_e2e's shape (B 8) and ERNIE's (B 32), unmasked and
 masked, and at the train_fp32 shape, in turns with float32 SDPA's
 backward through autograd (fp32, sm80, SDPA, SDPA, sm80, fp32).
 
-The kernels line counts the flash launches of phases 4a, 5b-5c, 6-10,
+The kernels line counts the flash launches of phases 4a, 5b-5c, 6-10
+(6a's fleet step and ring),
 13-16 and 19-28 (bert_resume's: its first unbroken run; ernie_infer's
 exported and AOT runs; the worker processes' read from their metrics,
 the killed workers' lost with them); the sm80 forward, dK/dV and dQ
@@ -1884,7 +1894,7 @@ def phase_train(steps=10, warmup=3, batch=4, seq=1024):
     phase_train_profile(step, ids, labels, p50)
     del step, opt, model
     torch.cuda.empty_cache()
-    return counts
+    return counts, losses
 
 
 GEMM_TAGS = ("nvjet", "gemm", "cutlass", "xmma")   # cuBLAS kernel names
@@ -1928,6 +1938,114 @@ def phase_train_profile(step, ids, labels, step_p50_s, steps=2):
           "kernel_class_ms_per_step": classes,
           "top_device_ms_per_step": [[name[:90], us / steps / 1e3]
                                      for name, us in top]})
+
+
+FLEET_STEPS = 10
+
+
+def phase_fleet(train_losses, steps=FLEET_STEPS, batch=4, seq=1024):
+    """The distributed slice at world size 1 over NCCL.  (a)
+    `init_parallel_env()`, `fleet.init` (dp 1, mp 1, sharding_stage 2)
+    and `fleet.build_train_step` train `train`'s GPT-3 1.3B (pure bf16,
+    Adafactor) from the same weights and batch: the loss series equals
+    TrainStep's bit for bit (with one rank the fleet step issues no
+    collective and runs TrainStep's ops in TrainStep's order), and each
+    step launches the sm90 forward, dK/dV and dQ 24 times, as train's
+    steps do; step p50 and busy share.  (b) `ring_attention` at the
+    training shape (B 4, L 1024, H 16, D 128, causal, bf16) through
+    `flash_block_fwd` / `flash_block_bwd`: output and dq, dk, dv equal
+    `flash_attention`'s bit for bit, with one sm90 forward, dK/dV and
+    dQ a call.  Returns the two runs' launch counts."""
+    import torch.distributed as tdist
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import fleet, ring_attention
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import Adafactor
+    from paddle_tpu_torch.text import GPTConfig, GPTForCausalLM, gpt_loss_fn
+
+    t_phase = time.perf_counter()
+    dist.init_parallel_env()
+    assert tdist.get_backend() == "nccl" and dist.get_world_size() == 1
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs.update(dp_degree=1, mp_degree=1,
+                                   sharding_stage=2)
+    fleet.init(is_collective=True, strategy=strategy)
+    cfg = GPTConfig.from_preset("gpt3-1.3B", vocab_size=50304,
+                                max_position_embeddings=seq,
+                                hidden_dropout=0.0, attention_dropout=0.0)
+    model = GPTForCausalLM(
+        cfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    opt = Adafactor(learning_rate=1e-4, parameters=model.parameters())
+    model, opt = amp.decorate(models=model, optimizers=opt,
+                              dtype="bfloat16", master_weight=False)
+    step = fleet.build_train_step(model, gpt_loss_fn, opt)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
+                        device="cuda")
+    labels = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
+                           device="cuda")
+    torch.cuda.synchronize()
+    zero_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step(ids, labels).item())
+        times.append(time.perf_counter() - t0)
+    counts = flash_counts()
+    p50_ms = float(np.percentile(times[3:], 50)) * 1e3
+    prof = busy(lambda: step(ids, labels), 2, p50_ms)
+    loss_gap = max(abs(a - b) for a, b in zip(losses, train_losses))
+    del step, opt, model
+    release()
+
+    B, L, H, D = (FLASH_SHAPE[k] for k in ("B", "L", "H", "D"))
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v, do = (torch.randn(B, L, H, D, generator=g, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    runs = []
+    for fn in (lambda a, b, c: fa.flash_attention(a, b, c, is_causal=True),
+               lambda a, b, c: ring_attention(a, b, c, causal=True)):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        zero_counts()
+        o = fn(*leaves)
+        o.backward(do)
+        runs.append(([o.detach()] + [t.grad for t in leaves],
+                     flash_counts()))
+    (ref, _), (got, ring_counts) = runs
+    ring_err = {n: float((a.float() - b.float()).abs().max())
+                for n, a, b in zip(("o", "dq", "dk", "dv"), got, ref)}
+    ring_equal = all(torch.equal(a, b) for a, b in zip(got, ref))
+    dist.destroy_process_group()
+    emit({"phase": "fleet", "model": "gpt3-1.3B", "layers": cfg.num_layers,
+          "seq": seq, "batch": batch, "dtype": "bfloat16",
+          "optimizer": "Adafactor(1e-4)", "world_size": 1,
+          "backend": "nccl", "strategy": {"dp": 1, "mp": 1,
+                                          "sharding_stage": 2},
+          "steps": steps, "losses": losses,
+          "train_losses": train_losses[:steps],
+          "loss_max_abs_gap_to_train": loss_gap,
+          "step_ms": [t * 1e3 for t in times],
+          "step_p50_ms_after_3": p50_ms,
+          "device_busy_share": prof["device_busy_share"],
+          "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+          "flash_launches": counts,
+          "ring_shape": {"B": B, "L": L, "H": H, "D": D, "causal": True},
+          "ring_launches": ring_counts, "ring_max_abs_err": ring_err,
+          "ring_equals_flash_attention": ring_equal,
+          "phase_seconds": time.perf_counter() - t_phase})
+    assert losses == train_losses[:steps], \
+        f"fleet losses {losses} differ from TrainStep's {train_losses}"
+    want = cfg.num_layers * steps
+    assert counts["fwd_sm90"] == counts["dkv_sm90"] == \
+        counts["dq_sm90"] == want, f"sm90 launches {counts}, want {want}"
+    assert counts["fwd"] == counts["dkv"] == counts["dq"] == want, counts
+    assert (ring_counts["fwd_sm90"], ring_counts["dkv_sm90"],
+            ring_counts["dq_sm90"]) == (1, 1, 1), ring_counts
+    assert ring_equal, f"ring attention differs from flash: {ring_err}"
+    return {"fleet": counts, "fleet/ring": ring_counts}
 
 
 def phase_train_e2e(steps=3, batch=2, seq=128):
@@ -5365,7 +5483,10 @@ def run_phases(aot):
     aot_e2e_paged = phase_serve_aot_e2e(aot)
     router = phase_serve_router(serve, serve_aot)
     drill = phase_router_drill(router["spawn_to_ready_s"])
-    paths = {"train": phase_train(), "train_e2e": phase_train_e2e()}
+    paths = {}
+    paths["train"], train_losses = phase_train()
+    paths.update(phase_fleet(train_losses))
+    paths["train_e2e"] = phase_train_e2e()
     paths.update({f"generate/{name}": counts
                   for name, counts in phase_generate().items()})
     serve_llama = phase_serve_llama()

@@ -40,3 +40,26 @@ from .framework import (CheckpointError, ParamAttr, get_rng_state,
 __all__ = ["CheckpointError", "ParamAttr", "generator", "get_rng_state",
            "load_state", "resolve_device", "save_state", "seed",
            "set_rng_state"]
+
+# subpackages (and DataParallel) bound on first use, as the JAX package
+# binds them at import (`paddle_tpu/__init__.py:30-52`); importing them
+# all here would load the serving tier and the inference stack with every
+# `import paddle_tpu_torch`
+_LAZY = {name: (f"paddle_tpu_torch.{name}", None) for name in (
+    "amp", "device", "distributed", "framework", "inference", "jit", "nn",
+    "observability", "ops", "optimizer", "regularizer", "resilience",
+    "serving", "text", "vision")}
+_LAZY["DataParallel"] = ("paddle_tpu_torch.distributed", "DataParallel")
+
+
+def __getattr__(name):
+    try:
+        mod_name, attr = _LAZY[name]
+    except KeyError:
+        raise AttributeError(
+            f"module 'paddle_tpu_torch' has no attribute {name!r}") from None
+    import importlib
+    mod = importlib.import_module(mod_name)
+    val = mod if attr is None else getattr(mod, attr)
+    globals()[name] = val
+    return val

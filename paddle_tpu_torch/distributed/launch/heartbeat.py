@@ -8,15 +8,17 @@ none, and without a liveness signal it wedges whoever waits on it.  The
 process touches a file; the watcher reads the file's mtime as a change
 detector and measures the silence on its OWN monotonic clock.
 
-The launcher's module-level `start_heartbeat` / `stop_heartbeat` (armed
-by `init_parallel_env`) come with the distributed slice; the serving
-router uses the two classes below directly.
+`start_heartbeat` / `stop_heartbeat` run one beating thread a process:
+`distributed.init_parallel_env` arms it when the launcher set
+PT_HEARTBEAT_FILE.  The serving router uses the two classes directly.
 """
 from __future__ import annotations
 
 import os
 import threading
 import time
+
+_ACTIVE = None      # one beating thread a process
 
 
 class Heartbeat:
@@ -108,3 +110,27 @@ class BeatWatch:
         limit = self.timeout if self._seen_beat \
             else max(self.timeout, self.grace)
         return now - self._last_change > limit
+
+
+def start_heartbeat(path=None, interval=None):
+    """Start (or return the running) heartbeat thread.  With no
+    arguments, reads PT_HEARTBEAT_FILE / PT_HEARTBEAT_INTERVAL from the
+    environment; returns None when neither names a file (not launched
+    under a watching supervisor)."""
+    global _ACTIVE
+    if _ACTIVE is not None:
+        return _ACTIVE
+    path = path or os.environ.get("PT_HEARTBEAT_FILE")
+    if not path:
+        return None
+    interval = interval if interval is not None else float(
+        os.environ.get("PT_HEARTBEAT_INTERVAL", "1.0"))
+    _ACTIVE = Heartbeat(path, interval).start()
+    return _ACTIVE
+
+
+def stop_heartbeat():
+    global _ACTIVE
+    if _ACTIVE is not None:
+        _ACTIVE.stop()
+        _ACTIVE = None

@@ -64,6 +64,11 @@ class InputSpec:
         self.dtype = _DTYPES[dtype] if isinstance(dtype, str) else dtype
         self.name = name
 
+    @classmethod
+    def from_tensor(cls, t, name=None):
+        """The spec of tensor `t`: its shape and dtype."""
+        return cls(tuple(t.shape), t.dtype, name)
+
     def __repr__(self):
         return f"InputSpec(shape={self.shape}, dtype={self.dtype})"
 

@@ -38,9 +38,12 @@ from ..resilience import guard as _guard
 class TrainStep:
     """step = TrainStep(model, loss_fn, optimizer); loss = step(*batch)
 
-    `loss_fn(model, *batch)` returns a scalar loss tensor."""
+    `loss_fn(model, *batch)` returns a scalar loss tensor.  `donate` is
+    taken in the JAX package's place and ignored: the eager step updates
+    the parameters and slots in place, which is what donation buys
+    there."""
 
-    def __init__(self, model, loss_fn, optimizer, guard=None):
+    def __init__(self, model, loss_fn, optimizer, donate=True, guard=None):
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -121,5 +124,5 @@ class TrainStep:
             self.optimizer._step_count = int(step)
 
 
-def train_step(model, loss_fn, optimizer, guard=None):
+def train_step(model, loss_fn, optimizer, donate=True, guard=None):
     return TrainStep(model, loss_fn, optimizer, guard=guard)

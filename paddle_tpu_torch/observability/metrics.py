@@ -46,6 +46,14 @@ class Gauge:
     def set(self, v):
         self._v = v
 
+    def inc(self, n=1):
+        with _VAL_LOCK:
+            self._v += n
+
+    def dec(self, n=1):
+        with _VAL_LOCK:
+            self._v -= n
+
     @property
     def value(self):
         return self._v

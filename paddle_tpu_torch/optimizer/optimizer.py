@@ -50,7 +50,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..regularizer import _decay_value
+from ..regularizer import L1Decay, L2Decay, _decay_value  # noqa: F401
 from .lr import LRScheduler
 
 _LOW = (torch.bfloat16, torch.float16)

@@ -127,6 +127,7 @@ class Adafactor(Optimizer):
     `weights.load_paddle_tpu_optimizer_state` swaps them when it carries a
     JAX state across."""
     SLOTS = ()
+    _whole_tensor_rule = True       # row / column means over the tensor
 
     def __init__(self, learning_rate=0.001, beta1=None, decay_rate=0.8,
                  epsilon1=1e-30, epsilon2=1e-3, clip_threshold=1.0,
@@ -258,6 +259,7 @@ class Lamb(Optimizer):
     ratio ||p|| / ||r|| (1 where either norm is 0).  The global
     `weight_decay` is not taken: the decay is the rule's own."""
     SLOTS = ("moment1", "moment2")
+    _whole_tensor_rule = True       # the trust ratio's norms
 
     def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
                  beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,

@@ -11,7 +11,7 @@
             router's respawns, the transport's retries)
 
 The reference's `reshard` (a restore onto another mesh) comes with the
-distributed slice.  `guard` and `manager` load when first used:
+distributed slice.  `guard`, `manager` and `backoff` load when first used:
 `framework.checkpoint` imports `chaos` from here.
 """
 from __future__ import annotations
@@ -21,8 +21,9 @@ from .chaos import ChaosInterrupt, ChaosPlan
 
 chaos.plan_from_env()   # honour PADDLE_TPU_CHAOS=<spec> from the environment
 
-__all__ = ["chaos", "guard", "manager", "ChaosPlan", "ChaosInterrupt",
-           "NonfiniteGuard", "CheckpointManager", "CheckpointError"]
+__all__ = ["chaos", "guard", "manager", "backoff", "ChaosPlan",
+           "ChaosInterrupt", "NonfiniteGuard", "CheckpointManager",
+           "CheckpointError", "Backoff", "CrashLoopDetector"]
 
 _LAZY = {
     "guard": ("paddle_tpu_torch.resilience.guard", None),
@@ -33,6 +34,10 @@ _LAZY = {
                           "CheckpointManager"),
     "CheckpointError": ("paddle_tpu_torch.framework.checkpoint",
                         "CheckpointError"),
+    "backoff": ("paddle_tpu_torch.resilience.backoff", None),
+    "Backoff": ("paddle_tpu_torch.resilience.backoff", "Backoff"),
+    "CrashLoopDetector": ("paddle_tpu_torch.resilience.backoff",
+                          "CrashLoopDetector"),
 }
 
 

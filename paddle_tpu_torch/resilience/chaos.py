@@ -40,10 +40,17 @@ The sites the port has:
                                 stream (FrameError) and the router
                                 evicts the worker as a crash
 
+    collective.fail_once        a collective raises before its attempt
+                                (the policy's retry path)
+    collective.timeout          a collective hits its deadline
+                                (CollectiveTimeout, then the retry path)
+    collective.hang             a collective stalls past the policy's
+                                deadline: the watchdog abandons the
+                                attempt and retries
+
 Still to come with the modules that hold them: the loader sites
-(`loader.*`), `compile.fail_once`, the collective sites
-(`collective.*`), the compile-cache sites (`cache.*`) and
-`restart.mesh_change`.  With no plan installed every site costs one
+(`loader.*`), `compile.fail_once`, the compile-cache sites (`cache.*`)
+and `restart.mesh_change`.  With no plan installed every site costs one
 `is None` test.
 """
 from __future__ import annotations
@@ -201,8 +208,8 @@ def crash(site, tag=None):
         raise ChaosInterrupt(site)
 
 
-def poison_batch(batch):
-    """The `step.nonfinite` fault: (the batch with its first floating
+def poison_batch(batch_arrays):
+    """The `step.nonfinite` fault: (`batch_arrays` with its first floating
     tensor multiplied by NaN, True), so loss and gradients go nonfinite.
 
     A batch of integers only comes back unchanged with False, and the
@@ -213,7 +220,7 @@ def poison_batch(batch):
     device-side assert on CUDA, which leaves the CUDA context unusable
     for the rest of the process."""
     out, done = [], False
-    for a in batch:
+    for a in batch_arrays:
         if not done and isinstance(a, torch.Tensor) and \
                 a.is_floating_point():
             out.append(a * float("nan"))

@@ -29,6 +29,7 @@ import sys
 import warnings
 
 from ..framework import checkpoint as _ckpt
+from ..framework.checkpoint import CheckpointError  # noqa: F401
 from ..observability import metrics as _metrics
 
 

@@ -17,9 +17,30 @@ pretraining criterion (`:327-333`), `gpt_loss_fn` (`:336-347`) and the
 MoE configuration: `num_experts` > 0 puts an `incubate.nn.MoELayer` in
 place of the MLP of every `moe_every`-th block (`:171-188`), its aux
 loss crosses `recompute` as an explicit output (`:244-258`) and
-`gpt_loss_fn` adds `moe_aux_weight` times their sum.  Tensor, sequence
-and context parallelism are the distributed slice's (ROADMAP.md A11):
-their flags raise NotImplementedError when set.
+`gpt_loss_fn` adds `moe_aux_weight` times their sum.
+
+Parallelism over the mesh's "mp" axis (`:80-90`, `:103-109`, `:144-150`,
+`:188-194`, `:210-211`), one process a rank:
+- `tensor_parallel` (default: mp degree > 1 and not `context_parallel`):
+  `qkv_proj` and `fc_in` are column-parallel, `out_proj` and `fc_out`
+  row-parallel, `wte` vocab-parallel.  The fused `qkv_proj` [3h, h] is
+  split per block (`interleave=3`): rank r holds the rows of its H/mp
+  heads in each of q, k and v, so its [b, s, 3, H/mp, D] view is its own
+  heads.  The tied head `x @ wte.T` gives vocab-split logits, which are
+  gathered: the model returns the full logits, as the JAX model's global
+  array is, so any loss works.
+- `sequence_parallel` (needs tensor parallelism at mp > 1): Megatron-SP.
+  The residual stream between the parallel layers is this rank's
+  sequence shard [b, s/mp, h]; the column layers all-gather it, the row
+  layers reduce-scatter into it, and the norms run on the shard (their
+  gradients are summed over mp by the fleet step).
+- `context_parallel`: the sequence is split over mp for the whole model,
+  with replicated weights; attention is `ring_attention_local` over the
+  shards and the logits are gathered back.  It raises with
+  `attention_dropout > 0` (`:103-109`) and, at mp > 1, beside tensor
+  parallelism (both ride the mp axis).
+Decode caches and MoE blocks under mp > 1 raise NotImplementedError
+(tensor-parallel serving and expert parallelism, ROADMAP.md A11).
 
 Dropout draws from explicit generators: `set_dropout_generator` gives
 one `torch.Generator` to every dropout of the model (None: the device's
@@ -34,7 +55,17 @@ from torch import nn
 from .. import ops
 from ..device import generator as make_generator
 from ..device import resolve_device
+from ..distributed import mesh as mesh_mod
+from ..distributed.parallel_layers import (ColumnParallelLinear,
+                                           RowParallelLinear,
+                                           VocabParallelEmbedding,
+                                           copy_to_mp, gather_last,
+                                           gather_seq, gather_seq_full,
+                                           init_normal_,
+                                           mark_sequence_parallel,
+                                           scatter_seq)
 from ..distributed.recompute import recompute
+from ..distributed.ring_attention import ring_attention_local
 from ..incubate.nn.moe import MoELayer, moe_aux_loss
 from ..nn import Dropout
 from ..nn import functional as PF
@@ -74,7 +105,9 @@ class GPTConfig:
         self.use_recompute = use_recompute
         self.sequence_parallel = sequence_parallel
         self.context_parallel = context_parallel
-        self.tensor_parallel = bool(tensor_parallel)
+        self.tensor_parallel = bool(tensor_parallel) \
+            if tensor_parallel is not None \
+            else mesh_mod.degree("mp") > 1 and not context_parallel
         # MoE (GShard / Switch): num_experts > 0 routes the FFN of every
         # `moe_every`-th block
         self.num_experts = num_experts
@@ -82,34 +115,99 @@ class GPTConfig:
         self.moe_capacity_factor = moe_capacity_factor
         self.moe_every = moe_every
         self.moe_aux_weight = moe_aux_weight
-        on = [name for name in ("tensor_parallel", "sequence_parallel",
-                                "context_parallel") if getattr(self, name)]
-        if on:
-            raise NotImplementedError(
-                f"{', '.join(on)}: the port's distributed slice is not "
-                f"ported yet (ROADMAP.md A11)")
+        _check_parallel(self)
 
     @classmethod
     def from_preset(cls, name, **kw):
         return cls(**{**cls.PRESETS[name], **kw})
 
 
+def _check_parallel(cfg):
+    """The flag combinations the port refuses (GPT and LLaMA configs)."""
+    mp = mesh_mod.degree("mp")
+    if mp > 1 and cfg.context_parallel and cfg.tensor_parallel:
+        raise NotImplementedError(
+            "context_parallel beside tensor_parallel: both ride the mp "
+            "axis in the port; set tensor_parallel=False (ROADMAP.md A11)")
+    if mp > 1 and cfg.sequence_parallel and not cfg.tensor_parallel:
+        raise ValueError("sequence_parallel at mp > 1 needs "
+                         "tensor_parallel (Megatron-SP)")
+    if mp > 1 and getattr(cfg, "num_experts", 0) and \
+            (cfg.tensor_parallel or cfg.context_parallel):
+        raise NotImplementedError(
+            "MoE blocks under mp > 1: expert parallelism is not ported yet "
+            "(ROADMAP.md A11)")
+
+
+def _tp_degree(cfg):
+    return mesh_mod.degree("mp") if cfg.tensor_parallel else 1
+
+
+def _sp(cfg):
+    return bool(cfg.sequence_parallel) and _tp_degree(cfg) > 1
+
+
+def _cp(cfg):
+    return bool(cfg.context_parallel) and mesh_mod.degree("mp") > 1
+
+
+def _linear(cfg, in_f, out_f, column=True, interleave=1, bias=True, **kw):
+    """nn.Linear, or its column- / row-parallel counterpart under tensor
+    parallelism (the output of a column layer stays split; a row layer
+    takes split input)."""
+    if not cfg.tensor_parallel:
+        return nn.Linear(in_f, out_f, bias=bias, **kw)
+    if column:
+        return ColumnParallelLinear(in_f, out_f, has_bias=bias,
+                                    gather_output=False,
+                                    interleave=interleave,
+                                    sequence_parallel=_sp(cfg), **kw)
+    return RowParallelLinear(in_f, out_f, has_bias=bias,
+                             input_is_parallel=True,
+                             sequence_parallel=_sp(cfg), **kw)
+
+
+def _no_parallel_cache(module, cache):
+    if cache is not None and (_tp_degree(module.cfg) > 1
+                              or _cp(module.cfg)):
+        raise NotImplementedError(
+            "decode caches under mp > 1: tensor-parallel serving is not "
+            "ported yet (ROADMAP.md A11)")
+
+
 class GPTAttention(nn.Module):
     def __init__(self, cfg, device=None, dtype=None):
         super().__init__()
+        self.cfg = cfg
         self.num_heads = cfg.num_heads
         self.head_dim = cfg.hidden_size // cfg.num_heads
+        n = _tp_degree(cfg)
+        if cfg.num_heads % n:
+            raise ValueError(f"num_heads ({cfg.num_heads}) is not divisible "
+                             f"by the mp degree ({n})")
+        self.local_heads = cfg.num_heads // n
+        if cfg.context_parallel and cfg.attention_dropout > 0:
+            # the ring's flash blocks have no dropout (`gpt.py:103-109`)
+            raise ValueError(
+                "context_parallel ring attention does not support "
+                "attention_dropout > 0; set attention_dropout=0.0 "
+                "(hidden_dropout is unaffected)")
         kw = dict(device=device, dtype=dtype)
-        self.qkv_proj = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size, **kw)
-        self.out_proj = nn.Linear(cfg.hidden_size, cfg.hidden_size, **kw)
+        self.qkv_proj = _linear(cfg, cfg.hidden_size, 3 * cfg.hidden_size,
+                                interleave=3, **kw)
+        self.out_proj = _linear(cfg, cfg.hidden_size, cfg.hidden_size,
+                                column=False, **kw)
         self.dropout_p = cfg.attention_dropout
         self.generator = None       # attention dropout's generator
 
     def forward(self, x, cache=None):
-        b, s, h = x.shape
+        _no_parallel_cache(self, cache)
+        qkv = self.qkv_proj(x)
+        b, s = qkv.shape[:2]        # the whole sequence under Megatron-SP
         # [b, s, 3, H, D] then unbind the 3: the JAX package's qkv layout
-        qkv = self.qkv_proj(x).view(b, s, 3, self.num_heads, self.head_dim)
-        q, k, v = qkv.unbind(2)
+        # (this rank's H/mp heads under tensor parallelism)
+        q, k, v = qkv.view(b, s, 3, self.local_heads,
+                           self.head_dim).unbind(2)
         if cache is not None and "table" in cache:
             # block-paged pool (serving engine): write this chunk's k/v
             # through the block table, then attend the whole context
@@ -131,21 +229,25 @@ class GPTAttention(nn.Module):
             out = PF.scaled_dot_product_attention(
                 q, k, v, is_causal=s > 1, dropout_p=0.0,
                 training=self.training)
+        elif _cp(self.cfg):
+            out = ring_attention_local(q, k, v, "mp", causal=True)
         else:
             # dropout on the attention output in training, as the JAX
             # package applies it
             out = PF.scaled_dot_product_attention(
                 q, k, v, is_causal=True, dropout_p=self.dropout_p,
                 training=self.training, generator=self.generator)
-        return self.out_proj(out.reshape(b, s, h))
+        return self.out_proj(out.reshape(b, s, -1))
 
 
 class GPTMLP(nn.Module):
     def __init__(self, cfg, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.fc_in = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
-        self.fc_out = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
+        self.fc_in = _linear(cfg, cfg.hidden_size, cfg.intermediate_size,
+                             **kw)
+        self.fc_out = _linear(cfg, cfg.intermediate_size, cfg.hidden_size,
+                              column=False, **kw)
 
     def forward(self, x):
         return self.fc_out(F.gelu(self.fc_in(x), approximate="tanh"))
@@ -168,6 +270,9 @@ class GPTBlock(nn.Module):
         else:
             self.mlp = GPTMLP(cfg, **kw)
         self.dropout = Dropout(cfg.hidden_dropout)
+        if _sp(cfg):
+            mark_sequence_parallel(*self.ln_1.parameters(),
+                                   *self.ln_2.parameters())
 
     def forward(self, x, cache=None, return_aux=False):
         """The block's output; with `return_aux`, (output, the routed
@@ -187,18 +292,24 @@ class GPTModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         kw = dict(device=device, dtype=dtype)
-        self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
+        self.wte = VocabParallelEmbedding(cfg.vocab_size, cfg.hidden_size,
+                                          **kw) if cfg.tensor_parallel \
+            else nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
         self.wpe = nn.Embedding(cfg.max_position_embeddings,
                                 cfg.hidden_size, **kw)
         self.drop = Dropout(cfg.hidden_dropout)
         self.h = nn.ModuleList([GPTBlock(cfg, i, **kw)
                                 for i in range(cfg.num_layers)])
         self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=1e-5, **kw)
+        if _sp(cfg):
+            mark_sequence_parallel(*self.ln_f.parameters())
 
     def forward(self, input_ids, position_ids=None, caches=None):
         """Final hidden states [b, s, hidden].  With paged or preallocated
         caches the tokens sit at pos .. pos + s - 1 (`pos` 0-d, or [b]
-        per row); with concat caches after the cached length."""
+        per row); with concat caches after the cached length.  Under
+        sequence or context parallelism, this rank's sequence shard
+        [b, s/mp, hidden]."""
         b, s = input_ids.shape
         if position_ids is None:
             ar = torch.arange(s, device=input_ids.device)
@@ -209,7 +320,14 @@ class GPTModel(nn.Module):
             else:
                 offset = 0 if caches is None else caches[0]["k"].shape[1]
                 position_ids = (ar + offset)[None, :]
+        if _cp(self.cfg):
+            # this rank's contiguous piece of the sequence
+            n, r = mesh_mod.degree("mp"), mesh_mod.axis_rank("mp")
+            input_ids = input_ids.chunk(n, 1)[r]
+            position_ids = position_ids.chunk(n, 1)[r]
         x = self.drop(self.wte(input_ids) + self.wpe(position_ids))
+        if _sp(self.cfg):
+            x = scatter_seq(x)
         for i, block in enumerate(self.h):
             if self.cfg.use_recompute and self.training and caches is None:
                 if isinstance(block.mlp, MoELayer):
@@ -249,9 +367,7 @@ class GPTForCausalLM(nn.Module):
         std = self.cfg.initializer_range
         for mod in self.modules():
             if isinstance(mod, (nn.Linear, nn.Embedding)):
-                mod.weight.normal_(0.0, std, generator=generator)
-                if getattr(mod, "bias", None) is not None:
-                    mod.bias.zero_()
+                init_normal_(mod, std, generator)
             elif isinstance(mod, nn.LayerNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
@@ -268,7 +384,7 @@ class GPTForCausalLM(nn.Module):
 
     def forward(self, input_ids, position_ids=None, caches=None):
         x = self.gpt(input_ids, position_ids, caches)
-        return F.linear(x, self.gpt.wte.weight)
+        return _tied_head(self.cfg, x, self.gpt.wte.weight)
 
     def new_caches(self, batch_size, dtype=None, max_length=None):
         """Concat-style caches (eager decode) or, with `max_length`, the
@@ -283,6 +399,19 @@ class GPTForCausalLM(nn.Module):
         """`decode.jit_generate` (the captured decode step) or, with
         `use_jit=False`, the eager `generation.generate`."""
         return _generate(self, input_ids, max_new_tokens, use_jit, **kw)
+
+
+def _tied_head(cfg, x, weight):
+    """Full logits x @ weight.T from the final hidden states: under
+    tensor parallelism `weight` is this rank's vocab rows, and the
+    vocab-split logits are gathered; under sequence or context
+    parallelism the sequence shards are gathered too."""
+    if _cp(cfg):
+        return gather_seq_full(F.linear(x, weight))
+    if _tp_degree(cfg) == 1:
+        return F.linear(x, weight)
+    x = gather_seq(x) if _sp(cfg) else copy_to_mp(x)
+    return gather_last(F.linear(x, weight))
 
 
 class GPTPretrainingCriterion(nn.Module):

@@ -18,9 +18,14 @@ package does, not HF's rotate-half.  It computes in float32 and rounds
 the result to q's dtype; the JAX `_rope` lets bfloat16 q and k promote
 to float32 there (ROADMAP.md C).
 
-Tensor, sequence and context parallelism are a later slice of the port:
-the config takes the flags and raises NotImplementedError when one is
-switched on.
+Parallelism over the mesh's "mp" axis follows `text/gpt.py` (JAX:
+`llama.py:99-107`, `:201`, `:236`, `:252-253`, `:278`): under
+`tensor_parallel` q / k / v, gate and up are column-parallel, o and down
+row-parallel, the embedding vocab-parallel and the untied `lm_head`
+column-parallel with its output gathered; GQA needs `num_kv_heads`
+divisible by the mp degree (rank r holds kv heads r*Hkv/mp ...).
+`sequence_parallel` is Megatron-SP, `context_parallel` the ring over
+sequence shards, with rope at the shard's global positions.
 """
 from __future__ import annotations
 
@@ -30,11 +35,19 @@ from torch import nn
 from .. import ops
 from ..device import generator as make_generator
 from ..device import resolve_device
+from ..distributed import mesh as mesh_mod
+from ..distributed.parallel_layers import (ColumnParallelLinear,
+                                           VocabParallelEmbedding,
+                                           gather_seq_full, init_normal_,
+                                           mark_sequence_parallel,
+                                           scatter_seq)
 from ..distributed.recompute import recompute
+from ..distributed.ring_attention import ring_attention_local
 from ..nn import RMSNorm
 from ..nn import functional as PF
 from .decode import _update_paged_cache, _update_prealloc_cache
-from .gpt import _generate, _new_caches
+from .gpt import (_check_parallel, _cp, _generate, _linear, _new_caches,
+                  _no_parallel_cache, _sp, _tp_degree)
 
 
 class LlamaConfig:
@@ -73,7 +86,9 @@ class LlamaConfig:
         self.use_recompute = use_recompute
         self.sequence_parallel = sequence_parallel
         self.context_parallel = context_parallel
-        self.tensor_parallel = bool(tensor_parallel)
+        self.tensor_parallel = bool(tensor_parallel) \
+            if tensor_parallel is not None \
+            else mesh_mod.degree("mp") > 1 and not context_parallel
         # attention_bias: biased q/k/v projections (Qwen2); sliding_window:
         # Mistral's banded causal attention
         self.attention_bias = attention_bias
@@ -82,12 +97,7 @@ class LlamaConfig:
             raise ValueError(
                 "sliding_window does not compose with context_parallel "
                 "(the ring rotates full KV shards); pick one")
-        on = [name for name in ("tensor_parallel", "sequence_parallel",
-                                "context_parallel") if getattr(self, name)]
-        if on:
-            raise NotImplementedError(
-                f"{', '.join(on)}: the port's distributed slice is not "
-                f"ported yet (ROADMAP.md A11)")
+        _check_parallel(self)
 
     @classmethod
     def from_preset(cls, name, **kw):
@@ -120,26 +130,39 @@ class LlamaAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.head_dim = cfg.hidden_size // cfg.num_heads
+        n = _tp_degree(cfg)
+        if cfg.num_heads % n or cfg.num_kv_heads % n:
+            raise ValueError(
+                f"tensor parallelism needs num_heads ({cfg.num_heads}) and "
+                f"num_kv_heads ({cfg.num_kv_heads}) divisible by the mp "
+                f"degree ({n})")
+        self.local_heads = cfg.num_heads // n
+        self.local_kv_heads = cfg.num_kv_heads // n
         kw = dict(device=device, dtype=dtype)
         bias = bool(cfg.attention_bias)
-        self.q_proj = nn.Linear(cfg.hidden_size,
-                                cfg.num_heads * self.head_dim, bias=bias, **kw)
-        self.k_proj = nn.Linear(cfg.hidden_size,
-                                cfg.num_kv_heads * self.head_dim, bias=bias,
-                                **kw)
-        self.v_proj = nn.Linear(cfg.hidden_size,
-                                cfg.num_kv_heads * self.head_dim, bias=bias,
-                                **kw)
-        self.o_proj = nn.Linear(cfg.num_heads * self.head_dim,
-                                cfg.hidden_size, bias=False, **kw)
+        self.q_proj = _linear(cfg, cfg.hidden_size,
+                              cfg.num_heads * self.head_dim, bias=bias, **kw)
+        self.k_proj = _linear(cfg, cfg.hidden_size,
+                              cfg.num_kv_heads * self.head_dim, bias=bias,
+                              **kw)
+        self.v_proj = _linear(cfg, cfg.hidden_size,
+                              cfg.num_kv_heads * self.head_dim, bias=bias,
+                              **kw)
+        self.o_proj = _linear(cfg, cfg.num_heads * self.head_dim,
+                              cfg.hidden_size, column=False, bias=False, **kw)
 
     def forward(self, x, cache=None):
         cfg = self.cfg
-        b, s, _ = x.shape
-        q = self.q_proj(x).view(b, s, cfg.num_heads, self.head_dim)
-        k = self.k_proj(x).view(b, s, cfg.num_kv_heads, self.head_dim)
-        v = self.v_proj(x).view(b, s, cfg.num_kv_heads, self.head_dim)
+        _no_parallel_cache(self, cache)
+        q = self.q_proj(x)
+        b, s = q.shape[:2]          # the whole sequence under Megatron-SP
+        q = q.view(b, s, self.local_heads, self.head_dim)
+        k = self.k_proj(x).view(b, s, self.local_kv_heads, self.head_dim)
+        v = self.v_proj(x).view(b, s, self.local_kv_heads, self.head_dim)
         ar = torch.arange(s, device=x.device)
+        if _cp(cfg):
+            # this rank's shard sits at global positions r*s .. r*s + s-1
+            ar = ar + mesh_mod.axis_rank("mp") * s
         if cache is not None and "pos" in cache:
             # paged or preallocated: a 0-d offset or [b] per-row offsets
             p = cache["pos"].long()
@@ -180,6 +203,8 @@ class LlamaAttention(nn.Module):
             out = PF.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, dropout_p=0.0,
                 training=self.training)
+        elif _cp(cfg):
+            out = ring_attention_local(q, k, v, "mp", causal=True)
         else:
             out = PF.scaled_dot_product_attention(
                 q, k, v, is_causal=cache is None or s > 1, dropout_p=0.0,
@@ -192,11 +217,12 @@ class LlamaMLP(nn.Module):
     def __init__(self, cfg, device=None, dtype=None):
         super().__init__()
         kw = dict(bias=False, device=device, dtype=dtype)
-        self.gate_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size,
-                                   **kw)
-        self.up_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
-        self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size,
-                                   **kw)
+        self.gate_proj = _linear(cfg, cfg.hidden_size, cfg.intermediate_size,
+                                 **kw)
+        self.up_proj = _linear(cfg, cfg.hidden_size, cfg.intermediate_size,
+                               **kw)
+        self.down_proj = _linear(cfg, cfg.intermediate_size, cfg.hidden_size,
+                                 column=False, **kw)
 
     def forward(self, x):
         return self.down_proj(PF.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -212,6 +238,9 @@ class LlamaBlock(nn.Module):
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size,
                                                 cfg.rms_norm_eps, **kw)
         self.mlp = LlamaMLP(cfg, **kw)
+        if _sp(cfg):
+            mark_sequence_parallel(self.input_layernorm.weight,
+                                   self.post_attention_layernorm.weight)
 
     def forward(self, x, cache=None):
         x = x + self.self_attn(self.input_layernorm(x), cache=cache)
@@ -223,15 +252,24 @@ class LlamaModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         kw = dict(device=device, dtype=dtype)
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
-                                         **kw)
+        self.embed_tokens = VocabParallelEmbedding(
+            cfg.vocab_size, cfg.hidden_size, **kw) if cfg.tensor_parallel \
+            else nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
         self.layers = nn.ModuleList([LlamaBlock(cfg, **kw)
                                      for _ in range(cfg.num_layers)])
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
+        if _sp(cfg):
+            mark_sequence_parallel(self.norm.weight)
 
     def forward(self, input_ids, caches=None):
-        """Final hidden states [b, s, hidden]."""
+        """Final hidden states [b, s, hidden] (this rank's sequence shard
+        under sequence or context parallelism)."""
+        if _cp(self.cfg):
+            input_ids = input_ids.chunk(mesh_mod.degree("mp"), 1)[
+                mesh_mod.axis_rank("mp")]
         x = self.embed_tokens(input_ids)
+        if _sp(self.cfg):
+            x = scatter_seq(x)
         for i, block in enumerate(self.layers):
             if self.cfg.use_recompute and self.training and caches is None:
                 x = recompute(block, x)
@@ -256,8 +294,12 @@ class LlamaForCausalLM(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         self.llama = LlamaModel(cfg, device=device, dtype=dtype)
-        self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
-                                 device=device, dtype=dtype)
+        self.lm_head = ColumnParallelLinear(
+            cfg.hidden_size, cfg.vocab_size, has_bias=False,
+            sequence_parallel=_sp(cfg), device=device, dtype=dtype) \
+            if cfg.tensor_parallel else \
+            nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
+                      device=device, dtype=dtype)
         self.reset_parameters(generator if generator is not None
                               else make_generator(0, device))
 
@@ -266,14 +308,13 @@ class LlamaForCausalLM(nn.Module):
         std = self.cfg.initializer_range
         for mod in self.modules():
             if isinstance(mod, (nn.Linear, nn.Embedding)):
-                mod.weight.normal_(0.0, std, generator=generator)
-                if getattr(mod, "bias", None) is not None:
-                    mod.bias.zero_()
+                init_normal_(mod, std, generator)
             elif isinstance(mod, RMSNorm):
                 mod.weight.fill_(1.0)
 
     def forward(self, input_ids, caches=None):
-        return self.lm_head(self.llama(input_ids, caches))
+        logits = self.lm_head(self.llama(input_ids, caches))
+        return gather_seq_full(logits) if _cp(self.cfg) else logits
 
     def new_caches(self, batch_size, dtype=None, max_length=None):
         """Concat-style caches or, with `max_length`, preallocated ones,

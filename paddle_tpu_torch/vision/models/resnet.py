@@ -15,6 +15,7 @@ stride-2 stem as space-to-depth + a 4x4 conv over the same weight
 """
 from __future__ import annotations
 
+import inspect
 import math
 
 import torch
@@ -28,21 +29,34 @@ from ...nn.norm import BatchNorm2D
 from ...nn.pooling import AdaptiveAvgPool2D, MaxPool2D
 
 
+def _mk_norm(norm_layer, num_features, kw):
+    """`norm_layer(num_features)`, handing it `data_format` and `device`
+    only where its signature takes them, so that a custom callable (a
+    GroupNorm lambda, ...) works as in the JAX package (`:16-25`)."""
+    try:
+        params = inspect.signature(norm_layer).parameters
+    except (TypeError, ValueError):
+        params = {}
+    return norm_layer(num_features,
+                      **{k: v for k, v in kw.items() if k in params})
+
+
 class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
-                 groups=1, base_width=64, dilation=1, data_format="NCHW",
-                 device=None):
+                 groups=1, base_width=64, dilation=1, norm_layer=None,
+                 data_format="NCHW", device=None):
         super().__init__()
+        norm_layer = norm_layer or BatchNorm2D
         kw = dict(data_format=data_format, device=device)
         self.conv1 = Conv2D(inplanes, planes, 3, stride=stride, padding=1,
                             bias_attr=False, **kw)
-        self.bn1 = BatchNorm2D(planes, **kw)
+        self.bn1 = _mk_norm(norm_layer, planes, kw)
         self.relu = nn.ReLU()
         self.conv2 = Conv2D(planes, planes, 3, padding=1, bias_attr=False,
                             **kw)
-        self.bn2 = BatchNorm2D(planes, **kw)
+        self.bn2 = _mk_norm(norm_layer, planes, kw)
         self.downsample = downsample
         self.stride = stride
 
@@ -56,20 +70,21 @@ class BottleneckBlock(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
-                 groups=1, base_width=64, dilation=1, data_format="NCHW",
-                 device=None):
+                 groups=1, base_width=64, dilation=1, norm_layer=None,
+                 data_format="NCHW", device=None):
         super().__init__()
+        norm_layer = norm_layer or BatchNorm2D
         kw = dict(data_format=data_format, device=device)
         width = int(planes * (base_width / 64.0)) * groups
         self.conv1 = Conv2D(inplanes, width, 1, bias_attr=False, **kw)
-        self.bn1 = BatchNorm2D(width, **kw)
+        self.bn1 = _mk_norm(norm_layer, width, kw)
         self.conv2 = Conv2D(width, width, 3, stride=stride, padding=dilation,
                             groups=groups, dilation=dilation,
                             bias_attr=False, **kw)
-        self.bn2 = BatchNorm2D(width, **kw)
+        self.bn2 = _mk_norm(norm_layer, width, kw)
         self.conv3 = Conv2D(width, planes * self.expansion, 1,
                             bias_attr=False, **kw)
-        self.bn3 = BatchNorm2D(planes * self.expansion, **kw)
+        self.bn3 = _mk_norm(norm_layer, planes * self.expansion, kw)
         self.relu = nn.ReLU()
         self.downsample = downsample
 

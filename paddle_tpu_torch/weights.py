@@ -20,6 +20,12 @@ weights, batch-norm running statistics, LoRA's `lora_A` [in, r] and
 weight-only layer's int8 `quant_weight` [in, out] and `weight_scale`,
 which are copied bit for bit.
 
+A tensor-parallel model (`distributed.parallel_layers`) takes the same
+dense arrays: each parallel layer keeps its rank's piece, split along the
+JAX package's axis (GPT's fused qkv per head, in each of q, k and v), so
+one JAX state loads at any mp degree; its `state_dict()` gathers the
+pieces back to the dense layout.
+
 `load_paddle_tpu_optimizer_state(optimizer, model, state)` does the same
 for the JAX optimizer's per-parameter slots.
 """
@@ -46,7 +52,9 @@ def load_paddle_tpu_state(model, arrays):
     by the JAX package, so it is loaded once, from whichever of its names
     `arrays` has.  Raises KeyError on a missing or an unexpected name and
     ValueError on a shape mismatch.  Returns model."""
+    from .distributed.parallel_layers import parallel_parameters
     linear = _linear_weights(model)
+    split = parallel_parameters(model)
     state = model.state_dict(keep_vars=True)
     names = {}                      # tensor id -> every name it goes by
     for name, t in state.items():
@@ -63,10 +71,18 @@ def load_paddle_tpu_state(model, arrays):
         src = np.asarray(arrays[name])
         if name in linear:
             src = src.T
+        src = torch.from_numpy(np.array(src))        # a writable copy
+        if name in split:
+            layer, attr = split[name]
+            want = layer.dense_shape(attr, dst.shape)
+            if tuple(src.shape) != want:
+                raise ValueError(f"{name}: shape {tuple(src.shape)} does "
+                                 f"not fit {want}")
+            src = layer.shard(attr, src)
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"{name}: shape {tuple(src.shape)} does not "
                              f"fit {tuple(dst.shape)}")
-        dst.copy_(torch.from_numpy(np.array(src)))   # a writable copy
+        dst.copy_(src)
     return model
 
 

@@ -5,7 +5,8 @@ An AST scan shows that no module of `paddle_tpu_torch/`, and not
 `paddle_tpu` or `paddle`; a fresh interpreter importing the whole port
 (the training, serving-tier, AOT and incubate modules included) loads
 none of them,
-and neither does a serving worker process after it has served; and the
+and neither does a serving worker process after it has served, nor a
+rank the distributed launcher started after its collectives; and the
 port's entry points raise, rather than run on the CPU, when no device is
 named and there is no CUDA device.
 """
@@ -84,6 +85,16 @@ def test_no_port_module_imports_jax_or_the_jax_package():
             "paddle_tpu_torch/incubate/nn/moe.py",
             "paddle_tpu_torch/incubate/nn/functional.py",
             "paddle_tpu_torch/incubate/nn/fused_transformer.py",
+            "paddle_tpu_torch/distributed/collective.py",
+            "paddle_tpu_torch/distributed/mesh.py",
+            "paddle_tpu_torch/distributed/parallel_layers.py",
+            "paddle_tpu_torch/distributed/parallel.py",
+            "paddle_tpu_torch/distributed/fleet/__init__.py",
+            "paddle_tpu_torch/distributed/fleet_engine.py",
+            "paddle_tpu_torch/distributed/sharding.py",
+            "paddle_tpu_torch/distributed/ring_attention.py",
+            "paddle_tpu_torch/distributed/launch/__init__.py",
+            "paddle_tpu_torch/distributed/launch/__main__.py",
             "tools/torch_chaos_check.py",
             "tools/torch_aot_probe.py"} <= rel
     bad = {os.path.relpath(p, REPO): sorted(set(_imported_roots(p))
@@ -126,7 +137,15 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.incubate.nn, paddle_tpu_torch.incubate.nn.moe, "
             "paddle_tpu_torch.incubate.nn.functional, "
             "paddle_tpu_torch.incubate.nn.fused_transformer, "
-            "paddle_tpu_torch.incubate.optimizer, tools.torch_chaos_check\n"
+            "paddle_tpu_torch.incubate.optimizer, tools.torch_chaos_check, "
+            "paddle_tpu_torch.distributed.collective, "
+            "paddle_tpu_torch.distributed.mesh, "
+            "paddle_tpu_torch.distributed.parallel_layers, "
+            "paddle_tpu_torch.distributed.parallel, "
+            "paddle_tpu_torch.distributed.fleet, "
+            "paddle_tpu_torch.distributed.fleet_engine, "
+            "paddle_tpu_torch.distributed.sharding, "
+            "paddle_tpu_torch.distributed.ring_attention\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN | {'transformers'})!r})\n"
             "assert not bad, bad\n")
@@ -343,3 +362,31 @@ def test_a_spawned_worker_loads_no_jax(monkeypatch, tmp_path):
         h.abort()
     assert rq.finish_reason == "length" and len(rq.generated) == 4
     assert h.proc.returncode == 0
+
+
+def test_launched_ranks_load_no_jax(tmp_path):
+    """Two ranks of the distributed launcher join a gloo group, reduce,
+    and hold no JAX module and nothing of the JAX package (exit 7 if
+    they do)."""
+    script = tmp_path / "rank.py"
+    script.write_text(
+        "import sys, torch\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "from paddle_tpu_torch import distributed as dist\n"
+        "dist.init_parallel_env(backend='gloo', timeout=60)\n"
+        "t = torch.ones(2)\n"
+        "dist.all_reduce(t)\n"
+        "assert t.tolist() == [2.0, 2.0]\n"
+        "dist.destroy_process_group()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{sorted(FORBIDDEN)!r})\n"
+        "print('forbidden modules:', bad, file=sys.stderr)\n"
+        "sys.exit(7 if bad else 0)\n")
+    from torch_gloo import _free_port
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", "2", "--master",
+         f"127.0.0.1:{_free_port()}", str(script)],
+        cwd=REPO, env=env, timeout=120, capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr

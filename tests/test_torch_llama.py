@@ -176,12 +176,32 @@ def test_presets_match_jax():
     assert Qwen2Config.from_preset("qwen2-7b").attention_bias is True
 
 
-def test_config_validation():
+def test_config_validation(monkeypatch):
+    """The window refuses the ring; each parallel flag builds at mp 1 (no
+    mesh: the layers are their dense selves).  At mp 2 (the mesh's
+    degrees set by hand) tensor parallelism beside the ring raises, as
+    does sequence parallelism without it, and GQA needs the kv heads
+    divisible by mp."""
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
     with pytest.raises(ValueError, match="context_parallel"):
         LlamaConfig(sliding_window=8, context_parallel=True)
     for flag in ("tensor_parallel", "sequence_parallel", "context_parallel"):
-        with pytest.raises(NotImplementedError, match=flag):
-            LlamaConfig(**{flag: True})
+        cfg = LlamaConfig(**dict(LLAMA, **{flag: True}))
+        assert getattr(cfg, flag) is True
+        LlamaForCausalLM(cfg, device="cpu")
+    assert LlamaConfig(**LLAMA).tensor_parallel is False
+    monkeypatch.setitem(mesh_mod._state, "degrees",
+                        {"dp": 1, "pp": 1, "mp": 2, "ep": 1})
+    assert LlamaConfig(**LLAMA).tensor_parallel is True
+    assert LlamaConfig(**LLAMA, context_parallel=True).tensor_parallel \
+        is False
+    with pytest.raises(NotImplementedError, match="both ride the mp axis"):
+        LlamaConfig(**LLAMA, context_parallel=True, tensor_parallel=True)
+    with pytest.raises(ValueError, match="needs tensor_parallel"):
+        LlamaConfig(**LLAMA, sequence_parallel=True, tensor_parallel=False)
+    with pytest.raises(ValueError, match="num_kv_heads"):
+        LlamaForCausalLM(LlamaConfig(**dict(LLAMA, num_kv_heads=1)),
+                         device="cpu")
     with pytest.raises(TypeError, match="Qwen2Config"):
         Qwen2ForCausalLM(LlamaConfig(**LLAMA), device="cpu")
     assert issubclass(Qwen2Model, torch.nn.Module)

@@ -346,16 +346,21 @@ def test_gpt_moe_builds_with_the_reference_layout():
             defaults.moe_aux_weight) == (0, 2, 1.25, 1, 0.01)
 
 
-def test_gpt_config_takes_the_reference_parallel_flags():
-    """A JAX test's config (tensor_parallel=False) builds in the port; a
-    parallel flag that is set raises, naming the distributed slice."""
+def test_gpt_config_takes_the_reference_parallel_flags(monkeypatch):
+    """A JAX test's config (tensor_parallel=False) builds in the port;
+    at mp 2 (the mesh's degrees set by hand) an MoE model under tensor or
+    context parallelism raises, naming the distributed slice's open
+    item (expert parallelism, ROADMAP.md A11)."""
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
     cfg = GPTConfig(**TINY, tensor_parallel=False, sequence_parallel=False,
                     context_parallel=False, num_experts=4)
     assert cfg.tensor_parallel is False
     GPTForCausalLM(cfg, device="cpu")
-    for flag in ("tensor_parallel", "sequence_parallel", "context_parallel"):
+    monkeypatch.setitem(mesh_mod._state, "degrees",
+                        {"dp": 1, "pp": 1, "mp": 2, "ep": 1})
+    for flag in ("tensor_parallel", "context_parallel"):
         with pytest.raises(NotImplementedError, match="A11"):
-            GPTConfig(**TINY, **{flag: True})
+            GPTConfig(**TINY, num_experts=4, **{flag: True})
 
 
 @pytest.mark.parametrize("over", [{}, dict(moe_every=2),

@@ -1,0 +1,352 @@
+"""The port's public surface against the JAX package's (ROADMAP.md C8).
+
+For every module of `paddle_tpu_torch/` with a same-path module in
+`paddle_tpu/`, the reference's public names are read with `ast`: the
+functions, classes and assignments at module level, a package's
+relative re-exports, and the names its `_LAZY` table binds on first use.
+Each must exist on the imported port module, and each reference
+callable's parameter names must be parameters of the port's callable
+(a class: its `__init__`).  `LEFT_OUT` lists what is not ported yet,
+each entry under its ROADMAP.md queue item (A11 distributed, A13a the
+`nn` surface, A13b the rest of the surface) or "jax" for a name of the
+JAX machinery itself (PRNG keys, the op registry and its kernels,
+PartitionSpec helpers, pytree selects), which has no counterpart in
+torch.  An entry that the port has gained fails the test too, so the
+list only shrinks.  Then one call each for the C8 items.
+"""
+import ast
+import importlib
+import inspect
+import os
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+QUEUE_ITEMS = {"A11", "A13a", "A13b", "jax"}
+
+
+# (module, queue item): names not ported yet
+LEFT_OUT = {
+    ("__init__.py", "A13b"): (
+        "CPUPlace CUDAPlace LazyGuard Model Place TPUPlace Tensor "
+        "audio autograd base bfloat16 bool8 callbacks checkpoint "
+        "complex128 complex64 create_parameter device_count "
+        "disable_static distribution enable_grad enable_static "
+        "enable_x64 fft finfo float16 float32 float64 flops fluid "
+        "geometric get_default_dtype get_device grad hapi hub iinfo "
+        "in_dynamic_mode int16 int32 int64 int8 io "
+        "is_compiled_with_cuda is_compiled_with_tpu "
+        "is_compiled_with_xpu is_grad_enabled linalg load metric "
+        "no_grad onnx parameter profiler quantization save "
+        "set_default_dtype set_device set_grad_enabled signal sparse "
+        "static summary sysconfig to_tensor uint8 utils version "
+        "x64_enabled"
+    ),
+    ("amp/__init__.py", "A13b"): "dtypes",
+    ("device.py", "A13b"): (
+        "CPUPlace Place TPUPlace cuda current_place device_count "
+        "get_device is_compiled_with_cuda is_compiled_with_tpu "
+        "is_compiled_with_xpu set_device"
+    ),
+    ("distributed/__init__.py", "A11"): (
+        "Partial PipelineLayer Placement ProcessMesh Replicate Shard "
+        "auto_parallel dtensor_from_fn gpipe_spmd pipeline_apply "
+        "reshard shard_tensor"
+    ),
+    ("distributed/fleet_engine.py", "jax"): "param_pspec state_pspec",
+    ("distributed/mesh.py", "jax"): "replicated sharding",
+    ("distributed/ring_attention.py", "jax"): "make_ring_flash_local",
+    ("framework/__init__.py", "A13b"): "flags",
+    ("framework/checkpoint.py", "A11"): "load_state(resharder)",
+    ("framework/random.py", "jax"): "default_key key_context next_key",
+    ("jit/__init__.py", "A13b"): (
+        "FB Layer StaticFunction Tensor compile_cache "
+        "convert_to_static dy2static enable_to_static engine load "
+        "not_to_static save to_static"
+    ),
+    ("jit/save_load.py", "jax"): (
+        "TranslatedLayer(exported,params,buffers,aot_exec)"
+    ),
+    ("nn/__init__.py", "A13a"): (
+        "AdaptiveAvgPool1D AdaptiveAvgPool3D AdaptiveMaxPool1D "
+        "AdaptiveMaxPool2D AdaptiveMaxPool3D AlphaDropout AvgPool1D "
+        "AvgPool3D BCELoss BCEWithLogitsLoss BatchNorm1D BatchNorm3D "
+        "BeamSearchDecoder BiRNN Bilinear CELU CTCLoss ChannelShuffle "
+        "Conv1D Conv1DTranspose Conv2DTranspose Conv3D "
+        "Conv3DTranspose CosineEmbeddingLoss CosineSimilarity "
+        "CrossEntropyLoss Dropout2D Dropout3D ELU Embedding Flatten "
+        "Fold GELU GLU GRU GRUCell GaussianNLLLoss GroupNorm "
+        "HSigmoidLoss Hardshrink Hardsigmoid Hardswish Hardtanh "
+        "HingeEmbeddingLoss Identity InstanceNorm1D InstanceNorm2D "
+        "InstanceNorm3D KLDivLoss L1Loss LSTM LSTMCell Layer "
+        "LayerDict LayerList LayerNorm LeakyReLU Linear "
+        "LocalResponseNorm LogSigmoid LogSoftmax MSELoss "
+        "MarginRankingLoss MaxPool1D MaxPool3D MaxUnPool2D "
+        "MaxUnpool2D Maxout Mish MultiLabelSoftMarginLoss "
+        "MultiMarginLoss NLLLoss PReLU Pad1D Pad2D Pad3D "
+        "PairwiseDistance ParameterList PixelShuffle PixelUnshuffle "
+        "PoissonNLLLoss RNN RNNCellBase RReLU ReLU ReLU6 SELU "
+        "Sequential SiLU Sigmoid Silu SimpleRNN SimpleRNNCell "
+        "SmoothL1Loss SoftMarginLoss Softmax Softmax2D Softplus "
+        "Softshrink Softsign SpectralNorm Swish SyncBatchNorm Tanh "
+        "Tanhshrink ThresholdedReLU Transformer TransformerDecoder "
+        "TransformerDecoderLayer TripletMarginLoss "
+        "TripletMarginWithDistanceLoss Unfold Upsample "
+        "UpsamplingBilinear2D UpsamplingNearest2D ZeroPad2D "
+        "initializer utils"
+    ),
+    ("nn/clip.py", "A13a"): "ClipGradBase",
+    ("nn/conv.py", "A13a"): "Conv1D Conv2DTranspose Conv3D",
+    ("nn/functional.py", "A13a"): (
+        "adaptive_avg_pool1d adaptive_avg_pool3d adaptive_max_pool1d "
+        "adaptive_max_pool2d adaptive_max_pool3d affine_grid "
+        "alpha_dropout avg_pool1d avg_pool3d bilinear "
+        "binary_cross_entropy binary_cross_entropy_with_logits celu "
+        "channel_shuffle conv1d conv1d_transpose conv2d_transpose "
+        "conv3d conv3d_transpose cosine_embedding_loss "
+        "cosine_similarity ctc_loss dice_loss dropout2d dropout3d elu "
+        "embedding fold gather_tree gaussian_nll_loss glu grid_sample "
+        "group_norm gumbel_softmax hardshrink hardsigmoid hardswish "
+        "hardtanh hinge_embedding_loss hsigmoid_loss instance_norm "
+        "interpolate kl_div l1_loss label_smooth layer_norm "
+        "leaky_relu linear local_response_norm log_loss log_sigmoid "
+        "log_softmax margin_ranking_loss max_pool1d max_pool3d "
+        "max_unpool2d maxout mish mse_loss "
+        "multi_label_soft_margin_loss multi_margin_loss nll_loss "
+        "normalize npair_loss one_hot pad pairwise_distance "
+        "pixel_shuffle pixel_unshuffle poisson_nll_loss prelu relu6 "
+        "relu_ rrelu selu sequence_mask sigmoid sigmoid_focal_loss "
+        "smooth_l1_loss soft_margin_loss softmax "
+        "softmax_with_cross_entropy softplus softshrink softsign "
+        "square_error_cost swish tanhshrink temporal_shift "
+        "thresholded_relu triplet_margin_loss "
+        "triplet_margin_with_distance_loss unfold upsample zeropad2d"
+    ),
+    ("nn/norm.py", "A13a"): (
+        "BatchNorm1D BatchNorm3D GroupNorm InstanceNorm2D LayerNorm "
+        "LocalResponseNorm RMSNorm SyncBatchNorm"
+    ),
+    ("nn/pooling.py", "A13a"): (
+        "AdaptiveMaxPool2D AvgPool1D MaxPool1D MaxUnpool2D"
+    ),
+    ("nn/transformer.py", "A13a"): (
+        "MultiHeadAttention(weight_attr,bias_attr) Transformer "
+        "TransformerDecoder TransformerDecoderLayer "
+        "TransformerEncoderLayer(weight_attr,bias_attr)"
+    ),
+    ("observability/__init__.py", "A13b"): (
+        "MetricsRegistry RecompileWarning chrome_trace "
+        "compile_tracker disable dispatch_stats enable enabled "
+        "export_chrome_trace reset span trace"
+    ),
+    ("observability/metrics.py", "A13b"): "set_registry",
+    ("ops/__init__.py", "jax"): (
+        "call call_raw dispatch kernels override pallas register"
+    ),
+    ("ops/nn_kernels.py", "jax"): (
+        "adaptive_avg_pool2d_k adaptive_avg_pool2d_nhwc_k "
+        "adaptive_max_pool2d_k avg_pool2d_k avg_pool2d_nhwc_k "
+        "avg_pool3d_k batch_norm_infer_k batch_norm_train_k "
+        "bce_with_logits_k conv1d_k conv2d_k conv2d_transpose_k "
+        "conv3d_k conv3d_transpose_k ctc_loss_k embedding_k fold_k "
+        "gather_tree_k group_norm_k instance_norm_k interpolate_k "
+        "layer_norm_k local_response_norm_k max_pool2d_index_k "
+        "max_pool2d_k max_pool2d_nhwc_k max_pool3d_k max_unpool2d_k "
+        "paged_attention_k paged_write_k pixel_shuffle_k rms_norm_k "
+        "s2d_stem_conv_k s2d_stem_conv_nhwc_k sdpa_k softmax_ce_k "
+        "temporal_shift_k"
+    ),
+    ("resilience/__init__.py", "A11"): "ReshardPlan Resharder reshard",
+    ("resilience/chaos.py", "A13b"): (
+        "corrupt_cache_entry take_loader_directives"
+    ),
+    ("resilience/guard.py", "jax"): "select_tree",
+    ("text/__init__.py", "A13b"): (
+        "BPETokenizer CharTokenizer TransformerModel ViterbiDecoder "
+        "datasets sinusoidal_positions tokenizer transformer_mt_loss "
+        "viterbi_decode"
+    ),
+    ("text/decode.py", "jax"): (
+        "jit_generate(seed_key) speculative_generate(seed_key)"
+    ),
+    ("vision/__init__.py", "A13b"): "datasets ops transforms",
+    ("vision/models/__init__.py", "A13b"): (
+        "AlexNet DenseNet GoogLeNet InceptionV3 LeNet MobileNetV1 "
+        "MobileNetV2 MobileNetV3Large MobileNetV3Small ShuffleNetV2 "
+        "SqueezeNet VGG alexnet densenet121 densenet161 densenet169 "
+        "densenet201 densenet264 googlenet inception_v3 mobilenet_v1 "
+        "mobilenet_v2 mobilenet_v3_large mobilenet_v3_small resnet152 "
+        "resnext50_32x4d shufflenet_v2_swish shufflenet_v2_x0_25 "
+        "shufflenet_v2_x0_33 shufflenet_v2_x0_5 shufflenet_v2_x1_0 "
+        "shufflenet_v2_x1_5 shufflenet_v2_x2_0 squeezenet1_0 "
+        "squeezenet1_1 vgg11 vgg13 vgg16 vgg19 wide_resnet50_2"
+    ),
+    ("vision/models/resnet.py", "A13b"): (
+        "resnet152 resnext50_32x4d wide_resnet50_2"
+    ),
+}
+
+
+def _params(fn):
+    a = fn.args
+    return [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs
+            if x.arg not in ("self", "cls")]
+
+
+def _reference_names(path):
+    """{public name: parameter names, or None for a non-callable}."""
+    tree = ast.parse(open(path).read())
+    package = os.path.basename(path) == "__init__.py"
+    names = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            names[node.name] = _params(node)
+        elif isinstance(node, ast.ClassDef):
+            init = [b for b in node.body if isinstance(b, ast.FunctionDef)
+                    and b.name == "__init__"]
+            names[node.name] = _params(init[0]) if init else None
+        elif isinstance(node, ast.Assign):
+            for t in node.targets:
+                if isinstance(t, ast.Name):
+                    names.setdefault(t.id, None)
+            if any(isinstance(t, ast.Name) and t.id == "_LAZY"
+                   for t in node.targets):
+                v = node.value
+                keys = v.keys if isinstance(v, ast.Dict) else \
+                    getattr(v, "elts", [])
+                for k in keys:
+                    names.setdefault(k.value, None)
+        elif isinstance(node, ast.ImportFrom) and node.level and package:
+            for a in node.names:
+                if a.name != "*":
+                    names.setdefault(a.asname or a.name, None)
+    return {k: v for k, v in names.items() if not k.startswith("_")}
+
+
+def _pairs():
+    root = os.path.join(REPO, "paddle_tpu_torch")
+    for dirpath, _, files in sorted(os.walk(root)):
+        for f in sorted(files):
+            rel = os.path.relpath(os.path.join(dirpath, f), root)
+            ref = os.path.join(REPO, "paddle_tpu", rel)
+            if f.endswith(".py") and f != "__main__.py" and \
+                    os.path.exists(ref):
+                yield rel, ref
+
+
+def _module(rel):
+    mod = rel[:-3].replace(os.sep, ".")
+    if mod.endswith("__init__"):
+        mod = mod[:-len("__init__")].rstrip(".")
+    return importlib.import_module(
+        "paddle_tpu_torch" + ("." + mod if mod else ""))
+
+
+def _port_params(obj):
+    try:
+        sig = inspect.signature(obj)
+    except (TypeError, ValueError):
+        return None
+    return list(sig.parameters)
+
+
+def surface_gaps():
+    """{(module, name or name(params)) ...} the port lacks."""
+    gaps = set()
+    for rel, ref in _pairs():
+        mod = _module(rel)
+        for name, params in _reference_names(ref).items():
+            if not hasattr(mod, name):
+                gaps.add((rel, name))
+                continue
+            ours = _port_params(getattr(mod, name))
+            if params is None or ours is None:
+                continue
+            missing = [p for p in params if p not in ours]
+            if missing:
+                gaps.add((rel, f"{name}({','.join(missing)})"))
+    return gaps
+
+
+def _left_out():
+    return {(rel, name): item for (rel, item), names in LEFT_OUT.items()
+            for name in names.split()}
+
+
+def test_left_out_names_a_queue_item():
+    assert {item for _, item in LEFT_OUT} <= QUEUE_ITEMS
+
+
+def test_public_names_and_parameters_match_the_reference():
+    gaps = surface_gaps()
+    listed = set(_left_out())
+    assert sorted(gaps - listed) == [], "missing from the port"
+    assert sorted(listed - gaps) == [], "listed but ported: drop them"
+
+
+# ----------------------------------------------------- the C8 items, a call
+def test_text_exports_lora_and_the_converters():
+    from paddle_tpu_torch import text
+    from paddle_tpu_torch.text import convert, peft
+    assert text.LoRAConfig is peft.LoRAConfig
+    assert text.get_peft_model is peft.get_peft_model
+    assert text.LoRAModel is peft.LoRAModel
+    assert text.LoRALinear is peft.LoRALinear
+    for arch in ("llama", "qwen2", "gpt2", "bert", "ernie"):
+        name = f"convert_hf_{arch}"
+        assert getattr(text, name) is getattr(convert, name)
+
+
+def test_resilience_exports_backoff():
+    from paddle_tpu_torch import resilience
+    assert resilience.Backoff(base=0.5).delay(1) == 1.0
+    assert resilience.CrashLoopDetector(threshold=2).record_failure() is \
+        False
+    assert resilience.backoff.Backoff is resilience.Backoff
+
+
+def test_subpackages_bind_lazily():
+    import subprocess
+    import sys
+    code = ("import sys, paddle_tpu_torch as p\n"
+            "assert 'paddle_tpu_torch.serving' not in sys.modules\n"
+            "assert p.jit.train_step and p.serving.LLMEngine\n"
+            "assert p.vision.models.resnet18 and p.inference.Config\n"
+            "assert p.DataParallel is p.distributed.DataParallel\n")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   env=dict(os.environ, PYTHONPATH=REPO), timeout=120)
+
+
+def test_train_step_takes_donate_in_the_reference_position():
+    from paddle_tpu_torch.jit import TrainStep, train_step
+    from paddle_tpu_torch.optimizer import SGD
+    model = torch.nn.Linear(2, 1)
+    opt = SGD(parameters=model.parameters())
+    loss_fn = lambda m, x: m(x).sum()          # noqa: E731
+    step = train_step(model, loss_fn, opt, donate=False)
+    assert step(torch.ones(1, 2)).shape == ()
+    assert list(inspect.signature(TrainStep).parameters)[:5] == \
+        ["model", "loss_fn", "optimizer", "donate", "guard"]
+
+
+def test_resnet_blocks_take_norm_layer():
+    from paddle_tpu_torch.vision.models.resnet import (BasicBlock,
+                                                       BottleneckBlock)
+    norm = lambda c: torch.nn.GroupNorm(2, c)  # noqa: E731
+    b = BasicBlock(8, 8, norm_layer=norm, device="cpu")
+    assert isinstance(b.bn1, torch.nn.GroupNorm)
+    assert b(torch.zeros(1, 8, 4, 4)).shape == (1, 8, 4, 4)
+    bb = BottleneckBlock(32, 8, norm_layer=norm, device="cpu")
+    assert isinstance(bb.bn3, torch.nn.GroupNorm)
+
+
+def test_gauge_inc_dec_and_input_spec_from_tensor():
+    from paddle_tpu_torch.jit.save_load import InputSpec
+    from paddle_tpu_torch.observability.metrics import Gauge
+    g = Gauge()
+    g.inc(3)
+    g.dec()
+    assert g.value == 2
+    spec = InputSpec.from_tensor(torch.zeros(2, 5, dtype=torch.int64), "ids")
+    assert (spec.shape, spec.dtype, spec.name) == ((2, 5), torch.int64,
+                                                   "ids")
