@@ -15,8 +15,10 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
 1a. aot_compile  — exports and compiles with AOTInductor every package
                    that 4a, 5a, 5b and 23 load, four processes at once
                    (serve_aot's 2 programs, serve_aot_e2e's 2, ERNIE's
-                   float32 and bf16 packages), and waits for them: each
-                   job's seconds; no timed phase runs beside a compile;
+                   float32 and bf16 packages) at the lowest CPU
+                   priority, started after the build and waited for
+                   after 31: each job's seconds, the seconds they ran
+                   beside other phases and the seconds waited;
 2. kernels       — holds the paged decode kernel (context split across
                    blocks) against its plain PyTorch version on the card
                    at the serving path's shapes and at the split edges
@@ -48,7 +50,8 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    dO with one element moved must read a nonzero error),
                    and each float32 case's kernel and plain gradients
                    against a float64 plain backward;
-4. serve         — GPT-3 1.3B (full width, 24 layers, bf16, random weights
+4. serve         — GPT-3 1.3B (full width, 12 of its 24 layers:
+                   SERVE_LAYERS, bf16, random weights
                    from a seed) served by LLMEngine: 16 requests, 32 greedy
                    tokens each; every request must finish, the pool must be
                    leak-free, and the paged kernel must have launched once
@@ -64,7 +67,7 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    engine and served: tokens/s, decode step, TTFT, peak
                    memory beside serve's, a profile of AOT decode steps;
                    every call through a package, paged launches (called
-                   back from the packages) = steps x 24, no plain sdpa,
+                   back from the packages) = steps x 12, no plain sdpa,
                    no leak, bf16 tokens within MARGIN_TOL of a float32
                    forward's maximum;
 5. e2e           — the same width at 2 layers in float32: the engine's
@@ -78,7 +81,7 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    processes (ProcReplica, each its own CUDA context),
                    GPT-3 1.3B bf16: tokens/s and the router's TTFT beside
                    serve's, each worker's decode steps, paged launches
-                   (= steps x 24), plain sdpa calls (0), peak memory,
+                   (= steps x 12), plain sdpa calls (0), peak memory,
                    build, first-step and spawn-to-ready seconds; every
                    request finishes, no leak, no orphan, the workers'
                    probe logits equal the parent's bit for bit; worker
@@ -86,7 +89,8 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    ready event reports all of them loaded, it serves
                    through them alone, and its start prints beside r0's;
 5c. router_drill — `tools/torch_chaos_check.py --router --proc` at that
-                   width in float32: r0 SIGKILLed mid-stream 3x
+                   width, 6 layers (ROUTER_DRILL_LAYERS), in float32:
+                   r0 SIGKILLed mid-stream 3x
                    (evictions / respawns / aborts 3 / 2 / 1), a dropped
                    frame, a wedged worker hang-evicted and KILLed; every
                    stream byte-identical to one uninterrupted in-process
@@ -114,7 +118,8 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    port on the CPU (through the plain versions), same
                    weights and batch: loss series and final parameters
                    (float32 runs the fp32 forward, dK/dV and dQ);
-8. generate      — Mistral-7B (full width and depth, bf16, random weights
+8. generate      — Mistral-7B (full width, 8 of its 32 layers:
+                   GENERATE_LAYERS, bf16, random weights
                    from a seed), batch 4, 512-token prompts, 64 greedy
                    tokens: `generate(use_jit=True)` (the decode step
                    captured as a CUDA graph) against the eager loop
@@ -162,7 +167,8 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    all on sm90, and sdpa its plain path no time;
 14. train_llama_e2e — 2 layers, hidden 512, GQA 4/2, recompute, float32,
                    AdamW, 3 steps: card against CPU (losses, parameters);
-15. lora         — LLaMA-7B (full size, bf16) with LoRA r 16 / alpha 32
+15. lora         — LLaMA-7B (full width, 8 of its 32 layers:
+                   LORA_LAYERS, bf16) with LoRA r 16 / alpha 32
                    on q/k/v/o, AdamW(1e-4) with float32 masters of the
                    adapters only, seq 1024, batch 4, recompute: tokens/s,
                    step p50, peak memory, the optimizer's state bytes
@@ -171,7 +177,8 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    merge() -> jit_generate, in bf16 (the program rebuilt,
                    equal to the uncaptured step) and in float32 (tokens
                    identical before and after the merge);
-16. weight_only  — Mistral-7B (the generate phase's shape) in bf16, then
+16. weight_only  — Mistral-7B (the generate phase's shape at 8 of its 32
+                   layers: WEIGHT_ONLY_LAYERS) in bf16, then
                    converted to weight-only int8 and int4 (lm_head kept):
                    captured generate of each, tokens/s, step p50/p99,
                    weight bytes, peak memory; every quantized token
@@ -273,7 +280,31 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    dense float32 forward on the CPU, the captured
                    jit_generate card against CPU token for token (and
                    the eager loop on the card against it), and the
-                   smallest router probability gap met.
+                   smallest router probability gap met;
+29. mt_train     — Transformer-base MT (Vaswani et al. 2017, Table 3:
+                   d_model 512, 8 heads, 6 + 6 layers, d_inner 2048,
+                   dropout 0.1; a shared 37,000-token vocabulary, tied
+                   embedding; random weights from a seed) trained under
+                   AMP O1 bf16 with Adam (beta2 0.98, eps 1e-9),
+                   NoamDecay(512, 4000) and label smoothing 0.1 through
+                   TrainStep: 32 sources of 128 tokens (rows padded to
+                   ragged lengths), 32 targets of 97; 3 warm-up and 10
+                   timed steps (step p50/p99, tokens/s, peak memory,
+                   losses), then a profile (busy share); each step 18
+                   sm90 forward, dK/dV and dQ launches (encoder and
+                   decoder self-attention, cross-attention), no plain
+                   sdpa;
+30. mt_generate  — that model cast to bf16 greedy-decodes 64 tokens for
+                   the 32 sources through the concat self-attention
+                   caches and the memory's StaticCache: 6 sm90 forwards
+                   (the encoder), 12 decode-kernel launches a step, the
+                   number of steps and the step p50;
+31. mt_e2e       — 2 + 2 layers at that width in float32 (TF32 off,
+                   dropout 0): 3 Momentum steps and a 16-token greedy
+                   decode on the card (fp32 forward, dK/dV, dQ; decode
+                   kernel) against the CPU (plain versions): losses
+                   within 1e-5, parameters within 1e-3 of how far they
+                   moved, tokens equal.
 
 flash_kernels also holds BERT's shape (B 32, L 128, H 12, D 64,
 non-causal; unmasked and under its additive padding mask) in bf16, fp16
@@ -290,14 +321,17 @@ backward through autograd (fp32, sm80, SDPA, SDPA, sm80, fp32).
 
 The kernels line counts the flash launches of phases 4a, 5b-5c, 6-10
 (6a's fleet step and ring),
-13-16 and 19-28 (bert_resume's: its first unbroken run; ernie_infer's
+13-16 and 19-31 (bert_resume's: its first unbroken run; ernie_infer's
 exported and AOT runs; the worker processes' read from their metrics,
 the killed workers' lost with them); the sm80 forward, dK/dV and dQ
 launch on none of them (asserted, `on_main_paths: false`).  The paged
 kernel's launches are serve's, serve_aot's, serve_aot_e2e's,
 serve_llama's, the workers' of 5b-5c, moe_serve's and moe_e2e's.
-The phases run in the order of their numbers.  Each phase prints one
-JSON line.  Then one {"kernels": [...]} line, the
+The phases run in this order: 1, 1a's start, 2, 3, 5, 6-7, 8, 9, 10,
+13-22, 24-31 (beside 1a's compiles), 1a's wait, 4, 4a, 5a, 5b, 5c, 23,
+11, 12.  Each phase prints one JSON line.  Then a phase_seconds line
+(each phase's wall seconds, the build and the wait for the compiles
+included), one {"kernels": [...]} line, the
 card's name and power limit from nvidia-smi, and last
 {"ok": true, "device": {...}}.  Any failure raises and exits nonzero
 before the last line; without a CUDA device it exits 1 at once.
@@ -554,7 +588,8 @@ def phase_serve():
     from paddle_tpu_torch.text import GPTConfig, GPTForCausalLM
 
     cfg = GPTConfig.from_preset("gpt3-1.3B", hidden_dropout=0.0,
-                                attention_dropout=0.0)
+                                attention_dropout=0.0,
+                                num_layers=SERVE_LAYERS)
     model = GPTForCausalLM(
         cfg, device="cuda", dtype=torch.bfloat16,
         generator=torch.Generator(device="cuda").manual_seed(0))
@@ -712,6 +747,11 @@ def phase_e2e():
 # ---------------------------------------------------------- AOT serving
 # serve's engine settings: the inventory is the decode program and the
 # prefill buckets 32, 64, 128, 256 and 512 of the default ladder
+# serve, serve_aot and serve_router (compared with one another) run 12 of
+# GPT-3 1.3B's 24 layers at full width: the depth sets serve_aot's
+# compile, the longest job of aot_compile (407.8 s at 24 layers on a slow
+# host, PR 17)
+SERVE_LAYERS = 12
 SERVE_ENGINE = dict(num_blocks=2048, block_size=16, max_running=16,
                     prefill_chunk=512)
 # a package holds no weights: each must be under this share of them
@@ -719,8 +759,10 @@ AOT_PACKAGE_SHARE = 0.05
 
 
 def gpt13(dtype=torch.bfloat16, seed=0, **over):
-    """GPT-3 1.3B on the card, random weights from a seeded generator."""
+    """GPT-3 1.3B on the card (full width, serve's SERVE_LAYERS unless
+    `over` names num_layers), random weights from a seeded generator."""
     from paddle_tpu_torch.text import GPTConfig, GPTForCausalLM
+    over.setdefault("num_layers", SERVE_LAYERS)
     cfg = GPTConfig.from_preset("gpt3-1.3B", hidden_dropout=0.0,
                                 attention_dropout=0.0, **over)
     return GPTForCausalLM(
@@ -755,7 +797,7 @@ def aot_program_calls(reg):
 
 # serve_aot's engine: serve's, with the one-bucket ladder [512] (a chunk
 # pads to 512), so that its inventory is 2 programs, not 6: the script
-# compiles them before any timed phase and must end within its time
+# compiles them beside its other phases and must end within its time
 SERVE_AOT_ENGINE = dict(SERVE_ENGINE, buckets=[512])
 # serve_aot_e2e's engine: e2e's, with the one-bucket ladder [128]
 E2E_AOT_ENGINE = dict(num_blocks=256, block_size=16, max_running=4,
@@ -766,51 +808,68 @@ E2E_AOT_ENGINE = dict(num_blocks=256, block_size=16, max_running=4,
 AOT_JOBS = ("serve", "e2e", "ernie_float32", "ernie_bfloat16")
 
 
-def phase_aot_compile():
-    """Every AOTInductor export and compile of the script, before any
-    timed phase, so that no phase is timed beside a compile: one
-    `chip_smoke.py --aot-export NAME DIR` process a job of AOT_JOBS
-    (`aot_export`), all at once, each in a session of its own with its
-    output in DIR: "serve" (serve_aot's inventory, 2 programs), "e2e"
-    (serve_aot_e2e's, 2 programs) and ERNIE's `save_inference(aot=True)`
-    in float32 and in bf16.  A compile keeps about one host core busy for
-    minutes (GPT-3 1.3B's decode program 155.9 s alone,
-    `tools/torch_aot_probe.py`, NVIDIA H100 80GB HBM3 at 700 W), so they
-    run side by side.  Prints each job's seconds and the phase's; returns
-    {name: (its TemporaryDirectory, what it printed)}.  A failed job
-    raises with its stderr, and no process outlives a failure."""
-    import signal
+def start_aot_compile():
+    """Start every AOTInductor export and compile of the script, right
+    after the build: one `chip_smoke.py --aot-export NAME DIR` process a
+    job of AOT_JOBS (`aot_export`), all at once, each in a session of its
+    own at the lowest CPU priority, with its output in DIR: "serve"
+    (serve_aot's inventory, 2 programs), "e2e" (serve_aot_e2e's, 2
+    programs) and ERNIE's `save_inference(aot=True)` in float32 and in
+    bf16.  A compile is mostly serial host work whatever the depth (a
+    2-layer decode program 127-163 s alone, most of it in the C++
+    compiler; `tools/torch_aot_compile_probe.py`, NVIDIA H100 80GB HBM3
+    at 700 W), so the jobs run beside the phases that load no package
+    and `finish_aot_compile` collects them.  Returns {name: [its
+    TemporaryDirectory, its process]} and the start time; `stop_aot`
+    ends and removes them."""
     import tempfile
-    t0 = time.perf_counter()
-    jobs, done = {}, {}
+    jobs = {}
     try:
         for name in AOT_JOBS:
             tmp = tempfile.TemporaryDirectory(prefix=f"aot_{name}_")
-            jobs[name] = tmp, None
+            jobs[name] = [tmp, None]
             with open(os.path.join(tmp.name, "export.out"), "w") as out, \
                     open(os.path.join(tmp.name, "export.err"), "w") as err:
-                jobs[name] = tmp, subprocess.Popen(
+                jobs[name][1] = subprocess.Popen(
                     [sys.executable, os.path.abspath(__file__),
                      "--aot-export", name, tmp.name], stdout=out,
                     stderr=err, start_new_session=True)
-        for name, (tmp, proc) in jobs.items():
-            rc = proc.wait()
-            with open(os.path.join(tmp.name, "export.err")) as f:
-                assert rc == 0, \
-                    f"aot export {name} exited {rc}: {f.read()[-4000:]}"
-            with open(os.path.join(tmp.name, "export.out")) as f:
-                done[name] = tmp, json.loads(
-                    f.read().strip().splitlines()[-1])
     except BaseException:
-        for tmp, proc in jobs.values():
-            if proc is not None and proc.poll() is None:
-                os.killpg(proc.pid, signal.SIGKILL)
-                proc.wait()
-            tmp.cleanup()
+        stop_aot(jobs)
         raise
+    return jobs, time.perf_counter()
+
+
+def stop_aot(jobs):
+    """Kill every job of `jobs` still running (its whole session) and
+    remove every job's directory."""
+    import signal
+    for tmp, proc in jobs.values():
+        if proc is not None and proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        tmp.cleanup()
+
+
+def finish_aot_compile(started):
+    """Wait for the jobs `start_aot_compile` started.  Prints each job's
+    seconds, the seconds they ran beside other phases and the seconds
+    waited here; returns {name: (its TemporaryDirectory, what it
+    printed)}.  A failed job raises with its stderr."""
+    jobs, t_start = started
+    t0 = time.perf_counter()
+    done = {}
+    for name, (tmp, proc) in jobs.items():
+        rc = proc.wait()
+        with open(os.path.join(tmp.name, "export.err")) as f:
+            assert rc == 0, \
+                f"aot export {name} exited {rc}: {f.read()[-4000:]}"
+        with open(os.path.join(tmp.name, "export.out")) as f:
+            done[name] = tmp, json.loads(f.read().strip().splitlines()[-1])
     emit({"phase": "aot_compile", "jobs": list(AOT_JOBS),
           "job_wall_s": {n: info["wall_s"] for n, (_, info) in done.items()},
-          "phase_seconds": time.perf_counter() - t0})
+          "beside_phases_s": t0 - t_start,
+          "waited_s": time.perf_counter() - t0})
     return done
 
 
@@ -818,8 +877,11 @@ def aot_export(name, path):
     """`chip_smoke.py --aot-export NAME DIR`: "serve" and "e2e" export
     their model's inventory into DIR (`export_serving_artifacts`: each
     program compiles in a child process of its own), "ernie_float32" and
-    "ernie_bfloat16" run `ernie_aot_export`.  Prints {"wall_s": ...}."""
+    "ernie_bfloat16" run `ernie_aot_export`.  It runs, with its compile
+    children, at the lowest CPU priority, so that the phases beside it
+    keep the host.  Prints {"wall_s": ...}."""
     from paddle_tpu_torch.serving import LLMEngine, export_serving_artifacts
+    os.nice(19)
     t0 = time.perf_counter()
     if name.startswith("ernie_"):
         ernie_aot_export(path, name[len("ernie_"):])
@@ -839,7 +901,7 @@ def phase_serve_aot(serve, aot):
     """serve's model (GPT-3 1.3B, bf16, seed 0), engine settings (with
     the ladder [512], SERVE_AOT_ENGINE) and request mix served from
     AOTInductor packages.  The inventory (`program_keys`: decode and
-    prefill 512), compiled by `phase_aot_compile` (each program's export
+    prefill 512), compiled by `start_aot_compile` (each program's export
     and compile seconds, and its bytes: each under AOT_PACKAGE_SHARE of
     the weights, since the weights are inputs), is loaded into a fresh
     engine over the same model with strict=True and the mix served:
@@ -945,7 +1007,7 @@ def phase_serve_aot(serve, aot):
 def phase_serve_aot_e2e(aot):
     """GPT-3 1.3B's width at 2 layers in float32 (TF32 off), e2e's
     prompts and E2E_AOT_ENGINE (decode and prefill 128): the engine
-    serving from the packages `phase_aot_compile` compiled on the card,
+    serving from the packages `start_aot_compile` compiled on the card,
     loaded strictly, against the same engine served eagerly on the card
     and on the CPU, token for token.  Returns the paged launches."""
     from paddle_tpu_torch.observability import metrics
@@ -999,7 +1061,8 @@ def phase_serve_aot_e2e(aot):
 
 # ------------------------------------------------------------ serving tier
 GPT13_SPEC = dict(preset="gpt3-1.3B",
-                  overrides=dict(hidden_dropout=0.0, attention_dropout=0.0))
+                  overrides=dict(hidden_dropout=0.0, attention_dropout=0.0,
+                                 num_layers=SERVE_LAYERS))
 
 
 def phase_serve_router(serve, aot=None):
@@ -1151,7 +1214,7 @@ def summed_launches(reports):
 ROUTER_DRILL_LENS = (96, 24, 200, 48, 150, 64)
 
 
-def phase_router_drill(spawn_to_ready_s):
+def phase_router_drill(spawn_to_ready_s, layers=None):
     """`tools/torch_chaos_check.py --router --proc` at GPT-3 1.3B width in
     float32 on the card: two worker processes, r0 SIGKILLed mid-stream
     three times (evictions / respawns / aborts 3 / 2 / 1, r0 abandoned),
@@ -1174,8 +1237,11 @@ def phase_router_drill(spawn_to_ready_s):
     torch.backends.cuda.matmul.allow_tf32 = False
     engine = dict(num_blocks=512, block_size=16, max_running=8,
                   prefill_chunk=128)
+    over = dict(GPT13_SPEC["overrides"],
+                **({"num_layers": layers} if layers else {}))
     spec = tcc.drill_spec(device="cuda", dtype="float32", engine=engine,
-                          seed=0, step_delay_s=0.01, **GPT13_SPEC)
+                          seed=0, step_delay_s=0.01,
+                          preset=GPT13_SPEC["preset"], overrides=over)
     ref_model = sw.build_gpt(spec).eval()
     digest = tcc.probe_digest(ref_model)
     layers = ref_model.cfg.num_layers
@@ -1197,7 +1263,7 @@ def phase_router_drill(spawn_to_ready_s):
     steps = {k: w.get("serving_decode_steps_total", 0)
              for k, w in workers.items()}
     emit({"phase": "router_drill", "model": GPT13_SPEC["preset"],
-          "dtype": "float32", "requests": len(prompts),
+          "layers": layers, "dtype": "float32", "requests": len(prompts),
           "prompt_tokens": sum(ROUTER_DRILL_LENS), "new_tokens": new,
           "seconds": res["seconds"], "worker_starts": res["spawns"],
           "spawn_to_ready_s": res["spawn_to_ready_s"],
@@ -2464,7 +2530,7 @@ def margin(logits, seqs, start, beam=1):
 
 
 def phase_generate(batch=4, prompt=512, new=64, beams=4, beam_new=16,
-                   k=4, profile_steps=8):
+                   k=4, profile_steps=8, layers=None):
     """Mistral-7B (full width and depth, bf16, random weights from seed
     0): `generate(use_jit=True)` (the captured decode step) against the
     eager loop (concat caches) and the uncaptured static step, beam search
@@ -2473,7 +2539,8 @@ def phase_generate(batch=4, prompt=512, new=64, beams=4, beam_new=16,
     from paddle_tpu_torch.text import LlamaConfig, LlamaForCausalLM, generate
     from paddle_tpu_torch.text import decode
 
-    cfg = LlamaConfig.from_preset("mistral-7b")
+    cfg = LlamaConfig.from_preset(
+        "mistral-7b", **({"num_layers": layers} if layers else {}))
     model = LlamaForCausalLM(
         cfg, device="cuda", dtype=torch.bfloat16,
         generator=torch.Generator(device="cuda").manual_seed(0))
@@ -2973,7 +3040,8 @@ def lora_merge_check(lora, ids, new):
             and rebuilt is not built)
 
 
-def phase_lora(warmup=2, steps=5, batch=4, seq=1024, prompt=128, new=32):
+def phase_lora(warmup=2, steps=5, batch=4, seq=1024, prompt=128, new=32,
+               layers=None):
     """LoRA fine-tuning of LLaMA-7B (full width and depth, bf16, random
     base weights from seed 0): r 16, alpha 32 on q/k/v/o, AdamW(1e-4) on
     the adapters (AMP O2, float32 master copies of the adapters only),
@@ -2993,7 +3061,9 @@ def phase_lora(warmup=2, steps=5, batch=4, seq=1024, prompt=128, new=32):
     from paddle_tpu_torch.text.peft import LoRAConfig, get_peft_model
 
     cfg = LlamaConfig.from_preset("llama-7b", max_position_embeddings=seq,
-                                  use_recompute=True)
+                                  use_recompute=True,
+                                  **({"num_layers": layers} if layers
+                                     else {}))
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
                              generator=gen)
@@ -3118,7 +3188,7 @@ def captured_decode(model, ids, new):
                  "weight_bytes": weight_bytes(model)}, counts
 
 
-def phase_weight_only(batch=4, prompt=512, new=64):
+def phase_weight_only(batch=4, prompt=512, new=64, layers=None):
     """Mistral-7B (full width and depth, random weights from seed 0, the
     generate phase's shape) in bf16, then built again from the same seed
     and converted to weight-only int8, then int4 (lm_head kept bf16):
@@ -3129,11 +3199,13 @@ def phase_weight_only(batch=4, prompt=512, new=64):
     from paddle_tpu_torch.nn.quant import convert_to_weight_only
     from paddle_tpu_torch.text import LlamaConfig, LlamaForCausalLM
 
-    cfg = LlamaConfig.from_preset("mistral-7b")
+    cfg = LlamaConfig.from_preset(
+        "mistral-7b", **({"num_layers": layers} if layers else {}))
     g = torch.Generator(device="cuda").manual_seed(0)
     ids = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g,
                         device="cuda")
-    rec = {"phase": "weight_only", "model": "mistral-7b", "batch": batch,
+    rec = {"phase": "weight_only", "model": "mistral-7b",
+           "layers": cfg.num_layers, "batch": batch,
            "prompt_tokens": prompt, "new_tokens": new,
            "skip": "lm_head", "margin_tol": MARGIN_TOL}
     paths = {}
@@ -3175,6 +3247,17 @@ def phase_weight_only(batch=4, prompt=512, new=64):
             assert rec[name]["margin"] <= MARGIN_TOL, \
                 f"{name}: a token sits {rec[name]['margin']} below the max"
     return paths
+
+
+# the depth lora, weight_only and generate run at in the whole script:
+# 8 of the 7B presets' 32 layers, and router_drill 6 of GPT-3 1.3B's 24,
+# each at full width (the time they give back pays for the MT phases and
+# keeps the script well inside its limit on a slow host;
+# `tools/torch_mt_probe.py --cuts` times each at two depths)
+LORA_LAYERS = 8
+WEIGHT_ONLY_LAYERS = 8
+GENERATE_LAYERS = 8
+ROUTER_DRILL_LAYERS = 6
 
 
 # ResNet-50 model flops a training image: 4.09 GFLOP a forward at 224 x
@@ -4324,7 +4407,7 @@ def phase_ernie_infer(aot, steps=30, warmup=5, batch=32, seq=128):
     bf16 (AMP O2 before the export): sm90 launches, logits within
     ERNIE_BF16_TOL of the float32 run's.  Returns {path: flash launch
     counts}.  Each dtype's AOT package (`ernie_aot_export`, compiled by
-    `phase_aot_compile`) is loaded and held against the exported program
+    `start_aot_compile`) is loaded and held against the exported program
     (`ernie_aot`)."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.jit import InputSpec
@@ -5456,6 +5539,263 @@ def phase_moe_e2e(steps=3, batch=2, seq=128, new=16):
             "moe_e2e/eager": flash_part(eager_counts)}, steps_run
 
 
+# ------------------------------------------------- Transformer-base MT
+# Vaswani et al. 2017, Table 3 "base": d_model 512, 8 heads, 6 + 6
+# layers, d_inner 2048, dropout 0.1; a shared source-target vocabulary of
+# ~37,000 BPE tokens (WMT14 En-De, their 5.1), so the embedding is tied
+MT_BASE = dict(src_vocab_size=37000, trg_vocab_size=37000, max_length=256,
+               d_model=512, n_head=8, num_encoder_layers=6,
+               num_decoder_layers=6, d_inner_hid=2048, dropout=0.1,
+               weight_sharing=True)
+MT_PAD = 2                  # bos 0, eos 1 (the model's defaults), pad 2
+MT_E2E_LOSS_TOL = 1e-5
+MT_E2E_PARAM_TOL = 1e-3
+
+
+def mt_batch(batch, src_len, trg_len, vocab, seed, device):
+    """Source ids with rows padded (MT_PAD) to ragged lengths from
+    src_len / 2 to src_len, and targets of trg_len tokens starting with
+    bos: ids from numpy's generator, no pad or special id inside."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(3, vocab, (batch, src_len))
+    lens = rng.integers(src_len // 2, src_len + 1, batch)
+    src[np.arange(src_len)[None, :] >= lens[:, None]] = MT_PAD
+    trg = rng.integers(3, vocab, (batch, trg_len))
+    trg[:, 0] = 0
+    return (torch.from_numpy(src).to(device), torch.from_numpy(trg).to(
+        device), lens)
+
+
+def mt_model(device, seed, **over):
+    from paddle_tpu_torch.text import TransformerModel
+    g = torch.Generator(device=device).manual_seed(seed)
+    return TransformerModel(**dict(MT_BASE, **over), device=device,
+                            generator=g)
+
+
+def mt_optimizer(model, learning_rate):
+    """Adam with the paper's beta2 0.98 and epsilon 1e-9 (their 5.3)."""
+    from paddle_tpu_torch.optimizer import Adam
+    return Adam(learning_rate=learning_rate, beta1=0.9, beta2=0.98,
+                epsilon=1e-9, parameters=model.parameters())
+
+
+def mt_loss_o1(model, src, trg):
+    """The label-smoothed loss (0.1, their 5.4) under AMP O1 bf16."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.text import transformer_mt_loss
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        return transformer_mt_loss(model, src, trg, 0.1, pad_id=MT_PAD)
+
+
+def mt_depth(model):
+    """(encoder layers, decoder layers)."""
+    enc = len(model.transformer.encoder.layers)
+    dec = len(model.transformer.decoder.layers)
+    return enc, dec
+
+
+def phase_mt_train(steps=10, warmup=3, batch=32, src_len=128, trg_len=97):
+    """Transformer-base MT (`MT_BASE`, random weights from seed 0) trained
+    as the paper trains it: AMP O1 bf16 over float32 parameters, Adam
+    (beta2 0.98, epsilon 1e-9) under NoamDecay(512, 4000), label
+    smoothing 0.1, through TrainStep; 32 sources of 128 tokens padded to
+    ragged lengths and 32 targets of 97 (96 fed).  3 warm-up and 10 timed
+    steps, timed before any profile: step p50 / p99, tokens/s (source
+    and target positions), peak memory, losses; every step launches the
+    sm90 forward, dK/dV and dQ 18 times (6 encoder self-attentions under
+    the padding mask, 6 decoder self-attentions under the additive
+    causal mask, 6 cross-attentions, Lq 96 against Lk 128, under the
+    padding mask), sdpa its plain path no time.  Then a profile of 3
+    steps (the busy share).  Returns ({path: flash counts}, the model,
+    the sources)."""
+    from paddle_tpu_torch.jit import train_step
+    from paddle_tpu_torch.optimizer import lr as lr_sched
+
+    model = mt_model("cuda", 0)
+    src, trg, lens = mt_batch(batch, src_len, trg_len,
+                              MT_BASE["src_vocab_size"], 0, "cuda")
+    sched = lr_sched.NoamDecay(MT_BASE["d_model"], 4000)
+    step = train_step(model, mt_loss_o1, mt_optimizer(model, sched))
+    enc, dec = mt_depth(model)
+    per_step = enc + 2 * dec
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, times = [], []
+    for _ in range(warmup + steps):
+        t0 = time.perf_counter()
+        losses.append(step(src, trg).item())          # waits for the card
+        times.append(time.perf_counter() - t0)
+        sched.step()
+    counts = read_counts()
+    timed = np.array(times[warmup:])
+    p50 = float(np.percentile(timed, 50))
+    positions = batch * (src_len + trg_len - 1)
+    rec = {"phase": "mt_train", "model": "transformer-base (Vaswani et "
+           "al. 2017, Table 3), shared 37000 vocabulary, tied embedding",
+           "config": MT_BASE, "batch": batch, "src_len": src_len,
+           "trg_len": trg_len, "src_rows": lens.tolist(),
+           "dtype": "float32 parameters, AMP O1 bf16",
+           "optimizer": "Adam(beta2 0.98, eps 1e-9), NoamDecay(512, 4000)",
+           "label_smoothing": 0.1,
+           "n_params": sum(p.numel() for p in model.parameters()),
+           "warmup_steps": warmup, "timed_steps": steps,
+           "step_p50_ms": p50 * 1e3,
+           "step_p99_ms": float(np.percentile(timed, 99)) * 1e3,
+           "step_ms": [t * 1e3 for t in times],
+           "tokens_per_s": steps * positions / float(timed.sum()),
+           "target_tokens_per_s": steps * batch * (trg_len - 1)
+           / float(timed.sum()),
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "losses": losses, "launches": counts}
+    n = per_step * (warmup + steps)
+    fl = flash_part(counts)
+    assert all(np.isfinite(losses)), losses
+    assert (fl["fwd"], fl["dkv"], fl["dq"]) == (n, n, n), fl
+    assert (fl["fwd_sm90"], fl["dkv_sm90"], fl["dq_sm90"]) == (n, n, n), fl
+    assert counts["sdpa_plain"] == 0, counts
+    rec["profile"] = busy(lambda: step(src, trg), 3, p50 * 1e3)
+    emit(rec)
+    del step
+    release()
+    return {"mt_train": fl}, model, src
+
+
+def phase_mt_generate(model, src, new=64):
+    """mt_train's model cast to bf16 greedy-decodes up to `new` tokens for
+    its 32 sources (`TransformerModel.generate`: the encoder once, then a
+    step a token through the concat self-attention caches and the
+    memory's StaticCache): 6 sm90 forwards for the encoder under the
+    padding mask, and each decode step 12 decode-kernel launches (6
+    unmasked self-attentions, 6 cross-attentions under the mask, Lq 1),
+    none on sm80, sdpa's plain path never.  A second call times each
+    step (a synchronize at each decoder call) for the step p50.  The
+    tokens start with bos and lie in the vocabulary.  Returns {path:
+    flash counts}."""
+    model.astype("bfloat16")
+    model.eval()
+    enc, dec = mt_depth(model)
+    zero_counts()
+    out, wall_s = sync_time(lambda: model.generate(
+        src, max_length=new, src_pad_id=MT_PAD))
+    counts = read_counts()
+    steps = out.shape[1] - 1
+    fl = flash_part(counts)
+    stamps = []
+
+    def stamp(layer, args):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    handle = model.transformer.decoder.register_forward_pre_hook(stamp)
+    again = model.generate(src, max_length=new, src_pad_id=MT_PAD)
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    handle.remove()
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    b = src.shape[0]
+    rec = {"phase": "mt_generate", "model": "transformer-base, bf16",
+           "batch": b, "src_len": src.shape[1], "max_new_tokens": new,
+           "decode_steps": steps, "wall_s": wall_s,
+           "tokens_per_s": b * steps / wall_s,
+           "step_ms": pct(step_ms), "launches": counts,
+           "same_tokens_second_call": bool(torch.equal(out, again))}
+    emit(rec)
+    V = MT_BASE["trg_vocab_size"]
+    assert out.shape == (b, steps + 1) and 1 <= steps <= new, out.shape
+    assert bool((out[:, 0] == model.bos_id).all()), out[:, 0]
+    assert bool(((out >= 0) & (out < V)).all())
+    assert fl["fwd_sm90"] == enc, fl
+    assert fl["fwd_decode"] == 2 * dec * steps, fl
+    assert fl["fwd"] == enc + 2 * dec * steps, fl
+    assert (fl["dkv"], fl["dq"]) == (0, 0), fl
+    assert counts["sdpa_plain"] == 0, counts
+    return {"mt_generate": fl}
+
+
+def phase_mt_e2e(steps=3, batch=8, src_len=64, trg_len=33, layers=2,
+                 new=16):
+    """Transformer-base width at 2 + 2 layers, float32 (TF32 off), dropout
+    0, the 37000 tied vocabulary: 3 Momentum steps (lr 0.01, 0.9) and a
+    16-token greedy decode on the card (the fp32 forward, dK/dV and dQ in
+    training, the decode kernel at each decode step) against the same on
+    the CPU (the plain versions), from the same weights and batch: losses
+    within MT_E2E_LOSS_TOL, parameters within MT_E2E_PARAM_TOL of how far
+    they moved (the key projections' biases apart: their gradient is zero
+    in exact arithmetic), greedy tokens equal.  Momentum, not the
+    recipe's Adam: Adam's first steps move every parameter by about its
+    rate whatever its gradient's size, so a weight whose gradient only
+    rounding sets moves as far as any other, in a direction the rounding
+    picks (with Adam, eps 1e-9, the card and the CPU ended 3.1e-3 of the
+    distance moved apart).  Returns {path: flash counts}."""
+    from paddle_tpu_torch.jit import train_step
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.text import transformer_mt_loss
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    over = dict(num_encoder_layers=layers, num_decoder_layers=layers,
+                dropout=0.0)
+    card = mt_model("cuda", 3, **over)
+    cpu = mt_model("cpu", 3, **over)
+    cpu.load_state_dict(card.state_dict())
+    init = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    src, trg, lens = mt_batch(batch, src_len, trg_len,
+                              MT_BASE["src_vocab_size"], 3, "cpu")
+
+    def loss_fn(model, s, t):
+        return transformer_mt_loss(model, s, t, 0.1, pad_id=MT_PAD)
+
+    def run(model, dev):
+        step = train_step(model, loss_fn, Momentum(
+            learning_rate=0.01, momentum=0.9,
+            parameters=model.parameters()))
+        s, t = src.to(dev), trg.to(dev)
+        losses = [step(s, t).item() for _ in range(steps)]
+        out = model.generate(s, max_length=new, src_pad_id=MT_PAD)
+        return losses, out.cpu()
+
+    zero_counts()
+    card_losses, card_out = run(card, "cuda")
+    counts = read_counts()
+    t0 = time.perf_counter()
+    cpu_losses, cpu_out = run(cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    fl = flash_part(counts)
+    decode_steps = card_out.shape[1] - 1
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses,
+                                                       cpu_losses))
+    perr = param_error(card, cpu, init, skip="k_proj.bias")
+    emit({"phase": "mt_e2e", "model": f"transformer-base width, {layers} + "
+          f"{layers} layers, tied 37000 vocabulary", "dtype": "float32",
+          "optimizer": "Momentum(0.01, 0.9)", "batch": batch,
+          "src_len": src_len, "trg_len": trg_len, "steps": steps,
+          "src_rows": lens.tolist(), "card_losses": card_losses,
+          "cpu_losses": cpu_losses, "loss_max_rel_err": loss_err,
+          "loss_tol": MT_E2E_LOSS_TOL, "param_rel_err": perr,
+          "param_tol": MT_E2E_PARAM_TOL,
+          "k_proj_bias_rel_err": param_error(card, cpu, init,
+                                             only="k_proj.bias"),
+          "decode_steps": decode_steps,
+          "tokens_equal": bool(torch.equal(card_out, cpu_out)),
+          "cpu_seconds": cpu_s, "launches": counts})
+    attn = 3 * layers                   # enc self, dec self, cross a step
+    assert loss_err <= MT_E2E_LOSS_TOL, \
+        f"card and CPU losses differ by {loss_err}"
+    assert perr <= MT_E2E_PARAM_TOL, f"card and CPU parameters differ: {perr}"
+    assert torch.equal(card_out, cpu_out), (card_out, cpu_out)
+    assert fl["fwd_fp32"] == attn * steps + layers, fl
+    assert (fl["dkv_fp32"], fl["dq_fp32"]) == (attn * steps,) * 2, fl
+    assert fl["fwd_decode"] == 2 * layers * decode_steps, fl
+    assert fl["fwd"] == fl["fwd_fp32"] + fl["fwd_decode"], fl
+    assert counts["sdpa_plain"] == 0, counts
+    del card, cpu
+    release()
+    return {"mt_e2e": fl}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on "
@@ -5463,55 +5803,82 @@ def main():
         return 1
     if sys.argv[1:2] == ["--aot-export"]:
         return aot_export(*sys.argv[2:4])
-    phase_build()
-    aot = phase_aot_compile()
+    timed("build", phase_build)
+    started = start_aot_compile()
     try:
-        return run_phases(aot)
+        return run_phases(started)
     finally:
-        for tmp, _ in aot.values():
-            tmp.cleanup()
+        stop_aot(started[0])
 
 
-def run_phases(aot):
-    """Every phase after the build and the compiles, in the order of
-    their numbers (see the module note)."""
-    phase_kernels()
-    phase_flash_kernels()
-    launches, lens, serve = phase_serve()
-    serve_aot = phase_serve_aot(serve, aot)
-    phase_e2e()
-    aot_e2e_paged = phase_serve_aot_e2e(aot)
-    router = phase_serve_router(serve, serve_aot)
-    drill = phase_router_drill(router["spawn_to_ready_s"])
+PHASE_SECONDS = {}
+
+
+def timed(name, fn, *args, **kwargs):
+    """fn(*args, **kwargs), its wall seconds kept in PHASE_SECONDS[name]."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    return out
+
+
+def run_phases(started):
+    """Every phase after the build, in the order of their numbers (see
+    the module note), each one's wall seconds in the phase_seconds line:
+    first those that load no package, beside the compiles that
+    `start_aot_compile` started, then the wait for them (aot_compile),
+    then the serving phases and ernie_infer, then the timings."""
+    timed("kernels", phase_kernels)
+    timed("flash_kernels", phase_flash_kernels)
+    timed("e2e", phase_e2e)
     paths = {}
-    paths["train"], train_losses = phase_train()
-    paths.update(phase_fleet(train_losses))
-    paths["train_e2e"] = phase_train_e2e()
-    paths.update({f"generate/{name}": counts
-                  for name, counts in phase_generate().items()})
-    serve_llama = phase_serve_llama()
-    paths["generate_e2e"] = phase_generate_e2e()
-    paths["train_llama"] = phase_train_llama()
-    paths["train_llama_e2e"] = phase_train_llama_e2e()
-    paths.update(phase_lora())
-    paths.update(phase_weight_only())
-    phase_resnet()
-    phase_resnet_e2e()
-    paths.update(phase_bert())
-    paths["bert_e2e"] = phase_bert_e2e()
-    paths["bert_fp32_train"], fp32_p50, fp32_busy = phase_bert_fp32_train()
-    paths["bert_resume"] = phase_bert_resume(fp32_p50, fp32_busy)
-    paths.update(phase_ernie_infer(aot))
-    paths["ernie_e2e"] = phase_ernie_e2e()
-    paths["moe_train"] = phase_moe_train()
-    paths.update(phase_moe_generate())
-    moe_paged = phase_moe_serve()
-    moe_e2e, moe_e2e_paged = phase_moe_e2e()
+    paths["train"], train_losses = timed("train", phase_train)
+    paths.update(timed("fleet", phase_fleet, train_losses))
+    paths["train_e2e"] = timed("train_e2e", phase_train_e2e)
+    paths.update({f"generate/{name}": counts for name, counts in
+                  timed("generate", phase_generate,
+                        layers=GENERATE_LAYERS).items()})
+    serve_llama = timed("serve_llama", phase_serve_llama)
+    paths["generate_e2e"] = timed("generate_e2e", phase_generate_e2e)
+    paths["train_llama"] = timed("train_llama", phase_train_llama)
+    paths["train_llama_e2e"] = timed("train_llama_e2e",
+                                     phase_train_llama_e2e)
+    paths.update(timed("lora", phase_lora, layers=LORA_LAYERS))
+    paths.update(timed("weight_only", phase_weight_only,
+                       layers=WEIGHT_ONLY_LAYERS))
+    timed("resnet", phase_resnet)
+    timed("resnet_e2e", phase_resnet_e2e)
+    paths.update(timed("bert", phase_bert))
+    paths["bert_e2e"] = timed("bert_e2e", phase_bert_e2e)
+    paths["bert_fp32_train"], fp32_p50, fp32_busy = timed(
+        "bert_fp32_train", phase_bert_fp32_train)
+    paths["bert_resume"] = timed("bert_resume", phase_bert_resume, fp32_p50,
+                                 fp32_busy)
+    paths["ernie_e2e"] = timed("ernie_e2e", phase_ernie_e2e)
+    paths["moe_train"] = timed("moe_train", phase_moe_train)
+    paths.update(timed("moe_generate", phase_moe_generate))
+    moe_paged = timed("moe_serve", phase_moe_serve)
+    moe_e2e, moe_e2e_paged = timed("moe_e2e", phase_moe_e2e)
     paths.update(moe_e2e)
+    mt_paths, mt, mt_src = timed("mt_train", phase_mt_train)
+    paths.update(mt_paths)
+    paths.update(timed("mt_generate", phase_mt_generate, mt, mt_src))
+    del mt, mt_src
+    release()
+    paths.update(timed("mt_e2e", phase_mt_e2e))
+    aot = timed("aot_compile", finish_aot_compile, started)
+    launches, lens, serve = timed("serve", phase_serve)
+    serve_aot = timed("serve_aot", phase_serve_aot, serve, aot)
+    aot_e2e_paged = timed("serve_aot_e2e", phase_serve_aot_e2e, aot)
+    router = timed("serve_router", phase_serve_router, serve, serve_aot)
+    drill = timed("router_drill", phase_router_drill,
+                  router["spawn_to_ready_s"], layers=ROUTER_DRILL_LAYERS)
+    paths.update(timed("ernie_infer", phase_ernie_infer, aot))
     paths["serve_aot"] = serve_aot["flash"]
     paths["serve_router"] = router["flash"]
     paths["router_drill"] = drill["flash"]
-    paged = phase_timings(launches + serve_aot["paged"] + aot_e2e_paged
+    paged = timed("timings", phase_timings,
+                  launches + serve_aot["paged"] + aot_e2e_paged
                           + serve_llama["paged_decode"]
                           + router["paged"] + drill["paged"] + moe_paged
                           + moe_e2e_paged, lens)
@@ -5523,7 +5890,9 @@ def run_phases(aot):
                                  "router_drill": drill["paged"],
                                  "moe_serve": moe_paged,
                                  "moe_e2e": moe_e2e_paged}
-    flash = phase_flash_timings(paths)
+    flash = timed("flash_timings", phase_flash_timings, paths)
+    emit({"phase": "phase_seconds", "seconds": PHASE_SECONDS,
+          "total_s": sum(PHASE_SECONDS.values())})
     emit({"kernels": [paged] + flash})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -13,7 +13,22 @@ from __future__ import annotations
 import torch
 
 
-class ClipGradByValue:
+class ClipGradBase:
+    """The base of the clip classes.  `clip_(grads)` clips a list of
+    gradient tensors in place and returns them; calling the clip on
+    Paddle's [(param, grad)] pairs returns [(param, clipped grad)], the
+    grads clipped in place too."""
+
+    def clip_(self, grads):
+        raise NotImplementedError
+
+    def __call__(self, params_grads):
+        pairs = [(p, g) for p, g in params_grads if g is not None]
+        self.clip_([g for _, g in pairs])
+        return pairs
+
+
+class ClipGradByValue(ClipGradBase):
     """Clamp every element to [min, max]; `min` defaults to -max."""
 
     def __init__(self, max, min=None):
@@ -28,7 +43,7 @@ class ClipGradByValue:
         return grads
 
 
-class ClipGradByNorm:
+class ClipGradByNorm(ClipGradBase):
     """Scale each gradient by min(clip_norm / max(||g||, 1e-12), 1), its
     norm taken in its own dtype (no float32 cast), as `jnp.sqrt(jnp.sum(
     jnp.square(g)))` takes it."""
@@ -46,7 +61,7 @@ class ClipGradByNorm:
         return grads
 
 
-class ClipGradByGlobalNorm:
+class ClipGradByGlobalNorm(ClipGradBase):
     """Clip by the norm over every gradient; `group_name` is taken and
     changes nothing, as in the JAX package (one group)."""
 

@@ -1,13 +1,12 @@
-"""Pooling layers (counterpart: `paddle_tpu/nn/pooling.py:8-48`), over the
-functional versions in `functional`, NCHW or NHWC."""
+"""Pooling layers (counterpart: `paddle_tpu/nn/pooling.py`), over the
+functional versions in `functional`; the 2-D ones NCHW or NHWC."""
 from __future__ import annotations
 
-from torch import nn
-
 from . import functional as PF
+from .layer import Layer
 
 
-class MaxPool2D(nn.Module):
+class MaxPool2D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
                  return_mask=False, data_format="NCHW"):
         super().__init__()
@@ -22,7 +21,7 @@ class MaxPool2D(nn.Module):
                              data_format=self.data_format)
 
 
-class AvgPool2D(nn.Module):
+class AvgPool2D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
                  exclusive=True, data_format="NCHW"):
         super().__init__()
@@ -37,7 +36,7 @@ class AvgPool2D(nn.Module):
                              data_format=self.data_format)
 
 
-class AdaptiveAvgPool2D(nn.Module):
+class AdaptiveAvgPool2D(Layer):
     def __init__(self, output_size, data_format="NCHW"):
         super().__init__()
         self.output_size = output_size
@@ -46,3 +45,55 @@ class AdaptiveAvgPool2D(nn.Module):
     def forward(self, x):
         return PF.adaptive_avg_pool2d(x, self.output_size,
                                       data_format=self.data_format)
+
+
+class AdaptiveMaxPool2D(Layer):
+    def __init__(self, output_size):
+        super().__init__()
+        self.output_size = output_size
+
+    def forward(self, x):
+        return PF.adaptive_max_pool2d(x, self.output_size)
+
+
+class MaxPool1D(Layer):
+    """Over the last axis of [N, C, L]; `ceil_mode` is taken and unused,
+    as in the JAX package."""
+
+    def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.stride = stride if stride is not None else kernel_size
+        self.padding = padding
+
+    def forward(self, x):
+        return PF.max_pool1d(x, self.kernel_size, self.stride, self.padding)
+
+
+class AvgPool1D(Layer):
+    def __init__(self, kernel_size, stride=None, padding=0, exclusive=True):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.stride = stride if stride is not None else kernel_size
+        self.padding = padding
+        self.exclusive = exclusive
+
+    def forward(self, x):
+        return PF.avg_pool1d(x, self.kernel_size, self.stride, self.padding,
+                             exclusive=self.exclusive)
+
+
+class MaxUnpool2D(Layer):
+    """The inverse of MaxPool2D given its mask (`return_mask=True`)."""
+
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format="NCHW", output_size=None):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.padding = padding
+        self.output_size = output_size
+
+    def forward(self, x, indices):
+        return PF.max_unpool2d(x, indices, self.kernel_size, self.stride,
+                               self.padding, self.output_size)

@@ -109,7 +109,7 @@ def test_rms_norm_matches_jax_float32_and_bfloat16():
     # same bits, where torch.nn.functional.rms_norm differs
     jb = rms_norm_k(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16),
                     1e-6)
-    norm = pnn.RMSNorm(48, 1e-6, dtype=torch.bfloat16)
+    norm = pnn.RMSNorm(48, 1e-6, dtype=torch.bfloat16, device="cpu")
     with torch.no_grad():
         norm.weight.copy_(torch.from_numpy(w))
         tb = norm(torch.from_numpy(x).bfloat16())

@@ -67,73 +67,6 @@ LEFT_OUT = {
     ("jit/save_load.py", "jax"): (
         "TranslatedLayer(exported,params,buffers,aot_exec)"
     ),
-    ("nn/__init__.py", "A13a"): (
-        "AdaptiveAvgPool1D AdaptiveAvgPool3D AdaptiveMaxPool1D "
-        "AdaptiveMaxPool2D AdaptiveMaxPool3D AlphaDropout AvgPool1D "
-        "AvgPool3D BCELoss BCEWithLogitsLoss BatchNorm1D BatchNorm3D "
-        "BeamSearchDecoder BiRNN Bilinear CELU CTCLoss ChannelShuffle "
-        "Conv1D Conv1DTranspose Conv2DTranspose Conv3D "
-        "Conv3DTranspose CosineEmbeddingLoss CosineSimilarity "
-        "CrossEntropyLoss Dropout2D Dropout3D ELU Embedding Flatten "
-        "Fold GELU GLU GRU GRUCell GaussianNLLLoss GroupNorm "
-        "HSigmoidLoss Hardshrink Hardsigmoid Hardswish Hardtanh "
-        "HingeEmbeddingLoss Identity InstanceNorm1D InstanceNorm2D "
-        "InstanceNorm3D KLDivLoss L1Loss LSTM LSTMCell Layer "
-        "LayerDict LayerList LayerNorm LeakyReLU Linear "
-        "LocalResponseNorm LogSigmoid LogSoftmax MSELoss "
-        "MarginRankingLoss MaxPool1D MaxPool3D MaxUnPool2D "
-        "MaxUnpool2D Maxout Mish MultiLabelSoftMarginLoss "
-        "MultiMarginLoss NLLLoss PReLU Pad1D Pad2D Pad3D "
-        "PairwiseDistance ParameterList PixelShuffle PixelUnshuffle "
-        "PoissonNLLLoss RNN RNNCellBase RReLU ReLU ReLU6 SELU "
-        "Sequential SiLU Sigmoid Silu SimpleRNN SimpleRNNCell "
-        "SmoothL1Loss SoftMarginLoss Softmax Softmax2D Softplus "
-        "Softshrink Softsign SpectralNorm Swish SyncBatchNorm Tanh "
-        "Tanhshrink ThresholdedReLU Transformer TransformerDecoder "
-        "TransformerDecoderLayer TripletMarginLoss "
-        "TripletMarginWithDistanceLoss Unfold Upsample "
-        "UpsamplingBilinear2D UpsamplingNearest2D ZeroPad2D "
-        "initializer utils"
-    ),
-    ("nn/clip.py", "A13a"): "ClipGradBase",
-    ("nn/conv.py", "A13a"): "Conv1D Conv2DTranspose Conv3D",
-    ("nn/functional.py", "A13a"): (
-        "adaptive_avg_pool1d adaptive_avg_pool3d adaptive_max_pool1d "
-        "adaptive_max_pool2d adaptive_max_pool3d affine_grid "
-        "alpha_dropout avg_pool1d avg_pool3d bilinear "
-        "binary_cross_entropy binary_cross_entropy_with_logits celu "
-        "channel_shuffle conv1d conv1d_transpose conv2d_transpose "
-        "conv3d conv3d_transpose cosine_embedding_loss "
-        "cosine_similarity ctc_loss dice_loss dropout2d dropout3d elu "
-        "embedding fold gather_tree gaussian_nll_loss glu grid_sample "
-        "group_norm gumbel_softmax hardshrink hardsigmoid hardswish "
-        "hardtanh hinge_embedding_loss hsigmoid_loss instance_norm "
-        "interpolate kl_div l1_loss label_smooth layer_norm "
-        "leaky_relu linear local_response_norm log_loss log_sigmoid "
-        "log_softmax margin_ranking_loss max_pool1d max_pool3d "
-        "max_unpool2d maxout mish mse_loss "
-        "multi_label_soft_margin_loss multi_margin_loss nll_loss "
-        "normalize npair_loss one_hot pad pairwise_distance "
-        "pixel_shuffle pixel_unshuffle poisson_nll_loss prelu relu6 "
-        "relu_ rrelu selu sequence_mask sigmoid sigmoid_focal_loss "
-        "smooth_l1_loss soft_margin_loss softmax "
-        "softmax_with_cross_entropy softplus softshrink softsign "
-        "square_error_cost swish tanhshrink temporal_shift "
-        "thresholded_relu triplet_margin_loss "
-        "triplet_margin_with_distance_loss unfold upsample zeropad2d"
-    ),
-    ("nn/norm.py", "A13a"): (
-        "BatchNorm1D BatchNorm3D GroupNorm InstanceNorm2D LayerNorm "
-        "LocalResponseNorm RMSNorm SyncBatchNorm"
-    ),
-    ("nn/pooling.py", "A13a"): (
-        "AdaptiveMaxPool2D AvgPool1D MaxPool1D MaxUnpool2D"
-    ),
-    ("nn/transformer.py", "A13a"): (
-        "MultiHeadAttention(weight_attr,bias_attr) Transformer "
-        "TransformerDecoder TransformerDecoderLayer "
-        "TransformerEncoderLayer(weight_attr,bias_attr)"
-    ),
     ("observability/__init__.py", "A13b"): (
         "MetricsRegistry RecompileWarning chrome_trace "
         "compile_tracker disable dispatch_stats enable enabled "
@@ -162,8 +95,7 @@ LEFT_OUT = {
     ),
     ("resilience/guard.py", "jax"): "select_tree",
     ("text/__init__.py", "A13b"): (
-        "BPETokenizer CharTokenizer TransformerModel ViterbiDecoder "
-        "datasets sinusoidal_positions tokenizer transformer_mt_loss "
+        "BPETokenizer CharTokenizer ViterbiDecoder datasets tokenizer "
         "viterbi_decode"
     ),
     ("text/decode.py", "jax"): (

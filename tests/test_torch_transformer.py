@@ -73,7 +73,7 @@ def _tol(dtype):
 def test_multi_head_attention_matches_jax(masked, dtype):
     pt.seed(1)
     jl, tl = _carry(pt.nn.MultiHeadAttention(E, H), tnn.MultiHeadAttention(
-        E, H), dtype)
+        E, H, device="cpu"), dtype)
     x, mask = _inputs()
     jo, to = _run(jl, tl, dtype, x, None, None, mask if masked else None)
     np.testing.assert_allclose(to, jo, **_tol(dtype))
@@ -84,7 +84,7 @@ def test_multi_head_attention_caches_match_jax():
     projected memory, the same on both sides."""
     pt.seed(2)
     jl, tl = _carry(pt.nn.MultiHeadAttention(E, H), tnn.MultiHeadAttention(
-        E, H), "float32")
+        E, H, device="cpu"), "float32")
     x, _ = _inputs()
     jx, tx = pt.to_tensor(x), torch.from_numpy(x)
     with torch.no_grad():
@@ -110,7 +110,8 @@ def test_encoder_layer_matches_jax(normalize_before, activation, masked,
     kw = dict(dropout=0.0, activation=activation,
               normalize_before=normalize_before)
     jl, tl = _carry(pt.nn.TransformerEncoderLayer(E, H, F, **kw),
-                    tnn.TransformerEncoderLayer(E, H, F, **kw), dtype)
+                    tnn.TransformerEncoderLayer(E, H, F, device="cpu",
+                                                **kw), dtype)
     x, mask = _inputs()
     jo, to = _run(jl, tl, dtype, x, mask if masked else None)
     np.testing.assert_allclose(to, jo, **_tol(dtype))
@@ -123,7 +124,8 @@ def test_encoder_layer_matches_jax_on_its_pallas_kernels(monkeypatch):
     pt.seed(4)
     kw = dict(dropout=0.0, activation="gelu")
     jl, tl = _carry(pt.nn.TransformerEncoderLayer(E, H, F, **kw),
-                    tnn.TransformerEncoderLayer(E, H, F, **kw), "float32")
+                    tnn.TransformerEncoderLayer(E, H, F, device="cpu",
+                                                **kw), "float32")
     x, mask = _inputs(1)
     jo, to = _run(jl, tl, "float32", x, mask)
     np.testing.assert_allclose(to, jo, **F32_TOL)
@@ -138,7 +140,8 @@ def test_encoder_matches_jax_and_copies_its_first_layer(dtype):
     kw = dict(dropout=0.0, activation="gelu")
     jenc = pt.nn.TransformerEncoder(pt.nn.TransformerEncoderLayer(
         E, H, F, **kw), 3, norm=pt.nn.LayerNorm(E))
-    tenc = tnn.TransformerEncoder(tnn.TransformerEncoderLayer(E, H, F, **kw),
+    tenc = tnn.TransformerEncoder(tnn.TransformerEncoderLayer(
+        E, H, F, device="cpu", **kw),
                                   3, norm=torch.nn.LayerNorm(E, eps=1e-5))
     first = tenc.layers[0].state_dict()
     for layer in tenc.layers[1:]:
@@ -155,7 +158,7 @@ def test_encoder_layer_dropout_and_activation_names():
     """attn_dropout / act_dropout default to dropout; the activation is
     looked up by name in the port's functional module; dropout acts in
     training only."""
-    layer = tnn.TransformerEncoderLayer(E, H, F, dropout=0.3,
+    layer = tnn.TransformerEncoderLayer(E, H, F, dropout=0.3, device="cpu",
                                         activation="relu", act_dropout=0.5)
     assert layer.self_attn.dropout == 0.3 and layer.act_dropout.p == 0.5
     assert layer.activation is tnn.functional.relu
@@ -165,4 +168,4 @@ def test_encoder_layer_dropout_and_activation_names():
     layer.train()
     assert not torch.equal(layer(x), layer(x))
     with pytest.raises(ValueError):
-        tnn.MultiHeadAttention(30, 4)
+        tnn.MultiHeadAttention(30, 4, device="cpu")

@@ -305,3 +305,22 @@ def refusals():
     hcg = fleet.fleet.get_hybrid_communicate_group()
     return {"mp_rank": np.asarray(hcg.get_model_parallel_rank()),
             "mp_size": np.asarray(hcg.get_model_parallel_world_size())}
+
+
+def sync_batch_norm(seed):
+    """SyncBatchNorm over every rank, each with its rows of one batch:
+    rank 0's output, input gradient and running statistics, for the
+    parent to hold against one BatchNorm over the whole batch."""
+    from paddle_tpu_torch import nn
+    r, w = dist.get_rank(), dist.get_world_size()
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((4 * w, 3, 5, 2)).astype(
+        np.float32) * 2 + 1)
+    proj = torch.from_numpy(rng.standard_normal((4, 3, 5, 2)).astype(
+        np.float32))
+    bn = nn.SyncBatchNorm(3, momentum=0.8, device="cpu")
+    mine = x.chunk(w)[r].clone().requires_grad_()
+    out = bn(mine)
+    (out * proj).sum().backward()
+    return {"out": out.detach().numpy(), "grad": mine.grad.numpy(),
+            "mean": bn._mean.numpy(), "variance": bn._variance.numpy()}
