@@ -304,7 +304,35 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    decode on the card (fp32 forward, dK/dV, dQ; decode
                    kernel) against the CPU (plain versions): losses
                    within 1e-5, parameters within 1e-3 of how far they
-                   moved, tokens equal.
+                   moved, tokens equal;
+32. hapi_bert    — BERT-base (BertConfig(), 2 classes, bf16 through
+                   amp.decorate without master weights, AdamW under
+                   LinearWarmup(PolynomialDecay)) fine-tuned through the
+                   high-level API as examples/finetune_bert_cls.py does:
+                   Model.prepare(opt, CrossEntropyLoss, Accuracy).fit over
+                   an io.DataLoader of 2,048 ragged sequences (batch 32,
+                   shuffled, 4 worker processes through the shared-memory
+                   ring, the pinned staging reader), 256 for evaluation,
+                   one epoch, MetricsLogger, EarlyStopping,
+                   LRScheduler(by_step) and a save_dir: sequences/s, step
+                   p50 / p99 beside bert's, the loader-wait share, peak
+                   memory, eval accuracy; evaluate, predict, save, load
+                   into a fresh Model (predictions bit-equal); BERT-base
+                   under LazyGuard equal to the eager build bit for bit
+                   (and the CUDA generator's state); the float32 workflow
+                   at 2 layers on the card against the CPU (losses within
+                   1e-5, accuracies equal); 12 sm90 forward, dK/dV and dQ
+                   launches a training step, 12 forwards an evaluation or
+                   prediction batch, no plain sdpa, no thread fallback;
+33. hapi_resnet  — ResNet-50 (NHWC, bf16 O2, Momentum) as resnet trains
+                   it, fed by Model.fit from 8 worker processes (batch
+                   256, rings of two batches) of uint8 images made from
+                   the index through Compose([RandomHorizontalFlip(),
+                   ToTensor(), Normalize()]) (one fused native pass): 12
+                   steps, 3 not timed, images/s beside resnet's and the
+                   loader-wait share; then loader.worker_kill@2#1 kills
+                   worker 1 at its second batch: it is respawned and every
+                   batch arrives once, in the sampler's order.
 
 flash_kernels also holds BERT's shape (B 32, L 128, H 12, D 64,
 non-causal; unmasked and under its additive padding mask) in bf16, fp16
@@ -321,14 +349,14 @@ backward through autograd (fp32, sm80, SDPA, SDPA, sm80, fp32).
 
 The kernels line counts the flash launches of phases 4a, 5b-5c, 6-10
 (6a's fleet step and ring),
-13-16 and 19-31 (bert_resume's: its first unbroken run; ernie_infer's
+13-16 and 19-32 (bert_resume's: its first unbroken run; ernie_infer's
 exported and AOT runs; the worker processes' read from their metrics,
 the killed workers' lost with them); the sm80 forward, dK/dV and dQ
 launch on none of them (asserted, `on_main_paths: false`).  The paged
 kernel's launches are serve's, serve_aot's, serve_aot_e2e's,
 serve_llama's, the workers' of 5b-5c, moe_serve's and moe_e2e's.
 The phases run in this order: 1, 1a's start, 2, 3, 5, 6-7, 8, 9, 10,
-13-22, 24-31 (beside 1a's compiles), 1a's wait, 4, 4a, 5a, 5b, 5c, 23,
+13-22, 24-33 (beside 1a's compiles), 1a's wait, 4, 4a, 5a, 5b, 5c, 23,
 11, 12.  Each phase prints one JSON line.  Then a phase_seconds line
 (each phase's wall seconds, the build and the wait for the compiles
 included), one {"kernels": [...]} line, the
@@ -3325,6 +3353,7 @@ def phase_resnet(batch=256, steps=10, warmup=3):
     torch.backends.cudnn.benchmark = bench
     rec["nhwc_speedup"] = (rec["NHWC"]["images_per_s"]
                            / rec["NCHW"]["images_per_s"])
+    PHASE_NOTES["resnet_nhwc_images_per_s"] = rec["NHWC"]["images_per_s"]
     emit(rec)
 
 
@@ -3551,6 +3580,7 @@ def phase_bert(steps=20, warmup=3, batch=32, seq=128, padded_steps=8,
            "first_loss_float32_plain": ref_loss,
            "first_loss_err": abs(losses[0] - ref_loss),
            "first_loss_tol": BF16_FIRST_LOSS_TOL}
+    PHASE_NOTES["bert_step_p50_ms"] = p50 * 1e3
     n = L * (warmup + steps)
     fl = flash_part(counts)
     assert all(np.isfinite(losses)), losses
@@ -5796,6 +5826,476 @@ def phase_mt_e2e(steps=3, batch=8, src_len=64, trg_len=33, layers=2,
     return {"mt_e2e": fl}
 
 
+# ---------------------------------------------------- the high-level API
+# Model.fit over io.DataLoader worker processes (hapi_bert, hapi_resnet).
+# The datasets are classes of this module, so that a worker process finds
+# them by name (the standard pickle; the worker imports this script).
+HAPI_TOKEN_LOW = 1000       # token ids from here up: BERT keeps the rest
+IMAGENET_MEAN = [0.485, 0.456, 0.406]
+IMAGENET_STD = [0.229, 0.224, 0.225]
+
+
+class HapiSequences:
+    """`n` token sequences of 16 to `seq` tokens (the rest padding, id 0)
+    drawn with numpy from `seed`; the label is 1 when the first token lies
+    in the upper half of the ids drawn from, so a classifier can learn it.
+    `labels=False` yields the inputs alone (what `predict` takes)."""
+
+    def __init__(self, n, seq, vocab, seed, labels=True):
+        rng = np.random.RandomState(seed)
+        lens = rng.randint(16, seq + 1, n)
+        self.mask = (np.arange(seq)[None, :] < lens[:, None]).astype(np.int64)
+        self.ids = rng.randint(HAPI_TOKEN_LOW, vocab, (n, seq)) * self.mask
+        self.labels = (self.ids[:, 0] >= (HAPI_TOKEN_LOW + vocab) // 2
+                       ).astype(np.int64)
+        self.with_labels = labels
+
+    def __len__(self):
+        return len(self.ids)
+
+    def __getitem__(self, i):
+        if self.with_labels:
+            return self.ids[i], self.mask[i], self.labels[i]
+        return self.ids[i], self.mask[i]
+
+
+class HapiImages:
+    """`n` uint8 HWC images of `size` x `size` x 3 made from the index (a
+    random tile from `seed`, rolled by the index along both axes), each
+    through `transform`; the label is index % `classes`."""
+
+    def __init__(self, n, size=224, classes=1000, seed=0, transform=None):
+        self.n, self.classes, self.transform = n, classes, transform
+        self.base = np.random.RandomState(seed).randint(
+            0, 256, (size, size, 3)).astype(np.uint8)
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        img = np.roll(self.base, (i, 7 * i), axis=(0, 1))
+        if self.transform is not None:
+            img = self.transform(img)
+        return img, np.int64(i % self.classes)
+
+
+def hapi_bert_classifier(cfg, device, generator):
+    """The user's network: BertForSequenceClassification (2 classes) in a
+    Layer whose forward(ids, mask) passes the padding mask."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.text import BertForSequenceClassification
+
+    class BertClassifier(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.bert = BertForSequenceClassification(
+                cfg, num_classes=2, device=device, generator=generator)
+
+        def forward(self, ids, mask):
+            return self.bert(ids, attention_mask=mask)
+
+    return BertClassifier()
+
+
+def hapi_recorders():
+    """(StepClock, LossLog): callbacks that keep each train batch's begin
+    and end times, and each logged loss."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class StepClock(Callback):
+        def __init__(self):
+            self.begin, self.end = [], []
+
+        def on_train_batch_begin(self, step, logs=None):
+            self.begin.append(time.perf_counter())
+
+        def on_train_batch_end(self, step, logs=None):
+            self.end.append(time.perf_counter())
+
+    class LossLog(Callback):
+        def __init__(self):
+            self.losses = []
+
+        def on_train_batch_end(self, step, logs=None):
+            if logs and "loss" in logs:
+                self.losses.append(logs["loss"])
+
+    return StepClock, LossLog
+
+
+def hapi_fp32_check(seed, steps=3, batch=32, seq=128, layers=2):
+    """The hapi_bert workflow in float32 at 2 layers (TF32 off, dropout
+    0): Model.fit for 3 steps and evaluate, on the card (process workers,
+    the staging reader; fp32 flash kernels) and on the CPU (in-process
+    loader, plain attention), from the same weights and batches."""
+    from paddle_tpu_torch import io, metric, nn
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text import BertConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = BertConfig(num_hidden_layers=layers, hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
+    card = hapi_bert_classifier(
+        cfg, "cuda", torch.Generator(device="cuda").manual_seed(seed))
+    cpu = hapi_bert_classifier(cfg, "cpu", None)
+    cpu.load_state_dict(card.state_dict())
+    train = HapiSequences(steps * batch, seq, cfg.vocab_size, seed + 2)
+    evals = HapiSequences(2 * batch, seq, cfg.vocab_size, seed + 3)
+    _, LossLog = hapi_recorders()
+
+    def run(net, dev, workers):
+        model = Model(net).prepare(
+            AdamW(learning_rate=1e-4, parameters=net.parameters()),
+            nn.CrossEntropyLoss(), metric.Accuracy())
+        log = LossLog()
+        np.random.seed(seed)
+        model.fit(io.DataLoader(train, places=dev, batch_size=batch,
+                                shuffle=True, num_workers=workers),
+                  epochs=1, log_freq=1, verbose=0, callbacks=[log])
+        acc = model.evaluate(io.DataLoader(evals, places=dev,
+                                           batch_size=batch),
+                             verbose=0)["acc"]
+        return log.losses, acc
+
+    zero_counts()
+    card_losses, card_acc = run(card, "cuda", 2)
+    counts = read_counts()
+    t0 = time.perf_counter()
+    cpu_losses, cpu_acc = run(cpu, "cpu", 0)
+    cpu_s = time.perf_counter() - t0
+    err = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    rec = {"layers": layers, "steps": steps, "batch": batch,
+           "card_losses": card_losses, "cpu_losses": cpu_losses,
+           "loss_max_rel_err": err, "loss_tol": 1e-5,
+           "card_acc": card_acc, "cpu_acc": cpu_acc, "cpu_seconds": cpu_s,
+           "launches": counts}
+    n_fwd = layers * (steps + len(evals) // batch)
+    assert flash_part(counts) == {
+        "fwd": n_fwd, "dkv": layers * steps, "dq": layers * steps,
+        "fwd_sm90": 0, "dkv_sm90": 0, "dq_sm90": 0, "fwd_decode": 0,
+        "fwd_fp32": n_fwd, "dkv_fp32": layers * steps,
+        "dq_fp32": layers * steps}, rec
+    assert counts["sdpa_plain"] == 0, rec
+    assert len(card_losses) == len(cpu_losses) == steps, rec
+    assert err <= 1e-5, rec
+    assert card_acc == cpu_acc, rec
+    del card, cpu
+    release()
+    return rec, flash_part(counts)
+
+
+def phase_hapi_bert(seed=0, n_train=2048, n_eval=256, batch=32, seq=128,
+                    workers=4, log_freq=8):
+    """BERT-base (BertConfig(), 2 classes, bf16 through amp.decorate with
+    master_weight=False, AdamW under LinearWarmup(PolynomialDecay))
+    fine-tuned as examples/finetune_bert_cls.py does it, through the
+    high-level API: Model.prepare(opt, CrossEntropyLoss, Accuracy) and fit
+    over an io.DataLoader of 2,048 ragged sequences (batch 32, shuffled,
+    4 worker processes through the shared-memory ring, the pinned
+    staging reader) with 256 for evaluation, one epoch, MetricsLogger,
+    EarlyStopping, LRScheduler(by_step) and a save_dir; then evaluate,
+    predict, save, and load into a fresh Model (its predictions bit-equal);
+    BERT-base built under LazyGuard against the eager build; and the
+    float32 workflow at 2 layers on the card against the CPU.  Each
+    training step launches the sm90 forward, dK/dV and dQ 12 times, each
+    evaluation or prediction batch the forward 12 times; sdpa takes its
+    plain path no time, no loader falls back to threads."""
+    import tempfile
+
+    from paddle_tpu_torch import amp, io, metric, nn
+    from paddle_tpu_torch import seed as seed_all
+    from paddle_tpu_torch.framework.lazy import LazyGuard
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.hapi.callbacks import (EarlyStopping, LRScheduler,
+                                                 MetricsLogger)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import lr as lr_sched
+    from paddle_tpu_torch.text import (BertConfig,
+                                       BertForSequenceClassification)
+
+    cfg = BertConfig()
+    L, steps = cfg.num_hidden_layers, n_train // batch
+    n_eval_batches = n_eval // batch
+    train = HapiSequences(n_train, seq, cfg.vocab_size, seed)
+    evals = HapiSequences(n_eval, seq, cfg.vocab_size, seed + 1)
+    tests = HapiSequences(n_eval, seq, cfg.vocab_size, seed + 1,
+                          labels=False)
+    fallbacks = sum(io.fallback_counts.values())
+
+    def build(gen_seed):
+        net = hapi_bert_classifier(
+            cfg, "cuda", torch.Generator(device="cuda").manual_seed(gen_seed))
+        sched = lr_sched.LinearWarmup(
+            lr_sched.PolynomialDecay(5e-5, decay_steps=steps,
+                                     end_lr=5e-6),
+            warmup_steps=4, start_lr=0.0, end_lr=5e-5)
+        opt = AdamW(learning_rate=sched, weight_decay=0.01,
+                    parameters=net.parameters())
+        net, opt = amp.decorate(models=net, optimizers=opt,
+                                dtype="bfloat16", master_weight=False)
+        return Model(net).prepare(opt, nn.CrossEntropyLoss(),
+                                  metric.Accuracy())
+
+    model = build(seed)
+    logger = MetricsLogger(batch_size=batch)
+    clock = hapi_recorders()[0]()
+    with tempfile.TemporaryDirectory(prefix="hapi_bert_") as tmp:
+        np.random.seed(seed)
+        loader = io.DataLoader(train, batch_size=batch, shuffle=True,
+                               num_workers=workers)
+        eval_loader = io.DataLoader(evals, batch_size=batch,
+                                    num_workers=workers)
+        test_loader = io.DataLoader(tests, batch_size=batch,
+                                    num_workers=workers)
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        history = model.fit(
+            loader, eval_loader, epochs=1, log_freq=log_freq,
+            save_dir=os.path.join(tmp, "fit"), save_freq=2, verbose=0,
+            callbacks=[logger, clock,
+                       EarlyStopping(monitor="acc", mode="max", patience=1,
+                                     save_best_model=False),
+                       LRScheduler(by_step=True)])
+        fit_s = time.perf_counter() - t0
+        fit_counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        zero_counts()
+        ev = model.evaluate(eval_loader, verbose=0)
+        pred = model.predict(test_loader, stack_outputs=True)[0]
+        ep_counts = read_counts()
+        t0 = time.perf_counter()
+        model.save(os.path.join(tmp, "saved"))
+        save_s = time.perf_counter() - t0
+        fresh = build(seed + 7)
+        t0 = time.perf_counter()
+        fresh.load(os.path.join(tmp, "saved"))
+        load_s = time.perf_counter() - t0
+        pred2 = fresh.predict(test_loader, stack_outputs=True)[0]
+        checkpointed = sorted(os.listdir(os.path.join(tmp, "fit")))
+    logs = history[0]
+    del model, fresh
+    release()
+
+    # LazyGuard: BERT-base on the meta device, materialised on the card
+    seed_all(seed)
+    t0 = time.perf_counter()
+    eager = BertForSequenceClassification(cfg, num_classes=2, device="cuda")
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    rng_eager = torch.cuda.get_rng_state()
+    seed_all(seed)
+    t0 = time.perf_counter()
+    with LazyGuard():
+        lazy = BertForSequenceClassification(cfg, num_classes=2,
+                                             device="cuda")
+    torch.cuda.synchronize()
+    lazy_s = time.perf_counter() - t0
+    rng_lazy = torch.cuda.get_rng_state()
+    sd_e, sd_l = eager.state_dict(), lazy.state_dict()
+    lazy_equal = list(sd_e) == list(sd_l) and all(
+        torch.equal(sd_e[k], sd_l[k]) and sd_l[k].device.type == "cuda"
+        for k in sd_e)
+    del eager, lazy, sd_e, sd_l
+    release()
+
+    fp32, fp32_counts = hapi_fp32_check(seed)
+    fl, fl_ep = flash_part(fit_counts), flash_part(ep_counts)
+    rec = {"phase": "hapi_bert", "model": "bert-base (BertConfig())",
+           "layers": L, "batch": batch, "seq": seq, "dtype": "bfloat16",
+           "amp": "amp.decorate, master_weight=False",
+           "optimizer": "AdamW(LinearWarmup(PolynomialDecay(5e-5)))",
+           "train_sequences": n_train, "eval_sequences": n_eval,
+           "steps": steps, "workers": workers, "log_freq": log_freq,
+           "fit_seconds": fit_s, "history": history,
+           "sequences_per_s": logs.get("samples_per_s"),
+           # from the first log boundary's read of the loss (the card done
+           # with step log_freq) to the last one's: the workers' start and
+           # the first steps left out
+           "sequences_per_s_after_first_log": (steps - log_freq) * batch
+           / (clock.end[-1] - clock.end[log_freq - 1]),
+           "step_p50_ms": logs["step_time_p50"] * 1e3,
+           "step_p99_ms": logs["step_time_p99"] * 1e3,
+           "bert_phase_step_p50_ms": PHASE_NOTES.get("bert_step_p50_ms"),
+           "data_wait_share": logs.get("data_wait_share"),
+           "data_wait_p50_ms": logs["data_wait_p50"] * 1e3,
+           "data_wait_p99_ms": logs["data_wait_p99"] * 1e3,
+           "peak_memory_gib": peak / 2**30,
+           "eval": ev, "fit_eval_acc": logs.get("eval_acc"),
+           "launches_fit": fit_counts, "launches_eval_predict": ep_counts,
+           "thread_fallbacks": sum(io.fallback_counts.values()) - fallbacks,
+           "predictions_bit_equal_after_load": bool(np.array_equal(pred,
+                                                                   pred2)),
+           "save_seconds": save_s, "load_seconds": load_s,
+           "checkpoints": checkpointed,
+           "lazy_guard": {"bit_equal": lazy_equal,
+                          "cuda_rng_equal": bool(torch.equal(rng_eager,
+                                                             rng_lazy)),
+                          "eager_build_s": eager_s, "lazy_build_s": lazy_s},
+           "float32_card_vs_cpu": fp32}
+    emit(rec)
+    n_fwd = L * (steps + n_eval_batches)
+    assert (fl["fwd"], fl["fwd_sm90"]) == (n_fwd, n_fwd), rec
+    assert (fl["dkv"], fl["dkv_sm90"], fl["dq"], fl["dq_sm90"]) == \
+        (L * steps,) * 4, rec
+    assert (fl_ep["fwd"], fl_ep["fwd_sm90"], fl_ep["dkv"], fl_ep["dq"]) \
+        == (2 * L * n_eval_batches, 2 * L * n_eval_batches, 0, 0), rec
+    assert fit_counts["sdpa_plain"] == 0 == ep_counts["sdpa_plain"], rec
+    assert rec["thread_fallbacks"] == 0, rec
+    assert np.isfinite(logs["loss"]) and 0.0 <= ev["acc"] <= 1.0, rec
+    assert np.all(np.isfinite(pred)) and pred.shape == (n_eval, 2), rec
+    assert rec["predictions_bit_equal_after_load"], rec
+    assert checkpointed == ["final"], rec
+    assert lazy_equal and rec["lazy_guard"]["cuda_rng_equal"], rec
+    paths = {"hapi_bert": {k: fl[k] + fl_ep[k] for k in fl},
+             "hapi_bert_fp32": fp32_counts}
+    return paths
+
+
+def phase_hapi_resnet(batch=256, steps=12, warmup=3, workers=8,
+                      drill_batch=32, drill_steps=24):
+    """ResNet-50 (NHWC, s2d_stem, bf16 O2 without master weights,
+    Momentum(0.1, 0.9)) as the resnet phase trains it, fed by Model.fit
+    from an io.DataLoader of uint8 224 x 224 x 3 images made from the
+    index through Compose([RandomHorizontalFlip(), ToTensor(),
+    Normalize(mean, std)]) (ToTensor + Normalize fused into one native
+    pass), batch 256, 8 worker processes, rings of two batches: 12 steps,
+    the first 3 not timed (log_freq 1: every step's loss is read, so each
+    step ends on the card).  Images/s beside the resnet phase's NHWC
+    images/s, and the share of the timed steps' wall time spent waiting
+    for the loader.  Then the drill: loader.worker_kill@2#1 kills worker
+    1 at its second batch (batch 32, 24 steps, a sampler over a fixed
+    permutation); the pool respawns it and every batch of the epoch
+    arrives once, in the sampler's order (the labels the loss saw
+    against the permutation's).  The loader probes one sample before it
+    draws a shuffled order (as the reference does), and that probe's
+    random flip draws from numpy too, so the drill fixes its order."""
+    from paddle_tpu_torch import amp, io, nn
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.observability import metrics as obs_metrics
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.resilience import chaos
+    from paddle_tpu_torch.vision import transforms as T
+    from paddle_tpu_torch.vision.models import resnet50
+
+    class NhwcResNet(nn.Layer):
+        """CHW float32 batches in, the NHWC bf16 ResNet-50 inside."""
+
+        def __init__(self):
+            super().__init__()
+            self.net = resnet50(
+                num_classes=1000, s2d_stem=True, data_format="NHWC",
+                device="cuda",
+                generator=torch.Generator("cuda").manual_seed(0))
+
+        def forward(self, x):
+            return self.net(x.to(torch.bfloat16).permute(0, 2, 3, 1)
+                            .contiguous())
+
+    class LabelLog(nn.Layer):
+        """Cross entropy that keeps every label batch it is given."""
+
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+            self.ce = nn.CrossEntropyLoss()
+
+        def forward(self, pred, label):
+            self.seen.append(label.detach())
+            return self.ce(pred, label)
+
+    transform = T.Compose([T.RandomHorizontalFlip(), T.ToTensor(),
+                           T.Normalize(IMAGENET_MEAN, IMAGENET_STD)])
+    fused = type(transform.transforms[1]).__name__
+    StepClock, _ = hapi_recorders()
+    fallbacks = sum(io.fallback_counts.values())
+    respawned = obs_metrics.registry().counter(
+        "loader_worker_respawns_total")
+    respawns0 = respawned.value
+
+    def build():
+        net = NhwcResNet()
+        opt = Momentum(learning_rate=0.1, momentum=0.9,
+                       parameters=net.parameters())
+        net, opt = amp.decorate(models=net, optimizers=opt,
+                                dtype="bfloat16", master_weight=False)
+        loss = LabelLog()
+        return Model(net).prepare(opt, loss), loss
+
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True     # as the resnet phase
+    model, _ = build()
+    batch_bytes = batch * 3 * 224 * 224 * 4 + batch * 8
+    clock = StepClock()
+    np.random.seed(1)
+    loader = io.DataLoader(HapiImages(steps * batch, transform=transform),
+                           batch_size=batch, shuffle=True,
+                           num_workers=workers,
+                           ring_bytes=2 * batch_bytes + (1 << 20))
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    history = model.fit(loader, epochs=1, log_freq=1, verbose=0,
+                        callbacks=[clock])
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    timed_s = clock.end[-1] - clock.end[warmup - 1]
+    waits = [clock.begin[i] - clock.end[i - 1]
+             for i in range(warmup, steps)]
+    ips = (steps - warmup) * batch / timed_s
+    del model
+    release()
+
+    # the drill: a worker killed at its second batch, respawned
+    torch.backends.cudnn.benchmark = False
+    model, labels = build()
+    n = drill_steps * drill_batch
+    order = np.random.RandomState(2).permutation(n)
+    with chaos.scoped("loader.worker_kill@2#1") as plan:
+        model.fit(io.DataLoader(HapiImages(n, transform=transform),
+                                batch_sampler=io.BatchSampler(
+                                    sampler=order.tolist(),
+                                    batch_size=drill_batch),
+                                num_workers=workers),
+                  epochs=1, log_freq=drill_steps, verbose=0)
+    seen = torch.cat(labels.seen).cpu().numpy()
+    torch.backends.cudnn.benchmark = bench
+    respawns = respawned.value - respawns0
+    rec = {"phase": "hapi_resnet", "model": "resnet50", "batch": batch,
+           "image": 224, "s2d_stem": True, "data_format": "NHWC",
+           "dtype": "bfloat16", "amp": "O2, master_weight=False",
+           "optimizer": "Momentum(0.1, 0.9)", "workers": workers,
+           "ring_bytes": 2 * batch_bytes + (1 << 20),
+           "transform": "Compose([RandomHorizontalFlip(), ToTensor(), "
+                        "Normalize(mean, std)])", "fused_stage": fused,
+           "steps": steps, "warmup_steps": warmup, "fit_seconds": fit_s,
+           "images_per_s": ips,
+           "resnet_phase_nhwc_images_per_s":
+               PHASE_NOTES.get("resnet_nhwc_images_per_s"),
+           "step_ms": [(e - b) * 1e3 for b, e in zip(clock.begin,
+                                                      clock.end)],
+           "data_wait_ms": [w * 1e3 for w in waits],
+           "data_wait_share": sum(waits) / timed_s,
+           "loss": history[0]["loss"], "peak_memory_gib": peak / 2**30,
+           "thread_fallbacks": sum(io.fallback_counts.values()) - fallbacks,
+           "drill": {"plan": "loader.worker_kill@2#1", "fired": plan.log,
+                     "respawns": respawns, "batch": drill_batch,
+                     "steps": drill_steps, "batches_seen": len(labels.seen),
+                     "order_kept": bool(np.array_equal(seen, order % 1000))}}
+    emit(rec)
+    assert fused == "_FusedToTensorNormalize", rec
+    assert len(clock.end) == steps and np.isfinite(rec["loss"]), rec
+    assert rec["thread_fallbacks"] == 0, rec
+    assert plan.log == [("loader.worker_kill", "1", 2)] and respawns == 1, rec
+    assert len(labels.seen) == drill_steps and rec["drill"]["order_kept"], \
+        rec
+    del model, labels
+    release()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on "
@@ -5812,6 +6312,9 @@ def main():
 
 
 PHASE_SECONDS = {}
+# what a later phase prints beside its own numbers: the bert phase's step
+# p50 (hapi_bert), the resnet phase's NHWC images/s (hapi_resnet)
+PHASE_NOTES = {}
 
 
 def timed(name, fn, *args, **kwargs):
@@ -5866,6 +6369,8 @@ def run_phases(started):
     del mt, mt_src
     release()
     paths.update(timed("mt_e2e", phase_mt_e2e))
+    paths.update(timed("hapi_bert", phase_hapi_bert))
+    timed("hapi_resnet", phase_hapi_resnet)
     aot = timed("aot_compile", finish_aot_compile, started)
     launches, lens, serve = timed("serve", phase_serve)
     serve_aot = timed("serve_aot", phase_serve_aot, serve, aot)

@@ -30,12 +30,29 @@ by value and by norm, and the other eleven optimizers of the JAX
 package; and the incubate package: the MoE layer and GPT-MoE
 (`incubate.nn.MoELayer`, `GPTConfig(num_experts=...)`), the fused
 transformer layers and functions (`incubate.nn`), LookAhead and
-ModelAverage (`incubate.optimizer`).
+ModelAverage (`incubate.optimizer`); and the high-level API: `Model`
+(`hapi`) with its callbacks, the metrics (`metric`), the DataLoader and
+its worker processes over a shared-memory ring (`io`), the vision
+datasets and transforms (`vision`), `LazyGuard`, the dtypes and the
+Place API (`dtypes`, `device`), `to_tensor`, `create_parameter`,
+`flops`, `summary` and `save` / `load`.
 """
+from torch import enable_grad, no_grad, set_grad_enabled  # noqa: F401
+
 from . import incubate  # noqa: F401
-from .device import generator, resolve_device
+from .api import (create_parameter, flops, is_grad_enabled,  # noqa: F401
+                  summary, to_tensor)
+from .device import (CPUPlace, CUDAPlace, Place, TPUPlace,  # noqa: F401
+                     device_count, generator, get_device,
+                     is_compiled_with_cuda, is_compiled_with_tpu,
+                     is_compiled_with_xpu, resolve_device, set_device)
+from .dtypes import (bfloat16, complex64, complex128, finfo,  # noqa: F401
+                     float16, float32, float64, get_default_dtype, iinfo,
+                     int8, int16, int32, int64, set_default_dtype, uint8)
+from .dtypes import bool_ as bool8  # noqa: F401
 from .framework import (CheckpointError, ParamAttr, get_rng_state,
                         load_state, save_state, seed, set_rng_state)
+from .framework.lazy import LazyGuard  # noqa: F401
 
 __all__ = ["CheckpointError", "ParamAttr", "generator", "get_rng_state",
            "load_state", "resolve_device", "save_state", "seed",
@@ -46,10 +63,14 @@ __all__ = ["CheckpointError", "ParamAttr", "generator", "get_rng_state",
 # all here would load the serving tier and the inference stack with every
 # `import paddle_tpu_torch`
 _LAZY = {name: (f"paddle_tpu_torch.{name}", None) for name in (
-    "amp", "device", "distributed", "framework", "inference", "jit", "nn",
-    "observability", "ops", "optimizer", "regularizer", "resilience",
-    "serving", "text", "vision")}
+    "amp", "callbacks", "device", "distributed", "dtypes", "framework",
+    "hapi", "inference", "io", "jit", "metric", "nn", "observability",
+    "ops", "optimizer", "regularizer", "resilience", "serving", "text",
+    "vision")}
 _LAZY["DataParallel"] = ("paddle_tpu_torch.distributed", "DataParallel")
+_LAZY["Model"] = ("paddle_tpu_torch.hapi", "Model")
+_LAZY["save"] = ("paddle_tpu_torch.jit", "save")
+_LAZY["load"] = ("paddle_tpu_torch.jit", "load")
 
 
 def __getattr__(name):

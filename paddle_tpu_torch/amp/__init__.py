@@ -58,6 +58,7 @@ import torch
 import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 
+from .. import dtypes  # noqa: F401  (the reference's amp.dtypes)
 from .grad_scaler import AmpScaler, GradScaler
 
 __all__ = ["AmpScaler", "GradScaler", "amp_guard", "amp_state",

@@ -166,8 +166,19 @@ class MetricsRegistry:
 
 
 _default = MetricsRegistry()
+_active = _default
 
 
 def registry() -> MetricsRegistry:
-    """The process registry every instrument of the port writes to."""
-    return _default
+    """The ACTIVE registry every instrument of the port writes to: the
+    process default unless `observability.enable(registry_=...)` (or
+    `set_registry`) retargeted it."""
+    return _active
+
+
+def set_registry(reg):
+    """Retarget the active registry (None restores the process default);
+    returns the now-active registry."""
+    global _active
+    _active = reg if reg is not None else _default
+    return _active

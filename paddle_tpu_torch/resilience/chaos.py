@@ -48,9 +48,19 @@ The sites the port has:
                                 deadline: the watchdog abandons the
                                 attempt and retries
 
-Still to come with the modules that hold them: the loader sites
-(`loader.*`), `compile.fail_once`, the compile-cache sites (`cache.*`)
-and `restart.mesh_change`.  With no plan installed every site costs one
+    loader.worker_kill          a DataLoader worker process exits hard
+                                (no error message) at a batch of its
+                                slice: the pool respawns it
+    loader.worker_hang          a DataLoader worker wedges at a batch:
+                                the loader's timeout respawns it
+    loader.batch_corrupt        a worker's batch payload is mangled: the
+                                pool skips that batch with a warning
+
+The loader sites fire from the PARENT's plan when a worker is spawned
+(`take_loader_directives`, tag = the worker slot, @N = the batch of that
+worker's slice).  Still to come with the modules that hold them:
+`compile.fail_once`, the compile-cache sites (`cache.*`) and
+`restart.mesh_change`.  With no plan installed every site costs one
 `is None` test.
 """
 from __future__ import annotations
@@ -206,6 +216,41 @@ def crash(site, tag=None):
     """Raise ChaosInterrupt when the plan schedules a crash here."""
     if _PLAN is not None and _PLAN.should_fire(site, tag):
         raise ChaosInterrupt(site)
+
+
+_LOADER_SITES = {"loader.worker_kill": "kill_at",
+                 "loader.worker_hang": "hang_at",
+                 "loader.batch_corrupt": "corrupt_at"}
+
+
+def take_loader_directives(worker_id):
+    """Consume this worker slot's pending ``loader.*`` faults and return
+    them as positional directives ``{kill_at, hang_at, corrupt_at,
+    corrupt_p}`` (1-based batch ordinals within the worker's slice).
+
+    The parent resolves them when it spawns the worker, so its counters
+    outlive the worker: a respawned worker does not suffer again the
+    fault its predecessor carried out.  A probabilistic corrupt entry
+    (``~p``) is not consumed: every spawn draws from the child's seeded
+    RNG."""
+    d = {"kill_at": None, "hang_at": None, "corrupt_at": None,
+         "corrupt_p": None}
+    p = _PLAN
+    if p is None:
+        return d
+    for e in p.entries:
+        key = _LOADER_SITES.get(e.site)
+        if key is None or e.fired >= e.repeat:
+            continue
+        if e.tag is not None and e.tag != str(worker_id):
+            continue
+        if e.site == "loader.batch_corrupt" and e.prob is not None:
+            d["corrupt_p"] = e.prob
+            continue
+        e.fired += 1
+        p.log.append((e.site, str(worker_id), e.at))
+        d[key] = e.at
+    return d
 
 
 def poison_batch(batch_arrays):

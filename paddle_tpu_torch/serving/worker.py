@@ -44,8 +44,9 @@ take the other replicas, or the router, down with it.  Two halves:
 A spec's ``load_aot`` names a directory of exported serving artifacts
 (`serving.aot`): the worker loads them into its engine once it is built
 and reports how many it loaded as ``aot_loaded`` in its ready event.
-Left out: ``LazyGuard`` model builds (``lazy=True``), which raise
-NotImplementedError rather than build another way without saying so.
+A spec with ``lazy=True`` builds the model under ``LazyGuard``, as the
+JAX worker does: its parameters materialise on the device when the
+guard exits, the same values as an eager build.
 `tools/torch_chaos_check.py --router --proc` drills the tier with 3x
 SIGKILL mid-stream, a dropped frame and a wedged worker.
 """
@@ -137,24 +138,17 @@ def gpt_spec(config=None, preset=None, overrides=None, seed=0,
     effort: a refused program is served eagerly) and reports
     ``aot_loaded`` in its ready event.  ``step_delay_s`` throttles the
     worker loop (drills use it to hold streams open long enough to kill
-    them mid-stream).  ``lazy`` raises NotImplementedError."""
-    _refuse_lazy(lazy)
+    them mid-stream).  ``lazy`` builds the model under ``LazyGuard``."""
     return {"seed": int(seed),
             "model": {"kind": "gpt", "preset": preset,
                       "config": dict(config or {}),
-                      "overrides": dict(overrides or {})},
+                      "overrides": dict(overrides or {}),
+                      "lazy": bool(lazy)},
             "engine": dict(engine or {}),
             "load_aot": load_aot,
             "device": None if device is None else str(device),
             "dtype": str(dtype),
             "step_delay_s": float(step_delay_s)}
-
-
-def _refuse_lazy(lazy):
-    if lazy:
-        raise NotImplementedError(
-            "lazy=True: the port has no LazyGuard yet (ROADMAP.md, queue "
-            "A item 1)")
 
 
 def _raise_remote(err):
@@ -536,11 +530,14 @@ def _build_kernels(spec):
 # ======================================================================
 def build_gpt(spec):
     """The GPTForCausalLM a `gpt_spec` describes, built on the spec's
-    device from a generator seeded with the spec's seed."""
+    device from a generator seeded with the spec's seed (under
+    `LazyGuard` when the spec says ``lazy``)."""
+    import contextlib
+
     from ..device import resolve_device
+    from ..framework.lazy import LazyGuard
     from ..text import GPTConfig, GPTForCausalLM
     m = spec.get("model") or {}
-    _refuse_lazy(m.get("lazy"))
     if m.get("preset"):
         cfg = GPTConfig.from_preset(m["preset"],
                                     **(m.get("overrides") or {}))
@@ -552,10 +549,12 @@ def build_gpt(spec):
                            f"process sees no CUDA device")
     gen = torch.Generator(device=device).manual_seed(
         int(spec.get("seed", 0)))
-    return GPTForCausalLM(cfg, device=device,
-                          dtype=getattr(torch, spec.get("dtype")
-                                        or "float32"),
-                          generator=gen)
+    with LazyGuard() if m.get("lazy") else contextlib.nullcontext():
+        model = GPTForCausalLM(cfg, device=device,
+                               dtype=getattr(torch, spec.get("dtype")
+                                             or "float32"),
+                               generator=gen)
+    return model
 
 
 def _build(spec):

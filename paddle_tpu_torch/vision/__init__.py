@@ -1,4 +1,5 @@
-"""Vision models of the port (counterpart: `paddle_tpu/vision`)."""
-from . import models
+"""Vision of the port (counterpart: `paddle_tpu/vision`): the models,
+the datasets and the transforms."""
+from . import datasets, models, transforms
 
-__all__ = ["models"]
+__all__ = ["datasets", "models", "transforms"]

@@ -3,12 +3,13 @@
 An AST scan shows that no module of `paddle_tpu_torch/`, and not
 `chip_smoke.py` and not a `tools/torch_*.py` script, imports `jax`,
 `paddle_tpu` or `paddle`; a fresh interpreter importing the whole port
-(the training, serving-tier, AOT and incubate modules included) loads
-none of them,
+(the training, serving-tier, AOT, incubate and high-level API modules
+included) loads none of them,
 and neither does a serving worker process after it has served, nor a
-rank the distributed launcher started after its collectives; and the
-port's entry points raise, rather than run on the CPU, when no device is
-named and there is no CUDA device.
+rank the distributed launcher started after its collectives, nor a
+DataLoader worker process (`test_torch_io.py`); and the port's entry
+points raise, rather than run on the CPU, when no device is named and
+there is no CUDA device.
 """
 import ast
 import os
@@ -96,7 +97,23 @@ def test_no_port_module_imports_jax_or_the_jax_package():
             "paddle_tpu_torch/distributed/launch/__init__.py",
             "paddle_tpu_torch/distributed/launch/__main__.py",
             "tools/torch_chaos_check.py",
-            "tools/torch_aot_probe.py"} <= rel
+            "tools/torch_aot_probe.py",
+            "paddle_tpu_torch/api.py",
+            "paddle_tpu_torch/dtypes.py",
+            "paddle_tpu_torch/metric.py",
+            "paddle_tpu_torch/callbacks.py",
+            "paddle_tpu_torch/framework/lazy.py",
+            "paddle_tpu_torch/observability/trace.py",
+            "paddle_tpu_torch/io/__init__.py",
+            "paddle_tpu_torch/io/shm_loader.py",
+            "paddle_tpu_torch/io/native/__init__.py",
+            "paddle_tpu_torch/io/native/imgproc.py",
+            "paddle_tpu_torch/hapi/__init__.py",
+            "paddle_tpu_torch/hapi/callbacks.py",
+            "paddle_tpu_torch/vision/datasets.py",
+            "paddle_tpu_torch/vision/transforms.py",
+            "tools/torch_hapi_probe.py",
+            "tools/torch_loader_probe.py"} <= rel
     bad = {os.path.relpath(p, REPO): sorted(set(_imported_roots(p))
                                             & FORBIDDEN)
            for p in files}
@@ -145,7 +162,16 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.distributed.fleet, "
             "paddle_tpu_torch.distributed.fleet_engine, "
             "paddle_tpu_torch.distributed.sharding, "
-            "paddle_tpu_torch.distributed.ring_attention\n"
+            "paddle_tpu_torch.distributed.ring_attention, "
+            "paddle_tpu_torch.api, paddle_tpu_torch.dtypes, "
+            "paddle_tpu_torch.metric, paddle_tpu_torch.callbacks, "
+            "paddle_tpu_torch.framework.lazy, "
+            "paddle_tpu_torch.observability.trace, paddle_tpu_torch.io, "
+            "paddle_tpu_torch.io.shm_loader, paddle_tpu_torch.io.native, "
+            "paddle_tpu_torch.io.native.imgproc, paddle_tpu_torch.hapi, "
+            "paddle_tpu_torch.hapi.callbacks, "
+            "paddle_tpu_torch.vision.datasets, "
+            "paddle_tpu_torch.vision.transforms\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN | {'transformers'})!r})\n"
             "assert not bad, bad\n")
@@ -390,3 +416,35 @@ def test_launched_ranks_load_no_jax(tmp_path):
          f"127.0.0.1:{_free_port()}", str(script)],
         cwd=REPO, env=env, timeout=120, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_high_level_api_entry_points_raise_without_a_device(monkeypatch):
+    """`to_tensor`, `create_parameter`, `Model`, the DataLoader's device
+    staging and a LazyGuard build on the default device raise without a
+    card unless the CPU is named; named (`place=`, `places=`,
+    `device=`), each stays on the CPU."""
+    from paddle_tpu_torch import LazyGuard, create_parameter, io, to_tensor
+    from paddle_tpu_torch import device as tdevice
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.nn import Linear
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(tdevice, "_current_place", [None])
+    rows = io.TensorDataset([torch.zeros(4, 2)])
+    for call in (lambda: to_tensor([1.0]), lambda: create_parameter([2]),
+                 lambda: Model(torch.nn.Identity()),
+                 lambda: next(iter(io.DataLoader(rows, batch_size=2)))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        with LazyGuard():
+            Linear(2, 2)
+    cpu = torch.device("cpu")
+    assert to_tensor([1.0], place="cpu").device == cpu
+    assert create_parameter([2], device="cpu").device == cpu
+    assert next(iter(io.DataLoader(rows, batch_size=2, places="cpu")))[
+        0].device == cpu
+    with LazyGuard():
+        lin = Linear(2, 2, device="cpu")
+    assert lin.weight.device == cpu
+    assert Model(lin)._device == cpu

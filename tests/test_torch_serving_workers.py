@@ -181,17 +181,20 @@ def test_worker_without_a_card_exits_instead_of_serving(tmp_path,
 
 
 def test_left_out_options_raise_and_name_their_item():
-    """`lazy=True` is left out and raises, in the spec and in the build;
-    `load_aot` is ported (a worker loading artifacts:
+    """Nothing of the spec is left out any more: `lazy=True` goes into
+    the spec as the JAX package writes it and builds the model under
+    LazyGuard (`test_torch_lazy.py` holds its weights to the eager
+    build's), and `load_aot` is ported (a worker loading artifacts:
     `test_torch_aot.py`) and goes into the spec as the JAX one does."""
     spec = sw.gpt_spec(config=tcc.TINY, load_aot="/nowhere")
     assert spec["load_aot"] == jax_sw.gpt_spec(
         config=tcc.TINY, load_aot="/nowhere")["load_aot"]
-    with pytest.raises(NotImplementedError, match="LazyGuard"):
-        sw.gpt_spec(config=tcc.TINY, lazy=True)
-    with pytest.raises(NotImplementedError, match="LazyGuard"):
-        sw.build_gpt({"model": {"config": tcc.TINY, "lazy": True},
-                      "device": "cpu"})
+    lazy = sw.gpt_spec(config=tcc.TINY, lazy=True)
+    assert lazy["model"] == jax_sw.gpt_spec(config=tcc.TINY,
+                                            lazy=True)["model"]
+    model = sw.build_gpt({"model": {"config": tcc.TINY, "lazy": True},
+                          "device": "cpu"})
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
 
 
 def test_describe_exit_matches_jax():
