@@ -35,11 +35,17 @@ ModelAverage (`incubate.optimizer`); and the high-level API: `Model`
 its worker processes over a shared-memory ring (`io`), the vision
 datasets and transforms (`vision`), `LazyGuard`, the dtypes and the
 Place API (`dtypes`, `device`), `to_tensor`, `create_parameter`,
-`flops`, `summary` and `save` / `load`.
+`flops`, `summary` and `save` / `load`; and the compile path:
+`jit.to_static` over `torch.compile` with dy2static control flow, the
+static Program / Executor (`enable_static`, `static`), the public
+autograd API (`grad`, `autograd`), `Tensor` (torch's own), `parameter`,
+and the `base` / `fluid` aliases.
 """
+import sys as _sys
+
 from torch import enable_grad, no_grad, set_grad_enabled  # noqa: F401
 
-from . import incubate  # noqa: F401
+from . import autograd, base, incubate  # noqa: F401
 from .api import (create_parameter, flops, is_grad_enabled,  # noqa: F401
                   summary, to_tensor)
 from .device import (CPUPlace, CUDAPlace, Place, TPUPlace,  # noqa: F401
@@ -53,10 +59,27 @@ from .dtypes import bool_ as bool8  # noqa: F401
 from .framework import (CheckpointError, ParamAttr, get_rng_state,
                         load_state, save_state, seed, set_rng_state)
 from .framework.lazy import LazyGuard  # noqa: F401
+from .framework.static_graph import (disable_static,  # noqa: F401
+                                     enable_static)
+from .autograd import grad  # noqa: F401
+from .tensor import Tensor, parameter  # noqa: F401
 
-__all__ = ["CheckpointError", "ParamAttr", "generator", "get_rng_state",
-           "load_state", "resolve_device", "save_state", "seed",
-           "set_rng_state"]
+fluid = base  # legacy namespace alias (paddle.fluid)
+# a real module entry, so `import paddle_tpu_torch.fluid` and
+# `from paddle_tpu_torch.fluid import layers` work
+_sys.modules[__name__ + ".fluid"] = base
+
+__all__ = ["CheckpointError", "ParamAttr", "Tensor", "disable_static",
+           "enable_static", "generator", "get_rng_state", "grad",
+           "in_dynamic_mode", "load_state", "parameter", "resolve_device",
+           "save_state", "seed", "set_rng_state"]
+
+
+def in_dynamic_mode():
+    """False while static mode (`enable_static`) is on."""
+    from .framework import static_graph
+    return not static_graph.enabled()
+
 
 # subpackages (and DataParallel) bound on first use, as the JAX package
 # binds them at import (`paddle_tpu/__init__.py:30-52`); importing them
@@ -65,8 +88,8 @@ __all__ = ["CheckpointError", "ParamAttr", "generator", "get_rng_state",
 _LAZY = {name: (f"paddle_tpu_torch.{name}", None) for name in (
     "amp", "callbacks", "device", "distributed", "dtypes", "framework",
     "hapi", "inference", "io", "jit", "metric", "nn", "observability",
-    "ops", "optimizer", "regularizer", "resilience", "serving", "text",
-    "vision")}
+    "ops", "optimizer", "regularizer", "resilience", "serving", "static",
+    "text", "vision")}
 _LAZY["DataParallel"] = ("paddle_tpu_torch.distributed", "DataParallel")
 _LAZY["Model"] = ("paddle_tpu_torch.hapi", "Model")
 _LAZY["save"] = ("paddle_tpu_torch.jit", "save")

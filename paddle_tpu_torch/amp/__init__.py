@@ -67,7 +67,19 @@ __all__ = ["AmpScaler", "GradScaler", "amp_guard", "amp_state",
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
            "float32": torch.float32}
 
-_tls = threading.local()
+class _ThreadState(threading.local):
+    """Each thread's `auto_cast` state, every attribute set when the
+    thread first reads it, so a graph compiled by `torch.compile` (whose
+    guards check the attributes it read) sees the same state on every
+    call."""
+
+    def __init__(self):
+        self.suspended = 0
+        self.state = None
+        self.mode_on = False
+
+
+_tls = _ThreadState()
 
 
 def _dtype(d):

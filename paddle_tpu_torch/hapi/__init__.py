@@ -30,6 +30,7 @@ import torch
 from .. import io as _io
 from ..device import resolve_device
 from ..metric import Metric
+from ..tensor import Tensor  # noqa: F401  (the reference's name)
 from . import callbacks as callbacks_mod  # noqa: F401  (re-exported)
 from .callbacks import (Callback, CallbackList,  # noqa: F401
                         MetricsLogger, ModelCheckpoint, ProgBarLogger,

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
+from ..tensor import Tensor  # noqa: F401  (the reference's name)
 from . import native, shm_loader
 from .shm_loader import ShmWorkerPool, WorkerInfo, get_worker_info
 

@@ -7,16 +7,22 @@ queue-depth gauge and batch-wait histogram, `span` blocks), and can
 retarget the registry every instrument writes to.  The serving tier's
 and the collectives' counters count whether it is on or not, as they
 did before the switch was ported.  `hapi.callbacks.MetricsLogger`
-drives it from `Model.fit`.  The JAX package's compile tracker and
-dispatch counters have no counterpart in an eager port.
+drives it from `Model.fit`.  `compile_tracker` records what
+`torch.compile` compiles for `jit.to_static` and the static `Executor`
+(causes, wall time, graph breaks) whether telemetry is on or not.  The
+JAX package's op-dispatch counters have no counterpart: the port calls
+torch directly, so `dispatch_stats()` reports the hand kernels' launch
+counts (the Pallas-override hits' counterpart) and no op or cast counts.
 """
 from __future__ import annotations
 
-from . import metrics, trace
+from . import compile_tracker, metrics, trace
+from .compile_tracker import RecompileWarning
 from .metrics import MetricsRegistry, registry
 from .trace import chrome_trace, export_chrome_trace, span
 
-__all__ = ["MetricsRegistry", "chrome_trace", "disable", "enable",
+__all__ = ["MetricsRegistry", "RecompileWarning", "chrome_trace",
+           "compile_tracker", "disable", "dispatch_stats", "enable",
            "enabled", "export_chrome_trace", "metrics", "registry", "reset",
            "span", "trace"]
 
@@ -28,12 +34,13 @@ def enabled() -> bool:
 
 
 def enable(registry_=None, warn_after=None):
-    """Switch telemetry on; `registry_` retargets the active registry.
-    `warn_after` (the reference's recompile-warning threshold) has
-    nothing to configure in the eager port."""
+    """Switch telemetry on; `registry_` retargets the active registry,
+    `warn_after` the compile tracker's recompile-warning threshold."""
     global _enabled
     if registry_ is not None:
         metrics.set_registry(registry_)
+    if warn_after is not None:
+        compile_tracker.set_warn_after(warn_after)
     _enabled = True
 
 
@@ -46,8 +53,19 @@ def disable():
     _enabled = False
 
 
+def dispatch_stats():
+    """{'ops': {}, 'amp_casts': {}, 'pallas_hits': {kernel: launches}}:
+    the reference's keys; the hand kernels' nonzero launch counters stand
+    for its Pallas-override hits."""
+    from ..ops import launch_counts
+    hits = {k: v for k, v in launch_counts().items()
+            if v and k != "sdpa_plain"}
+    return {"ops": {}, "amp_casts": {}, "pallas_hits": hits}
+
+
 def reset():
-    """Clear the active registry and the trace buffer; the on / off state
-    is kept."""
+    """Clear the active registry, the trace buffer and the compile
+    tracker; the on / off state is kept."""
     metrics.registry().reset()
     trace.clear()
+    compile_tracker.reset()

@@ -18,7 +18,8 @@ Counterpart: `paddle_tpu/ops/pallas/__init__.py`, which overrides the
   causal) runs the flash-attention kernels, which launch or raise, as
   `sdpa_with_flash` (`:44-55`) sends such calls to Pallas.  A CUDA call
   outside the gate runs the plain version, as the JAX package sends it to
-  XLA, and adds 1 to `sdpa.plain_calls`.  CPU tensors run the plain
+  XLA, and adds 1 to `sdpa.plain_calls` (also in a graph compiled by
+  `torch.compile`, each time the graph runs).  CPU tensors run the plain
   version.
 * `paged_write`, `dyn_update_seq`, `rms_norm` and the ResNet stem
   (`s2d_stem_conv`, `s2d_stem_conv_nhwc`) — plain on every device, as in
@@ -105,12 +106,39 @@ def _sdpa(q, k, v, mask, is_causal, scale, sliding_window, _mask_needs_grad):
             return _flash.flash_attention(q, k, v, mask=mask,
                                           is_causal=is_causal, scale=scale,
                                           window=sliding_window)
-        sdpa.plain_calls += 1
+        _count_plain_call()
     return nn_kernels.sdpa(q, k, v, mask=mask, is_causal=is_causal,
                            scale=scale, sliding_window=sliding_window)
 
 
 sdpa.plain_calls = 0
+
+
+def _count_plain_call():
+    """Add 1 to `sdpa.plain_calls`: at once in an eager call; in a traced
+    one (`torch.compile`) through the operator below, which the compiled
+    graph keeps as a node, so each run of the graph counts its calls (an
+    attribute store under Dynamo would run once, at trace time)."""
+    if torch.compiler.is_compiling():
+        count_plain_op(_PLAIN_TOKEN)
+    else:
+        sdpa.plain_calls += 1
+
+
+# the operator's declared mutation of this token keeps its node in a
+# compiled graph (an operator without effects would be removed)
+_PLAIN_TOKEN = torch.zeros((), dtype=torch.int32)
+
+
+@torch.library.custom_op("paddle_tpu_torch::count_plain_sdpa",
+                         mutates_args=("token",))
+def count_plain_op(token: torch.Tensor) -> None:
+    sdpa.plain_calls += 1
+
+
+@count_plain_op.register_fake
+def _count_plain_op_fake(token):
+    return None
 
 
 def _counters():

@@ -1,7 +1,9 @@
 """Flash attention: four families of hand-written CUDA kernels, their
 wrappers, their plain PyTorch versions, and the operator that joins them
-(`paddle_tpu_torch::flash_fwd`, a `torch.library` custom op with its
-backward registered, so `torch.export` keeps the forward as one node).
+(`paddle_tpu_torch::flash_fwd`, a `torch.library` custom op whose
+registered backward is the operator `paddle_tpu_torch::flash_bwd`, so
+`torch.export` keeps the forward as one node and a graph compiled by
+`torch.compile` runs the hand kernels in both directions).
 
 Counterpart: `paddle_tpu/ops/pallas/flash_attention.py` — the Pallas TPU
 kernels `_fwd_kernel` (`:84`), `_dkv_kernel` (`:262`) and `_dq_kernel`
@@ -652,13 +654,41 @@ def _flash_fwd_op_setup(ctx, inputs, output):
 
 
 def _flash_fwd_op_backward(ctx, do, _dlse):
-    """delta in plain torch ops, then the dK/dV and dQ kernels (CUDA) or
-    their plain version (CPU).  Masks are inputs, not trained parameters:
-    their gradient is None (callers with a mask that needs one take the
-    plain path, as `ops.sdpa` routes them)."""
+    """The backward operator `flash_bwd_op`: the dK/dV and dQ kernels
+    (CUDA) or their plain version (CPU).  Masks are inputs, not trained
+    parameters: their gradient is None (callers with a mask that needs
+    one take the plain path, as `ops.sdpa` routes them)."""
     q, k, v, m4, o, lse = ctx.saved_tensors
-    dq, dk, dv = _backward(q, k, v, o, lse, do, m4, *ctx.args)
+    dq, dk, dv = flash_bwd_op(q, k, v, o, lse, do, m4, *ctx.args)
     return dq, dk, dv, None, None, None, None
+
+
+@torch.library.custom_op(
+    "paddle_tpu_torch::flash_bwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, Tensor do, "
+           "Tensor? mask, bool is_causal, float scale, int window) -> "
+           "(Tensor, Tensor, Tensor)")
+def flash_bwd_op(q, k, v, o, lse, do, mask, is_causal, scale, window):
+    """The flash backward as one operator -> (dq, dk, dv) in the input
+    dtypes, given the forward's o and lse, the output gradient `do` and a
+    mask as `_normalize_mask` leaves it.  The forward operator's
+    registered backward calls it, so a traced backward (AOTAutograd under
+    `torch.compile`, which runs the backward on fake tensors) keeps it as
+    one node and the compiled graph launches the kernels: CPU tensors take
+    `flash_bwd_plain`, CUDA tensors `flash_bwd_cuda` (the dK/dV kernel,
+    then the dQ kernel, each counted where it launches)."""
+    return tuple(g.contiguous() for g in _backward(
+        q, k, v, o, lse, do, mask, is_causal, scale, window))
+
+
+@flash_bwd_op.register_kernel("cuda")
+def _flash_bwd_op_cuda(q, k, v, o, lse, do, mask, is_causal, scale, window):
+    return _backward(q, k, v, o, lse, do, mask, is_causal, scale, window)
+
+
+@flash_bwd_op.register_fake
+def _flash_bwd_op_fake(q, k, v, o, lse, do, mask, is_causal, scale, window):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
 
 
 flash_fwd_op.register_autograd(_flash_fwd_op_backward,

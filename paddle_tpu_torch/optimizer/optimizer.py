@@ -248,8 +248,14 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
-        """loss.backward(), then step() and clear_grad(); the other
-        arguments are the static graph's, which the port does not have."""
+        """loss.backward(), then step() and clear_grad(); in static mode
+        (`enable_static`), register the training op of the current
+        Program instead (`static_graph.register_minimize`), which each
+        `Executor.run` replays.  The other arguments are taken and
+        ignored."""
+        from ..framework import static_graph
+        if static_graph.enabled():
+            return static_graph.register_minimize(self, loss)
         loss.backward()
         self.step()
         self.clear_grad()

@@ -9,9 +9,9 @@ with per-row eos padding.  `shape_buckets` (or
 ``PADDLE_TPU_SHAPE_BUCKETS``) pads the prompt to a bucket and decodes
 over the preallocated caches instead, with identical tokens: the length
 mask `cols <= pos + row` hides the padded slots, and each decode write
-lands on the next slot before the mask first admits it.  The port has no
-compile tracker, so "auto" resolves to no bucketing, which is what the
-JAX package gives before its tracker records any shape-change event.
+lands on the next slot before the mask first admits it.  "auto" arms
+bucketing once the compile tracker has recorded shape-change recompiles
+of the model (its `jit.to_static` compiles), as in the JAX package.
 
 Sampling draws from an explicit `torch.Generator` (None: the device's
 default generator) by the Gumbel-max rule, as `jax.random.categorical`
@@ -64,14 +64,26 @@ class BucketPolicy:
         return cls(buckets=[int(p) for p in s.split(",") if p.strip()])
 
 
+def _tracker_wants_buckets(model):
+    """The "auto" signal: has the compile tracker recorded at least two
+    shape-change recompiles of this model, or of a `to_static` wrapping
+    it (the event's owner, or the Layer its owner wraps)?"""
+    from ..observability import compile_tracker as _ct
+
+    def ours(owner):
+        return owner is model or getattr(owner, "layer", None) is model
+    return sum(1 for e in _ct.events()
+               if "shape" in e.cause and ours(e.owner)) >= 2
+
+
 def _resolve_bucket_policy(shape_buckets, model):
     """The active BucketPolicy for this generate() call, or None.
 
     An explicit argument wins; unset falls back to
     PADDLE_TPU_SHAPE_BUCKETS.  "auto" (argument or environment) arms
-    bucketing in the JAX package once its compile tracker has recorded
-    shape-change recompiles for the model; the port has no tracker, so
-    "auto" gives None."""
+    bucketing once the compile tracker has recorded shape-change
+    recompiles for the model (`_tracker_wants_buckets`), before that it
+    gives None."""
     spec = shape_buckets
     if spec is None:
         spec = os.environ.get("PADDLE_TPU_SHAPE_BUCKETS") or None
@@ -80,7 +92,7 @@ def _resolve_bucket_policy(shape_buckets, model):
     if isinstance(spec, (list, tuple)):
         return BucketPolicy(buckets=spec)
     if isinstance(spec, str) and spec.strip().lower() == "auto":
-        return None
+        return BucketPolicy() if _tracker_wants_buckets(model) else None
     return BucketPolicy.from_spec(spec)
 
 

@@ -198,9 +198,18 @@ def test_bucketed_generate_equals_eager(pair, greedy_ref, spec):
     np.testing.assert_array_equal(with_eos.numpy(), plain.numpy())
 
 
+class Wrapper:
+    """Stands for a `to_static` of `layer` as the compile tracker's owner."""
+
+    def __init__(self, layer):
+        self.layer = layer
+
+
 def test_bucket_policy_resolution(pair, monkeypatch):
+    from paddle_tpu_torch.observability import compile_tracker as ct
     _, tm = pair
-    # no compile tracker in the port: "auto" is no bucketing
+    ct.reset()
+    # no shape-change recompile recorded yet: "auto" is no bucketing
     assert _resolve_bucket_policy("auto", tm) is None
     assert _resolve_bucket_policy("off", tm) is None
     assert _resolve_bucket_policy(None, tm) is None
@@ -208,6 +217,25 @@ def test_bucket_policy_resolution(pair, monkeypatch):
     assert _resolve_bucket_policy(None, tm).buckets == [16, 64]
     monkeypatch.setenv("PADDLE_TPU_SHAPE_BUCKETS", "auto")
     assert _resolve_bucket_policy(None, tm) is None
+    # two shape-change recompiles of a compiled entry wrapping the model
+    # arm it, as the JAX package's tracker does; those of another model
+    # under the same label do not
+    label = f"to_static({type(tm).__name__})"
+    other, wrapper = Wrapper(object()), Wrapper(tm)
+
+    def recompile(owner):
+        for n in (4, 5, 6):
+            tok = ct.on_call(label, ct.signature_of([torch.zeros(1, n)]),
+                             owner=owner)
+            ct.finish(tok)
+    try:
+        recompile(other)
+        assert _resolve_bucket_policy("auto", tm) is None
+        recompile(wrapper)
+        assert isinstance(_resolve_bucket_policy(None, tm), BucketPolicy)
+        assert isinstance(_resolve_bucket_policy("auto", tm), BucketPolicy)
+    finally:
+        ct.reset()
 
 
 def test_bucketed_past_position_table_warns_and_matches(pair,

@@ -3,8 +3,8 @@
 An AST scan shows that no module of `paddle_tpu_torch/`, and not
 `chip_smoke.py` and not a `tools/torch_*.py` script, imports `jax`,
 `paddle_tpu` or `paddle`; a fresh interpreter importing the whole port
-(the training, serving-tier, AOT, incubate and high-level API modules
-included) loads none of them,
+(the training, serving-tier, AOT, incubate, high-level API and
+compile-path modules included) loads none of them,
 and neither does a serving worker process after it has served, nor a
 rank the distributed launcher started after its collectives, nor a
 DataLoader worker process (`test_torch_io.py`); and the port's entry
@@ -113,7 +113,18 @@ def test_no_port_module_imports_jax_or_the_jax_package():
             "paddle_tpu_torch/vision/datasets.py",
             "paddle_tpu_torch/vision/transforms.py",
             "tools/torch_hapi_probe.py",
-            "tools/torch_loader_probe.py"} <= rel
+            "tools/torch_loader_probe.py",
+            "paddle_tpu_torch/jit/dy2static.py",
+            "paddle_tpu_torch/observability/compile_tracker.py",
+            "paddle_tpu_torch/framework/static_graph.py",
+            "paddle_tpu_torch/framework/flags.py",
+            "paddle_tpu_torch/static/__init__.py",
+            "paddle_tpu_torch/autograd/__init__.py",
+            "paddle_tpu_torch/autograd/functional.py",
+            "paddle_tpu_torch/autograd/py_layer.py",
+            "paddle_tpu_torch/tensor.py",
+            "paddle_tpu_torch/base.py",
+            "tools/torch_compile_probe.py"} <= rel
     bad = {os.path.relpath(p, REPO): sorted(set(_imported_roots(p))
                                             & FORBIDDEN)
            for p in files}
@@ -171,7 +182,14 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.io.native.imgproc, paddle_tpu_torch.hapi, "
             "paddle_tpu_torch.hapi.callbacks, "
             "paddle_tpu_torch.vision.datasets, "
-            "paddle_tpu_torch.vision.transforms\n"
+            "paddle_tpu_torch.vision.transforms, "
+            "paddle_tpu_torch.jit.dy2static, "
+            "paddle_tpu_torch.observability.compile_tracker, "
+            "paddle_tpu_torch.framework.static_graph, "
+            "paddle_tpu_torch.framework.flags, paddle_tpu_torch.static, "
+            "paddle_tpu_torch.autograd, paddle_tpu_torch.autograd.functional, "
+            "paddle_tpu_torch.autograd.py_layer, paddle_tpu_torch.tensor, "
+            "paddle_tpu_torch.base, paddle_tpu_torch.fluid\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN | {'transformers'})!r})\n"
             "assert not bad, bad\n")

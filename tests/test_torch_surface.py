@@ -28,10 +28,8 @@ QUEUE_ITEMS = {"A11", "A13a", "A13b", "jax"}
 # (module, queue item): names not ported yet
 LEFT_OUT = {
     ("__init__.py", "A13b"): (
-        "Tensor audio autograd base checkpoint disable_static "
-        "distribution enable_static fft fluid geometric grad hub "
-        "in_dynamic_mode linalg onnx parameter profiler quantization "
-        "signal sparse static sysconfig utils version"
+        "audio checkpoint distribution fft geometric hub linalg onnx "
+        "profiler quantization signal sparse sysconfig utils version"
     ),
     # JAX's own 64-bit switch: the port keeps torch's real 64-bit types
     ("__init__.py", "jax"): "enable_x64 x64_enabled",
@@ -44,22 +42,18 @@ LEFT_OUT = {
     ("dtypes.py", "jax"): "enable_x64 x64_enabled",
     ("distributed/mesh.py", "jax"): "replicated sharding",
     ("distributed/ring_attention.py", "jax"): "make_ring_flash_local",
-    ("framework/__init__.py", "A13b"): "flags",
     ("framework/checkpoint.py", "A11"): "load_state(resharder)",
     ("framework/random.py", "jax"): "default_key key_context next_key",
-    ("hapi/__init__.py", "A13b"): "Tensor",
-    ("io/__init__.py", "A13b"): "Tensor",
-    ("jit/__init__.py", "A13b"): (
-        "FB Layer StaticFunction Tensor compile_cache "
-        "convert_to_static dy2static enable_to_static engine "
-        "not_to_static to_static"
-    ),
+    ("jit/__init__.py", "A13b"): "compile_cache",
+    # the functional bridge and the tape engine are JAX machinery: Dynamo
+    # and torch's autograd take their places
+    ("jit/__init__.py", "jax"): "FB engine",
     ("jit/save_load.py", "jax"): (
         "TranslatedLayer(exported,params,buffers,aot_exec)"
     ),
-    ("observability/__init__.py", "A13b"): (
-        "RecompileWarning compile_tracker dispatch_stats"
-    ),
+    # jax.jit's lowering / compile split: torch.compile compiles in the
+    # first call
+    ("observability/compile_tracker.py", "jax"): "aot_profile",
     ("ops/__init__.py", "jax"): (
         "call call_raw dispatch kernels override pallas register"
     ),
