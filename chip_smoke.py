@@ -118,7 +118,7 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    port on the CPU (through the plain versions), same
                    weights and batch: loss series and final parameters
                    (float32 runs the fp32 forward, dK/dV and dQ);
-8. generate      — Mistral-7B (full width, 8 of its 32 layers:
+8. generate      — Mistral-7B (full width, 4 of its 32 layers:
                    GENERATE_LAYERS, bf16, random weights
                    from a seed), batch 4, 512-token prompts, 64 greedy
                    tokens: `generate(use_jit=True)` (the decode step
@@ -167,7 +167,7 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    all on sm90, and sdpa its plain path no time;
 14. train_llama_e2e — 2 layers, hidden 512, GQA 4/2, recompute, float32,
                    AdamW, 3 steps: card against CPU (losses, parameters);
-15. lora         — LLaMA-7B (full width, 8 of its 32 layers:
+15. lora         — LLaMA-7B (full width, 4 of its 32 layers:
                    LORA_LAYERS, bf16) with LoRA r 16 / alpha 32
                    on q/k/v/o, AdamW(1e-4) with float32 masters of the
                    adapters only, seq 1024, batch 4, recompute: tokens/s,
@@ -177,7 +177,7 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    merge() -> jit_generate, in bf16 (the program rebuilt,
                    equal to the uncaptured step) and in float32 (tokens
                    identical before and after the merge);
-16. weight_only  — Mistral-7B (the generate phase's shape at 8 of its 32
+16. weight_only  — Mistral-7B (the generate phase's shape at 4 of its 32
                    layers: WEIGHT_ONLY_LAYERS) in bf16, then
                    converted to weight-only int8 and int4 (lm_head kept):
                    captured generate of each, tokens/s, step p50/p99,
@@ -345,7 +345,29 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    within TO_STATIC_LOSS_TOL of the eager ones and the
                    first step's gradients within TO_STATIC_GRAD_TOL of
                    the eager copy's; compile seconds, compiled and eager
-                   step p50;
+                   step p50; the persistent compile cache (jit.
+                   compile_cache) configured in a fresh directory, so
+                   the compile publishes: publish seconds and the
+                   store's bytes beside the compile seconds;
+34a. compile_cache — the restart: a fresh interpreter (`chip_smoke.py
+                   --cache-warm STORE SETTINGS`, under 34's torch
+                   settings) with Inductor's and Triton's caches of its
+                   own, empty, builds the same model from
+                   the same seed, wraps it in to_static against 34's
+                   store and takes 3 steps on the same batch: 0 Inductor
+                   compiles (FX-graph cache misses and bypasses 0, the
+                   AOTAutograd cache's hits beside them), a store hit for
+                   each graph (forward and backward) and 0 misses, 0
+                   tracker compiles and a "persistent cache hit" event,
+                   the sm90 forward, dK/dV and dQ 6 x 3 times each inside
+                   the loaded graphs, no plain sdpa, the first loss equal
+                   to 34's in every bit and the others within
+                   TO_STATIC_LOSS_TOL; the warm wall from to_static to
+                   the first step's end beside 34's compile seconds, with
+                   the share of it that Dynamo's trace takes; then, in
+                   this process, one entry damaged by
+                   chaos.corrupt_cache_entry reads as a miss and moves to
+                   quarantine/;
 35. dy2static    — a Layer's tensor if (torch.cond), a bounded while with
                    its gradient (while_max_iters) and an unbounded
                    forward-only while (while_loop), compiled, each against
@@ -371,14 +393,16 @@ backward through autograd (fp32, sm80, SDPA, SDPA, sm80, fp32).
 
 The kernels line counts the flash launches of phases 4a, 5b-5c, 6-10
 (6a's fleet step and ring),
-13-16, 19-32 and 34 (bert_resume's: its first unbroken run; ernie_infer's
+13-16, 19-32, 34 and 34a (bert_resume's: its first unbroken run;
+34a's read from the restarted process's report; ernie_infer's
 exported and AOT runs; the worker processes' read from their metrics,
 the killed workers' lost with them); the sm80 forward, dK/dV and dQ
 launch on none of them (asserted, `on_main_paths: false`).  The paged
 kernel's launches are serve's, serve_aot's, serve_aot_e2e's,
 serve_llama's, the workers' of 5b-5c, moe_serve's and moe_e2e's.
 The phases run in this order: 1, 1a's start, 2, 3, 5, 6-7, 8, 9, 10,
-13-22, 24-36 (beside 1a's compiles), 1a's wait, 4, 4a, 5a, 5b, 5c, 23,
+13-22, 24-34, 34a, 35, 36 (beside 1a's compiles), 1a's wait, 4, 4a,
+5a, 5b, 5c, 23,
 11, 12.  Each phase prints one JSON line.  Then a phase_seconds line
 (each phase's wall seconds, the build and the wait for the compiles
 included), one {"kernels": [...]} line, the
@@ -2135,6 +2159,10 @@ def phase_fleet(train_losses, steps=FLEET_STEPS, batch=4, seq=1024):
                 for n, a, b in zip(("o", "dq", "dk", "dv"), got, ref)}
     ring_equal = all(torch.equal(a, b) for a, b in zip(got, ref))
     dist.destroy_process_group()
+    # the mesh over the destroyed group goes with it: a later compile
+    # would key its graphs to a topology that no longer exists
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    mesh_mod.clear_mesh()
     emit({"phase": "fleet", "model": "gpt3-1.3B", "layers": cfg.num_layers,
           "seq": seq, "batch": batch, "dtype": "bfloat16",
           "optimizer": "Adafactor(1e-4)", "world_size": 1,
@@ -3300,13 +3328,14 @@ def phase_weight_only(batch=4, prompt=512, new=64, layers=None):
 
 
 # the depth lora, weight_only and generate run at in the whole script:
-# 8 of the 7B presets' 32 layers, and router_drill 6 of GPT-3 1.3B's 24,
-# each at full width (the time they give back pays for the MT phases and
-# keeps the script well inside its limit on a slow host;
-# `tools/torch_mt_probe.py --cuts` times each at two depths)
-LORA_LAYERS = 8
-WEIGHT_ONLY_LAYERS = 8
-GENERATE_LAYERS = 8
+# 4 of the 7B presets' 32 layers (8 until the compile_cache phase came),
+# and router_drill 6 of GPT-3 1.3B's 24, each at full width (the time
+# they give back pays for the MT and compile_cache phases and keeps the
+# script inside its limit on a slow host; `tools/torch_mt_probe.py
+# --cuts` times each at two depths)
+LORA_LAYERS = 4
+WEIGHT_ONLY_LAYERS = 4
+GENERATE_LAYERS = 4
 ROUTER_DRILL_LAYERS = 6
 
 
@@ -6359,8 +6388,38 @@ def card_name_power():
     return smi.stdout.strip().splitlines()[0]
 
 
+def to_static_gpt(layers, batch, seq):
+    """to_static_train's GPT-3 1.3B (full width, `layers` of its 24) from
+    seed 0 and its batch from seed 1: the model, the config, ids and
+    labels.  34 and 34a's restarted process build the same."""
+    from paddle_tpu_torch.text import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig.from_preset("gpt3-1.3B", vocab_size=50304,
+                                max_position_embeddings=seq,
+                                hidden_dropout=0.0, attention_dropout=0.0,
+                                num_layers=layers)
+    model = GPTForCausalLM(
+        cfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
+                        device="cuda")
+    labels = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
+                           device="cuda")
+    return model, cfg, ids, labels
+
+
+def bf16_adafactor(model):
+    """(model, optimizer) in pure bf16 (O2 without master weights) with
+    Adafactor(1e-4), as to_static_train trains."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import Adafactor
+    opt = Adafactor(learning_rate=1e-4, parameters=model.parameters())
+    return amp.decorate(models=model, optimizers=opt, dtype="bfloat16",
+                        master_weight=False)
+
+
 def phase_to_static_train(layers=TO_STATIC_LAYERS, steps=10, warmup=3,
-                          batch=4, seq=1024):
+                          batch=4, seq=1024, store=None):
     """GPT-3 1.3B at full width (hidden 2048, 16 heads, D 128, vocab
     50304), seq 1024, batch 4, pure bf16 (`amp.decorate(master_weight=
     False)`), Adafactor, as `phase_train` builds it, with the model
@@ -6375,34 +6434,25 @@ def phase_to_static_train(layers=TO_STATIC_LAYERS, steps=10, warmup=3,
     TO_STATIC_LOSS_TOL of the eager ones, and the first step's gradients
     within TO_STATIC_GRAD_TOL of the eager copy's, leaf by leaf.  The
     first compiled step's wall seconds beyond the steady p50 are the
-    compile's (the forward graph's at the first call, the backward
-    graph's at the first backward)."""
+    compile's (the forward and backward graphs' at the first call: with
+    a store the backward compiles with the forward).  With `store` (a
+    directory) the persistent compile cache is on for the compiled run,
+    so its compile publishes there (publish seconds and the store's bytes
+    printed); returns the launch counts and what 34a compares with."""
     import copy
-    from paddle_tpu_torch import amp, jit, ops
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.jit import compile_cache as cc
     from paddle_tpu_torch.observability import compile_tracker as ct
-    from paddle_tpu_torch.optimizer import Adafactor
-    from paddle_tpu_torch.text import GPTConfig, GPTForCausalLM, gpt_loss_fn
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.text import gpt_loss_fn
 
     t_phase = time.perf_counter()
-    cfg = GPTConfig.from_preset("gpt3-1.3B", vocab_size=50304,
-                                max_position_embeddings=seq,
-                                hidden_dropout=0.0, attention_dropout=0.0,
-                                num_layers=layers)
-    model = GPTForCausalLM(
-        cfg, device="cuda",
-        generator=torch.Generator(device="cuda").manual_seed(0))
+    model, cfg, ids, labels = to_static_gpt(layers, batch, seq)
     eager = copy.deepcopy(model)
-    models = {}
-    for name, m in (("compiled", model), ("eager", eager)):
-        opt = Adafactor(learning_rate=1e-4, parameters=m.parameters())
-        m, opt = amp.decorate(models=m, optimizers=opt, dtype="bfloat16",
-                              master_weight=False)
-        models[name] = (m, opt)
-    g = torch.Generator(device="cuda").manual_seed(1)
-    ids = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
-                        device="cuda")
-    labels = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
-                           device="cuda")
+    models = {name: bf16_adafactor(m) for name, m in
+              (("compiled", model), ("eager", eager))}
+    cc.configure(store)
+    assert cc.mesh_fingerprint() == "", "an earlier phase left a mesh"
     st = jit.to_static(models["compiled"][0])
     named = [n for n, _ in models["compiled"][0].named_parameters()]
 
@@ -6428,6 +6478,12 @@ def phase_to_static_train(layers=TO_STATIC_LAYERS, steps=10, warmup=3,
     counts = read_counts()
     events = ct.events(st._label)
     compiles, breaks = ct.compile_count(st._label), ct.graph_breaks()
+    published = {"store_stats": cc.stats(), "store_bytes":
+                 cc.cache().total_bytes() if store else 0,
+                 "publish_s": metrics.registry().histogram(
+                     "compile_cache_publish_seconds",
+                     fn=st._fn_cache.label).sum}
+    cc.configure(None)
     eager_losses, eager_times, eager_grads = run(*models["eager"])
     n = warmup + steps
     p50 = float(np.percentile(times[warmup:], 50))
@@ -6441,6 +6497,7 @@ def phase_to_static_train(layers=TO_STATIC_LAYERS, steps=10, warmup=3,
           "optimizer": "Adafactor(1e-4)", "backend": jit._BACKEND,
           "full_graph": True, "steps": n,
           "compile_s_first_step": times[0] - p50,
+          "compile_cache": published,
           "compile_events": [{"cause": e.cause, "wall_s": e.wall_s,
                               "graphs": e.graphs,
                               "graph_breaks": e.graph_breaks}
@@ -6471,9 +6528,233 @@ def phase_to_static_train(layers=TO_STATIC_LAYERS, steps=10, warmup=3,
         f"compiled losses {losses} vs eager {eager_losses}"
     assert gaps[0][0] <= TO_STATIC_GRAD_TOL, \
         f"first-step gradients off the eager ones: {gaps[:6]}"
+    if store:
+        s = published["store_stats"]
+        assert (s["misses"], s["puts"], s["hits"]) == (1, 1, 0), published
     del st, models, model, eager
     release()
-    return flash_part(counts)
+    return flash_part(counts), {"losses": losses, "layers": layers,
+                                "steps": warmup + steps,
+                                "compile_s": times[0] - p50,
+                                "first_step_s": times[0],
+                                "settings": torch_settings()}
+
+
+def torch_settings():
+    """The process-wide torch settings an Inductor cache key reads (the
+    float32 matmul precision, reduced-precision reductions, deterministic
+    algorithms, the default dtype), as their own getters give them: a
+    restarted process applies the cold run's (`apply_torch_settings`), as
+    a restarted trainer runs its own configuration again."""
+    m, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    out = {"default_dtype": str(torch.get_default_dtype()),
+           "float32_matmul_precision": torch.get_float32_matmul_precision(),
+           "bf16_reduced": m.allow_bf16_reduced_precision_reduction,
+           "fp16_reduced": m.allow_fp16_reduced_precision_reduction,
+           "deterministic": torch.are_deterministic_algorithms_enabled(),
+           "deterministic_warn_only":
+               torch.is_deterministic_algorithms_warn_only_enabled(),
+           "fill_uninitialized_memory":
+               torch.utils.deterministic.fill_uninitialized_memory}
+    # torch with the fp32_precision API keys on it ("none" when never
+    # set), older torch on allow_tf32
+    for name, obj in (("matmul", m), ("cudnn", cudnn)):
+        if hasattr(obj, "fp32_precision"):
+            out[f"{name}_fp32_precision"] = obj.fp32_precision
+        else:
+            out[f"{name}_allow_tf32"] = obj.allow_tf32
+    return out
+
+
+def apply_torch_settings(want):
+    """Set each of `torch_settings()` that differs from `want` (setting
+    one that already matches can move another key: allow_tf32 = False
+    turns an unset fp32 precision "none" into "ieee")."""
+    m, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    have = torch_settings()
+    setters = {
+        "default_dtype": lambda v: torch.set_default_dtype(
+            getattr(torch, v.split(".")[1])),
+        "float32_matmul_precision": torch.set_float32_matmul_precision,
+        "bf16_reduced": lambda v: setattr(
+            m, "allow_bf16_reduced_precision_reduction", v),
+        "fp16_reduced": lambda v: setattr(
+            m, "allow_fp16_reduced_precision_reduction", v),
+        "fill_uninitialized_memory": lambda v: setattr(
+            torch.utils.deterministic, "fill_uninitialized_memory", v),
+        "matmul_fp32_precision": lambda v: setattr(m, "fp32_precision", v),
+        "cudnn_fp32_precision": lambda v: setattr(cudnn, "fp32_precision",
+                                                  v),
+        "matmul_allow_tf32": lambda v: setattr(m, "allow_tf32", v),
+        "cudnn_allow_tf32": lambda v: setattr(cudnn, "allow_tf32", v)}
+    if (want["deterministic"], want["deterministic_warn_only"]) != \
+            (have["deterministic"], have["deterministic_warn_only"]):
+        torch.use_deterministic_algorithms(
+            want["deterministic"], warn_only=want["deterministic_warn_only"])
+    for k, v in want.items():
+        if k in setters and torch_settings()[k] != v:
+            setters[k](v)
+    assert torch_settings() == want, (torch_settings(), want)
+
+
+def cache_warm(store, settings, steps=3, layers=TO_STATIC_LAYERS, batch=4,
+               seq=1024):
+    """`chip_smoke.py --cache-warm STORE SETTINGS`: 34a's restarted process
+    (its Inductor and Triton caches are the parent's choice, empty), under
+    the cold run's torch settings (SETTINGS, JSON).  Builds
+    to_static_train's model and batch, wraps the model in to_static
+    against STORE and takes `steps` steps.  Prints one JSON line: the
+    losses, the wall from to_static to the first step's end, Dynamo's
+    share of it (`torch._dynamo.utils.compilation_time_metrics`: the
+    compile minus the backend's call, which loads from the caches), the
+    backend's once-a-process costs (importing Inductor, hashing torch's
+    sources for the cache keys), the
+    store's stats, Inductor's FX-graph and AOTAutograd cache counters,
+    the compile tracker's compiles and causes, and the launch counts."""
+    from torch._dynamo.utils import compilation_time_metrics, counters
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.jit import compile_cache as cc
+    from paddle_tpu_torch.observability import compile_tracker as ct
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.text import gpt_loss_fn
+
+    t_start = time.perf_counter()
+    # the interpreter's start and imports (torch, the port) before this
+    started = time.time() - float(os.environ.get("CHIP_SMOKE_SPAWNED_AT",
+                                                 time.time()))
+    apply_torch_settings(json.loads(settings))
+    model, _, ids, labels = to_static_gpt(layers, batch, seq)
+    model, opt = bf16_adafactor(model)
+    cc.configure(store)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    st = jit.to_static(model)
+    losses, first_s = [], None
+    for _ in range(steps):
+        loss = gpt_loss_fn(st, ids, labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())      # waits for the card
+        if first_s is None:
+            first_s = time.perf_counter() - t0
+    counts = read_counts()
+    def took(name):
+        return sum(compilation_time_metrics.get(name, []))
+
+    compile_s = took("_compile.compile_inner")
+    backend_s = took("OutputGraph.call_user_compiler")
+    print(json.dumps({
+        "losses": losses, "warm_first_step_s": first_s,
+        "dynamo_s": compile_s - backend_s, "backend_s": backend_s,
+        # once a process, whatever the cache: importing Inductor and
+        # hashing torch's sources for its cache keys
+        "inductor_import_s": took("inductor_import"),
+        "torch_key_s": took("inductor_codecache_torch_key"),
+        "load_s": metrics.registry().histogram(
+            "compile_cache_load_seconds", fn=st._fn_cache.label).sum,
+        "store_stats": cc.stats(),
+        "inductor": {k: v for k, v in counters["inductor"].items()
+                     if k.startswith("fxgraph_cache")},
+        "aot_autograd": {k: v for k, v in counters["aot_autograd"].items()
+                         if k.startswith("autograd_cache")},
+        "tracker_compiles": ct.compile_count(st._label),
+        "causes": [e.cause for e in ct.events(st._label)],
+        "flash_launches": flash_part(counts),
+        "sdpa_plain_calls": counts["sdpa_plain"],
+        "start_s": started,
+        "process_s": time.perf_counter() - t_start}), flush=True)
+    return 0
+
+
+def phase_compile_cache(store, cold):
+    """34a: to_static_train restarted in a fresh interpreter on its store
+    (`cache_warm`), with Inductor's and Triton's cache directories of its
+    own, empty, so that what it does not compile came from the store.
+    Gates (each printed): 0 Inductor compiles (FX-graph cache misses and
+    bypasses 0), a store hit with one graph a hit for the forward and the
+    backward and 0 misses, 0 tracker compiles and a "persistent cache
+    hit" event, the sm90 forward, dK/dV and dQ layers x steps times each,
+    0 plain sdpa, the first loss equal to the cold run's in every bit and
+    the others within TO_STATIC_LOSS_TOL (the embedding backward sums
+    with atomics); then one entry damaged by `chaos.corrupt_cache_entry`
+    reads as a miss here and moves to quarantine/.  Returns the restarted
+    process's flash launch counts."""
+    import tempfile
+    from paddle_tpu_torch.jit import compile_cache as cc
+    from paddle_tpu_torch.resilience import chaos
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="warm_caches_") as caches:
+        env = dict(os.environ,
+                   TORCHINDUCTOR_CACHE_DIR=os.path.join(caches, "inductor"),
+                   TRITON_CACHE_DIR=os.path.join(caches, "triton"),
+                   CHIP_SMOKE_SPAWNED_AT=repr(time.time()))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--cache-warm",
+             store, json.dumps(cold["settings"])], capture_output=True,
+            text=True, timeout=600, env=env)
+        child_s = time.perf_counter() - t0
+    assert proc.returncode == 0, \
+        f"cache-warm exited {proc.returncode}: {proc.stderr[-4000:]}"
+    warm = json.loads(proc.stdout.strip().splitlines()[-1])
+    n = len(warm["losses"])
+    s, fx, aot = warm["store_stats"], warm["inductor"], warm["aot_autograd"]
+    inductor_compiles = fx.get("fxgraph_cache_miss", 0) + \
+        fx.get("fxgraph_cache_bypass", 0)
+    first_equal = warm["losses"][0] == cold["losses"][0]
+    loss_diff = max(abs(a - b) for a, b in zip(warm["losses"],
+                                               cold["losses"]))
+    # the damaged entry: a miss in this process, moved to quarantine/
+    entries = [f for f in os.listdir(store) if f.endswith(".ccx")]
+    victim = chaos.corrupt_cache_entry(store, mode="flip")
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", cc.CacheUnavailableWarning)
+        reread = cc.CompileCache(store).get(
+            os.path.basename(victim)[:-len(".ccx")])
+    quarantined = os.listdir(os.path.join(store, "quarantine"))
+    want = cold["layers"] * n
+    fl = warm["flash_launches"]
+    emit({"phase": "compile_cache", "model": "gpt3-1.3B",
+          "layers": cold["layers"], "steps": n,
+          "cold_compile_s": cold["compile_s"],
+          "cold_first_step_s": cold["first_step_s"],
+          "warm_first_step_s": warm["warm_first_step_s"],
+          "warm_dynamo_s": warm["dynamo_s"],
+          "warm_dynamo_share": warm["dynamo_s"] / warm["warm_first_step_s"],
+          "warm_backend_s": warm["backend_s"], "warm_load_s": warm["load_s"],
+          "warm_inductor_import_s": warm["inductor_import_s"],
+          "warm_torch_key_s": warm["torch_key_s"],
+          "warm_start_s": warm["start_s"],
+          "warm_process_s": warm["process_s"], "child_wall_s": child_s,
+          "inductor_compiles": inductor_compiles, "fxgraph": fx,
+          "aot_autograd": aot, "store_stats": s,
+          "tracker_compiles": warm["tracker_compiles"],
+          "tracker_causes": warm["causes"],
+          "flash_launches": fl, "want_launches": want,
+          "sdpa_plain_calls": warm["sdpa_plain_calls"],
+          "losses": warm["losses"], "cold_losses": cold["losses"][:n],
+          "first_loss_bit_equal": first_equal, "max_loss_diff": loss_diff,
+          "loss_tol": TO_STATIC_LOSS_TOL, "store_entries": len(entries),
+          "corrupt_reread_is_miss": reread is None,
+          "quarantined": quarantined, "card": card_name_power(),
+          "phase_seconds": time.perf_counter() - t_phase})
+    assert inductor_compiles == 0, f"the restart compiled: {fx}"
+    assert (s["hits"], s["misses"]) == (1, 0) and s["hit_graphs"] == 2, \
+        f"store: {s}"
+    assert fx.get("fxgraph_cache_hit", 0) == 2, fx
+    assert warm["tracker_compiles"] == 0 and \
+        "persistent cache hit" in warm["causes"], warm["causes"]
+    assert fl["fwd_sm90"] == fl["dkv_sm90"] == fl["dq_sm90"] == want, \
+        f"sm90 launches {fl}, want {want} of each kernel"
+    assert warm["sdpa_plain_calls"] == 0, warm["sdpa_plain_calls"]
+    assert first_equal, (warm["losses"][0], cold["losses"][0])
+    assert loss_diff <= TO_STATIC_LOSS_TOL, (warm["losses"], cold["losses"])
+    assert reread is None and len(quarantined) == 1, quarantined
+    return fl
 
 
 class _Gate(torch.nn.Module):
@@ -6670,6 +6951,8 @@ def main():
         return 1
     if sys.argv[1:2] == ["--aot-export"]:
         return aot_export(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--cache-warm"]:
+        return cache_warm(*sys.argv[2:4])
     timed("build", phase_build)
     started = start_aot_compile()
     try:
@@ -6740,8 +7023,12 @@ def run_phases(started):
     timed("hapi_resnet", phase_hapi_resnet)
     # Inductor's compiles, last before the wait: the AOT jobs are done
     # by now (or at nice 19), so the compiles meet the least contention
-    paths["to_static_train"] = timed("to_static_train",
-                                     phase_to_static_train)
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="compile_store_") as store:
+        paths["to_static_train"], cold = timed(
+            "to_static_train", phase_to_static_train, store=store)
+        paths["compile_cache"] = timed("compile_cache", phase_compile_cache,
+                                       store, cold)
     timed("dy2static", phase_dy2static)
     timed("static_graph", phase_static_graph)
     aot = timed("aot_compile", finish_aot_compile, started)

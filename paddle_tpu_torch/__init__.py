@@ -64,6 +64,8 @@ from .framework.static_graph import (disable_static,  # noqa: F401
 from .autograd import grad  # noqa: F401
 from .tensor import Tensor, parameter  # noqa: F401
 
+__version__ = "0.1.0"
+
 fluid = base  # legacy namespace alias (paddle.fluid)
 # a real module entry, so `import paddle_tpu_torch.fluid` and
 # `from paddle_tpu_torch.fluid import layers` work

@@ -21,11 +21,13 @@ PT_RESTART_COUNT.  It watches them:
 - with `--elastic`, a worker past its budget is dropped and the
   survivors restart in a world one smaller.
 
-`--cache_dir` becomes TORCHINDUCTOR_CACHE_DIR for every worker: the
-Inductor cache is the port's counterpart of the JAX package's
-persistent compile cache, so a restarted worker reuses what its
-predecessor compiled.  `--devices` is taken for the reference's command
-line and unused: each worker takes the card of its LOCAL_RANK.
+`--cache_dir` is exported as PADDLE_TPU_CACHE_DIR to every worker, as
+the reference does: the persistent compile cache (`jit.compile_cache`)
+that the first rank to compile a program publishes to and a restarted
+worker warm-starts from; Inductor's own cache goes under it
+(TORCHINDUCTOR_CACHE_DIR = `<cache_dir>/inductor`).  `--devices` is
+taken for the reference's command line and unused: each worker takes
+the card of its LOCAL_RANK.
 """
 from __future__ import annotations
 
@@ -55,8 +57,9 @@ def _parse_args(argv):
     p.add_argument("--log_dir", default=None,
                    help="per-rank stdout/stderr capture directory")
     p.add_argument("--cache_dir", default=None,
-                   help="shared Inductor cache directory "
-                        "(TORCHINDUCTOR_CACHE_DIR of every worker)")
+                   help="shared persistent compile-cache directory "
+                        "(PADDLE_TPU_CACHE_DIR of every worker; "
+                        "Inductor's cache under <cache_dir>/inductor)")
     p.add_argument("--max_restarts", type=int, default=0,
                    help="restart a failed worker this many times")
     p.add_argument("--restart_backoff", type=float, default=1.0,
@@ -110,7 +113,11 @@ def _worker_env(args, local_rank, restarts=0, world=None, hb_path=None):
         env["PT_HEARTBEAT_FILE"] = hb_path
         env["PT_HEARTBEAT_INTERVAL"] = str(args.heartbeat_interval)
     if args.cache_dir:
-        env["TORCHINDUCTOR_CACHE_DIR"] = os.path.abspath(args.cache_dir)
+        # every rank shares one store; a restart (this supervisor's
+        # backoff path) then loads what its predecessor compiled
+        cache_dir = os.path.abspath(args.cache_dir)
+        env["PADDLE_TPU_CACHE_DIR"] = cache_dir
+        env["TORCHINDUCTOR_CACHE_DIR"] = os.path.join(cache_dir, "inductor")
     return env
 
 

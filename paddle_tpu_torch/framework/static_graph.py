@@ -502,11 +502,28 @@ class Executor:
                 return forward(leaves, feeds)
 
             program.__qualname__ = f"Program{prog.graph_id}"
-            entry = (StaticFunction(None, fn=program), leaf_nodes)
+            entry = (StaticFunction(None, fn=program, _cache_key=(
+                "static.Executor", _ops_fingerprint(refs, prog._for_test))),
+                     leaf_nodes)
             self._cache[key] = entry
         fn, leaf_nodes = entry
         with torch.set_grad_enabled(train):
             return fn([n.tensor for n in leaf_nodes], feeds)
+
+
+def _ops_fingerprint(refs, for_test):
+    """The recorded calls a program replays, by name and non-tensor
+    arguments: what keys its entry in the persistent compile cache
+    (`jit.compile_cache`) beside the signature of its feeds and leaves."""
+    parts = [f"for_test={for_test}"]
+    for node in _live_order(refs):
+        fn = getattr(node.fn, "__qualname__", type(node.fn).__name__)
+        consts = [repr(a) if isinstance(a, (bool, int, float, str,
+                                             type(None), torch.dtype))
+                  else type(a).__name__
+                  for a in node.args if not isinstance(a, _Ref)]
+        parts.append(f"{node.name}:{fn}:{node.inplace}:{consts}")
+    return "|".join(parts)
 
 
 def _feeds_of(refs):

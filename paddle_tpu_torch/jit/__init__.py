@@ -24,8 +24,23 @@ and the graph breaks it met.  Nothing falls back to eager execution: a
 failed compile raises (and an error of the conversion is raised as the
 reference raises it, see `dy2static`), and reaching Dynamo's recompile
 limit raises.  `enable_to_static(False)` runs the original Python.
-`check=True` needs the reference's `analysis/` (tracelint), which is not
-ported: it raises NotImplementedError.
+The chaos site `compile.fail_once` raises before a new signature
+compiles; the next call compiles.
+
+With the persistent compile cache on (`compile_cache`:
+`PADDLE_TPU_CACHE_DIR`, `launch --cache_dir`), the first call of a new
+signature looks the store up before it compiles and publishes after a
+miss.  A hit loads what Inductor and AOTAutograd produced in the process
+that published it (the forward and, for a call that records gradients,
+the backward graph, which is then compiled with the forward), so the
+call traces with Dynamo and compiles nothing; the compile tracker
+records it as a "persistent cache hit".  The reference caches inference
+calls only and its compiled training step through `TrainStep`; here a
+training call's entry carries both graphs, its counterpart.
+
+`check=True` (or PADDLE_TPU_TRACELINT=1) runs tracelint (`analysis`)
+over the function or the Layer's forward when it is wrapped: findings
+become `analysis.TraceLintWarning`s, and what is traced does not change.
 
 `save` / `load` (`paddle_tpu/jit/__init__.py:350-397`; the top-level
 `paddle_tpu_torch.save` / `load` too): a Layer (a `torch.nn.Module`, or a
@@ -53,18 +68,19 @@ from torch.utils import _pytree as pytree
 
 from ..nn.layer import Layer
 from ..observability import compile_tracker as _ct
+from ..resilience import chaos as _chaos
 from ..tensor import Tensor
-from . import dy2static
+from . import compile_cache, dy2static
 from .dy2static import convert_to_static
 from .save_load import (InputSpec, TranslatedLayer, is_inference_dir,
                         load_inference, save_inference)
 from .train_step import TrainStep, train_step
 
 __all__ = ["InputSpec", "Layer", "StaticFunction", "Tensor", "TrainStep",
-           "TranslatedLayer", "convert_to_static", "dy2static",
-           "enable_to_static", "is_inference_dir", "load", "load_inference",
-           "not_to_static", "save", "save_inference", "to_static",
-           "train_step"]
+           "TranslatedLayer", "compile_cache", "convert_to_static",
+           "dy2static", "enable_to_static", "is_inference_dir", "load",
+           "load_inference", "not_to_static", "save", "save_inference",
+           "to_static", "train_step"]
 
 _TO_STATIC_ENABLED = True
 # the backend Dynamo hands each graph to; the CPU tests that check
@@ -118,10 +134,11 @@ class StaticFunction:
     (`parameters()`, `train()`, `eval()`, ...)."""
 
     def __init__(self, layer, fn=None, while_max_iters=None,
-                 full_graph=True, input_spec=None):
+                 full_graph=True, input_spec=None, _cache_key=None):
         self._layer = layer
         self._fn = fn       # the function, when no Layer is wrapped
         self._while_max_iters = while_max_iters
+        self._full_graph = bool(full_graph)
         self._input_spec = input_spec
         self._graphs = 0
         if layer is not None:
@@ -131,13 +148,20 @@ class StaticFunction:
                 return forward(layer, *args, **kwargs)
 
             self._label = f"to_static({type(layer).__name__})"
+            code = type(layer)
         else:
             run, _ = convert_to_static(fn)
             self._label = f"to_static_fn({getattr(fn, '__qualname__', '?')})"
             functools.update_wrapper(self, fn)
+            code = fn
+        # the persistent cache's frontend, keyed on the wrapped code, or
+        # on the (label, fingerprint) the caller gives (the static
+        # Executor: its programs' recorded calls)
+        label, fp = _cache_key or (self._label, code)
+        self._fn_cache = compile_cache.FunctionCache(label, fingerprint=(fp,))
         self._target = run
         self._compiled = torch.compile(_own_code(run), backend=self._backend,
-                                       fullgraph=bool(full_graph),
+                                       fullgraph=self._full_graph,
                                        dynamic=False)
 
     @property
@@ -152,6 +176,7 @@ class StaticFunction:
 
     def _backend(self, gm, example_inputs):
         self._graphs += 1
+        compile_cache.note_graph(gm)
         from torch._dynamo import lookup_backend
         return lookup_backend(_BACKEND)(gm, example_inputs)
 
@@ -167,6 +192,23 @@ class StaticFunction:
             return self._layer(*args, **kwargs)
         return self._fn(*args, **kwargs)
 
+    def _cache_static(self):
+        """What, besides the arguments' signature, shapes the program:
+        the training flag, the conversion's bound, fullgraph, the backend,
+        grad mode and the wrapped Layer's config."""
+        training = None if self._layer is None else self._layer.training
+        return (training, self._while_max_iters, self._full_graph,
+                _BACKEND, torch.is_grad_enabled(),
+                compile_cache.config_fingerprint(
+                    getattr(self._layer, "cfg", None)))
+
+    def _call_compiled(self, args, kwargs):
+        with dy2static.while_bound(self._while_max_iters), \
+                torch._dynamo.config.patch(
+                    recompile_limit=_RECOMPILE_LIMIT,
+                    fail_on_recompile_limit_hit=True):
+            return self._compiled(*args, **kwargs)
+
     def __call__(self, *args, **kwargs):
         if not _TO_STATIC_ENABLED:
             return self._eager(*args, **kwargs)
@@ -174,21 +216,26 @@ class StaticFunction:
                           owner=self)
         graphs, breaks, t0 = self._graphs, _graph_breaks(), \
             time.perf_counter()
+        outcome = None
         try:
-            with dy2static.while_bound(self._while_max_iters), \
-                    torch._dynamo.config.patch(
-                        recompile_limit=_RECOMPILE_LIMIT,
-                        fail_on_recompile_limit_hit=True):
-                out = self._compiled(*args, **kwargs)
-        except Exception as e:
+            if tok is None:
+                out = self._call_compiled(args, kwargs)
+            else:
+                # a new signature: Dynamo is about to compile
+                _chaos.crash("compile.fail_once")
+                out, outcome = self._fn_cache.run(
+                    lambda: self._call_compiled(args, kwargs),
+                    (args, kwargs), static=self._cache_static(),
+                    device=_device_of(args, kwargs))
+        except BaseException as e:
             if tok is not None:
                 _ct.abort(tok)
-            if _observed(e):
+            if isinstance(e, Exception) and _observed(e):
                 self._raise_conversion_error(e, args, kwargs)
             raise
         graphs, breaks = self._graphs - graphs, _graph_breaks() - breaks
         if tok is not None:
-            _ct.finish(tok, cache_hit=graphs == 0, graphs=graphs,
+            _ct.finish(tok, cache_hit=outcome == "hit", graphs=graphs,
                        graph_breaks=breaks)
         elif graphs:
             _ct.on_recompile(self._label, t0, graphs, breaks, owner=self)
@@ -209,6 +256,23 @@ class StaticFunction:
             raise diag from err
 
 
+def _device_of(args, kwargs):
+    """The device of the call's first tensor (None: the current one)."""
+    for a in pytree.tree_leaves((args, kwargs)):
+        if isinstance(a, torch.Tensor):
+            return a.device
+    return None
+
+
+def _tracelint_enabled(check):
+    if check is not None:
+        return bool(check)
+    if not os.environ.get("PADDLE_TPU_TRACELINT"):
+        return False   # cheap path: no analysis import per decoration
+    from .. import analysis
+    return analysis.env_enabled()
+
+
 def to_static(function=None, input_spec=None, full_graph=True,
               while_max_iters=None, check=None, **kwargs):
     """Decorator/wrapper compiling a Layer or a function with
@@ -218,16 +282,16 @@ def to_static(function=None, input_spec=None, full_graph=True,
     fixed iteration count (a masked loop Dynamo unrolls), which makes them
     differentiable — unbounded `while_loop`s are forward-only.
 
-    `check=True` runs the reference's tracelint analyzer, which the port
-    does not have: it raises NotImplementedError."""
-    if check:
-        raise NotImplementedError(
-            "to_static(check=True) runs tracelint (the reference's "
-            "analysis/), which paddle_tpu_torch does not port; "
-            "Dynamo's graph breaks are the port's findings "
-            "(full_graph=True raises on one)")
-
+    `check=True` (or PADDLE_TPU_TRACELINT=1) runs the tracelint static
+    analyzer over the function or forward at decoration time and surfaces
+    findings as `analysis.TraceLintWarning`s: purely diagnostic, what is
+    traced does not change."""
     def wrap(target):
+        if _tracelint_enabled(check):
+            from .. import analysis as _analysis
+            _analysis.check_traceable(
+                type(target).forward if isinstance(target, torch.nn.Module)
+                else target)
         if isinstance(target, torch.nn.Module):
             return StaticFunction(target, while_max_iters=while_max_iters,
                                   full_graph=full_graph,

@@ -29,7 +29,6 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-import platform
 import warnings
 
 import torch
@@ -167,20 +166,15 @@ def _write_aot(layer, args, path):
 
 def _env_stamp(device=None):
     """What a package compiled on `device` (default: the CUDA device when
-    there is one, else the CPU) depends on: the platform, the device's
-    name and count, its compute capability, and the torch and CUDA
-    versions."""
+    there is one, else the CPU) depends on: `compile_cache.
+    env_fingerprint`'s fields (the platform, the device's name, count and
+    compute capability, the torch and CUDA versions, the kernel sources'
+    digest and the package version), so that the AOT stamp and the
+    compile cache's key agree."""
+    from .compile_cache import env_fingerprint
     device = torch.device(device if device is not None else
                           "cuda" if torch.cuda.is_available() else "cpu")
-    if device.type == "cuda":
-        cap = torch.cuda.get_device_capability(device)
-        plat, kind = "gpu", torch.cuda.get_device_name(device)
-        n, capability = torch.cuda.device_count(), f"{cap[0]}.{cap[1]}"
-    else:
-        plat, kind, n, capability = "cpu", platform.machine(), 1, None
-    return {"platform": plat, "device_kind": kind, "n_devices": n,
-            "capability": capability, "torch": torch.__version__,
-            "cuda": torch.version.cuda}
+    return dict(env_fingerprint(device))
 
 
 def _aot_compatible(stamp):
@@ -192,7 +186,9 @@ def _aot_compatible(stamp):
                     ("n_devices", "device count"),
                     ("capability", "compute capability"),
                     ("torch", "torch version"),
-                    ("cuda", "CUDA version")):
+                    ("cuda", "CUDA version"),
+                    ("kernels", "kernel sources"),
+                    ("package", "package version")):
         if stamp.get(k) != cur[k]:
             return False, (f"{what} mismatch: artifact compiled for "
                            f"{stamp.get(k)!r}, this host is {cur[k]!r}")

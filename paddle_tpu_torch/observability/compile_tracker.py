@@ -12,7 +12,11 @@ something else: a global, a module attribute, the training flag of a
 sublayer) is recorded by `on_recompile` with the cause "guard failure".
 The tracker diagnoses why a recompile happened (shape, dtype, new static
 argument) and, after `warn_after` distinct compilations of the same
-function, raises a `RecompileWarning` naming the cause.
+function, raises a `RecompileWarning` naming the cause and the tracelint
+rule that flags its pattern before the first compile
+(`analysis.STATIC_RULE_FOR_CAUSE`).  A new signature the persistent
+compile cache served (`jit/compile_cache.py`) is recorded as a
+"persistent cache hit", not as a compile.
 
 `aot_profile` (the split of `jax.jit`'s lowering and compile time) has no
 counterpart: `torch.compile` compiles inside the first call.
@@ -166,12 +170,26 @@ def _count(rec, label, cause):
     return rec.count, warn
 
 
+def _static_rule_hint(cause):
+    """Point the runtime diagnostic at its static tracelint rule
+    (`analysis.STATIC_RULE_FOR_CAUSE`), so that a recompile storm the
+    tracker diagnoses names the pattern the analyzer flags before the
+    first compile."""
+    from ..analysis import static_rule_for_cause
+    rule = static_rule_for_cause(cause)
+    if rule is None:
+        return ""
+    return (f" [static analyzer: tracelint rule {rule} flags this "
+            f"pattern pre-compile: run python -m paddle_tpu_torch.analysis]")
+
+
 def _warn(label, index, cause):
     warnings.warn(
         f"{label} compiled {index} times (latest cause: {cause}); "
         f"recompilation dominates step time — stabilize input "
         f"shapes/dtypes (pad/bucket batches) or hoist the changing "
-        f"python argument out of the compiled call",
+        f"python argument out of the compiled call"
+        f"{_static_rule_hint(cause)}",
         RecompileWarning, stacklevel=4)
 
 
@@ -226,18 +244,42 @@ def _emit(ev):
     return ev
 
 
+def _uncount(token):
+    with _lock:
+        rec = _seen.get(token.key)
+        if rec is not None:
+            rec.count -= 1
+
+
 def finish(token, cache_hit=False, graphs=1, graph_breaks=0):
     """Close a compile event opened by on_call; records metrics and a
-    trace span.  `cache_hit=True` (a new signature that compiled nothing:
-    Dynamo's guards took a graph it already had) keeps no event and does
-    not count as a compile."""
-    if cache_hit:
-        with _lock:
-            rec = _seen.get(token.key)
-            if rec is not None:
-                rec.count -= 1
-        return None
+    trace span.
+
+    `cache_hit=True` marks a new signature served from the persistent
+    compile cache (`jit/compile_cache.py`: Dynamo traced, Inductor
+    compiled nothing): the event is kept with the cause "persistent cache
+    hit", so the timeline shows the load, and counts in
+    `jit_persistent_cache_hits_total` with a `cache-hit:` span, but not
+    as a compile (not in `jit_compiles_total` nor in `compile_count`).
+    `graphs=0` (a new signature that compiled nothing: Dynamo's guards
+    took a graph it already had) keeps no event."""
     wall = time.perf_counter() - token.t0
+    if cache_hit:
+        _uncount(token)
+        from . import metrics, trace
+        ev = CompileEvent(token.label, "persistent cache hit", wall,
+                          token.t0, token.index, graphs, graph_breaks,
+                          token.owner)
+        with _lock:
+            _events.append(ev)
+        metrics.registry().counter("jit_persistent_cache_hits_total",
+                                   fn=token.label).inc()
+        trace.add_complete(f"cache-hit:{token.label}", "compile", token.t0,
+                           wall, args={"n": token.index, "graphs": graphs})
+        return ev
+    if not graphs:
+        _uncount(token)
+        return None
     return _emit(CompileEvent(token.label, token.cause, wall, token.t0,
                               token.index, graphs, graph_breaks,
                               token.owner))

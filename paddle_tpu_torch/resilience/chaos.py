@@ -56,10 +56,22 @@ The sites the port has:
     loader.batch_corrupt        a worker's batch payload is mangled: the
                                 pool skips that batch with a warning
 
+    compile.fail_once           a `jit.to_static` compile raises
+                                (ChaosInterrupt) before it starts; the
+                                signature stays unseen, so the next call
+                                compiles
+    cache.corrupt               flip bytes in a just-published compile-
+                                cache entry (the reader must quarantine)
+    cache.race                  a competing writer publishes the same
+                                compile-cache entry first (last-writer-
+                                wins must stay torn-free)
+    cache.evict_inflight        GC collects a compile-cache entry right
+                                after publish (the reader sees a clean
+                                miss)
+
 The loader sites fire from the PARENT's plan when a worker is spawned
 (`take_loader_directives`, tag = the worker slot, @N = the batch of that
-worker's slice).  Still to come with the modules that hold them:
-`compile.fail_once`, the compile-cache sites (`cache.*`) and
+worker's slice).  Still to come with the module that holds it:
 `restart.mesh_change`.  With no plan installed every site costs one
 `is None` test.
 """
@@ -279,6 +291,36 @@ def poison_loss(loss):
     """loss * NaN: a nonfinite loss whose backward gives NaN gradients
     everywhere (NaN times a zero local gradient is NaN)."""
     return loss * float("nan")
+
+
+def corrupt_cache_entry(cache_dir, which=0, mode="flip"):
+    """Damage an on-disk compile-cache entry (`jit.compile_cache`),
+    newest first by the `which` ordinal.  Modes: ``flip`` (overwrite
+    bytes inside the payload: checksum mismatch), ``truncate`` (cut the
+    entry in half: a torn write), ``garbage`` (replace the whole file).
+    Returns the damaged path; the next reader must quarantine it and
+    recompile."""
+    entries = sorted(
+        (os.path.join(cache_dir, n) for n in os.listdir(cache_dir)
+         if n.endswith(".ccx")),
+        key=os.path.getmtime, reverse=True)
+    if not entries:
+        raise FileNotFoundError(f"no cache entries under {cache_dir}")
+    victim = entries[min(which, len(entries) - 1)]
+    size = os.path.getsize(victim)
+    if mode == "flip":
+        with open(victim, "r+b") as f:
+            f.seek(max(size - 24, 16))
+            f.write(b"\xa5" * 8)
+    elif mode == "truncate":
+        with open(victim, "r+b") as f:
+            f.truncate(max(size // 2, 1))
+    elif mode == "garbage":
+        with open(victim, "wb") as f:
+            f.write(b"\x00not-a-cache-entry")
+    else:
+        raise ValueError(f"unknown corruption mode {mode!r}")
+    return victim
 
 
 def corrupt_checkpoint(path, mode="truncate_arrays"):

@@ -124,7 +124,15 @@ def test_no_port_module_imports_jax_or_the_jax_package():
             "paddle_tpu_torch/autograd/py_layer.py",
             "paddle_tpu_torch/tensor.py",
             "paddle_tpu_torch/base.py",
-            "tools/torch_compile_probe.py"} <= rel
+            "tools/torch_compile_probe.py",
+            "paddle_tpu_torch/jit/compile_cache.py",
+            "paddle_tpu_torch/analysis/__init__.py",
+            "paddle_tpu_torch/analysis/__main__.py",
+            "paddle_tpu_torch/analysis/cli.py",
+            "paddle_tpu_torch/analysis/core.py",
+            "paddle_tpu_torch/analysis/registry_audit.py",
+            "paddle_tpu_torch/analysis/rules.py",
+            "paddle_tpu_torch/analysis/taint.py"} <= rel
     bad = {os.path.relpath(p, REPO): sorted(set(_imported_roots(p))
                                             & FORBIDDEN)
            for p in files}
@@ -189,7 +197,12 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.framework.flags, paddle_tpu_torch.static, "
             "paddle_tpu_torch.autograd, paddle_tpu_torch.autograd.functional, "
             "paddle_tpu_torch.autograd.py_layer, paddle_tpu_torch.tensor, "
-            "paddle_tpu_torch.base, paddle_tpu_torch.fluid\n"
+            "paddle_tpu_torch.base, paddle_tpu_torch.fluid, "
+            "paddle_tpu_torch.jit.compile_cache, paddle_tpu_torch.analysis, "
+            "paddle_tpu_torch.analysis.cli, paddle_tpu_torch.analysis.core, "
+            "paddle_tpu_torch.analysis.registry_audit, "
+            "paddle_tpu_torch.analysis.rules, "
+            "paddle_tpu_torch.analysis.taint\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN | {'transformers'})!r})\n"
             "assert not bad, bad\n")
@@ -466,3 +479,30 @@ def test_high_level_api_entry_points_raise_without_a_device(monkeypatch):
         lin = Linear(2, 2, device="cpu")
     assert lin.weight.device == cpu
     assert Model(lin)._device == cpu
+
+
+def test_compile_cache_and_tracelint_entry_points_raise_without_a_device(
+        monkeypatch, tmp_path):
+    """The compile cache's environment key and the registry audit name
+    the device they describe: without a card they raise unless the CPU
+    is named; named, they describe the CPU.  The store itself and the
+    lint of source hold no device."""
+    from paddle_tpu_torch import analysis
+    from paddle_tpu_torch import device as tdevice
+    from paddle_tpu_torch.jit import compile_cache as cc
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(tdevice, "_current_place", [None])
+    fc = cc.FunctionCache("f", fingerprint=("src",))
+    args = ((torch.ones(2),), {})
+    for call in (cc.env_fingerprint, lambda: fc.digest(args),
+                 lambda: analysis.audit_registry()):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert cc.env_fingerprint("cpu")["platform"] == "cpu"
+    assert len(fc.digest(args, device="cpu")) == 64
+    assert analysis.audit_registry(device="cpu") == []
+    store = cc.CompileCache(str(tmp_path))
+    store.put("d" * 64, b"payload")
+    assert store.get("d" * 64) == b"payload"
+    assert analysis.lint_source("def forward(x):\n    return x.item()\n")

@@ -37,7 +37,8 @@ def test_parse_and_env():
     assert (env["PT_COORDINATOR"], env["PT_NUM_PROCESSES"],
             env["PT_PROCESS_ID"], env["PADDLE_TRAINER_ID"]) == \
         ("10.0.0.1:1234", "4", "3", "3")
-    assert env["TORCHINDUCTOR_CACHE_DIR"] == "/tmp/ic"
+    assert env["PADDLE_TPU_CACHE_DIR"] == "/tmp/ic"
+    assert env["TORCHINDUCTOR_CACHE_DIR"] == "/tmp/ic/inductor"
     assert _worker_env(args, 0, restarts=2, world=1)["WORLD_SIZE"] == "2"
     with pytest.raises(SystemExit):
         _parse_args(["--elastic", "--nnodes", "2", "x.py"])

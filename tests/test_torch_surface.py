@@ -44,7 +44,6 @@ LEFT_OUT = {
     ("distributed/ring_attention.py", "jax"): "make_ring_flash_local",
     ("framework/checkpoint.py", "A11"): "load_state(resharder)",
     ("framework/random.py", "jax"): "default_key key_context next_key",
-    ("jit/__init__.py", "A13b"): "compile_cache",
     # the functional bridge and the tape engine are JAX machinery: Dynamo
     # and torch's autograd take their places
     ("jit/__init__.py", "jax"): "FB engine",
@@ -71,7 +70,6 @@ LEFT_OUT = {
         "temporal_shift_k"
     ),
     ("resilience/__init__.py", "A11"): "ReshardPlan Resharder reshard",
-    ("resilience/chaos.py", "A13b"): "corrupt_cache_entry",
     ("resilience/guard.py", "jax"): "select_tree",
     ("text/__init__.py", "A13b"): (
         "BPETokenizer CharTokenizer ViterbiDecoder datasets tokenizer "

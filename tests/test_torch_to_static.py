@@ -212,14 +212,6 @@ def test_enable_to_static_runs_the_original_python(aot_eager):
     assert len(calls) == 2
 
 
-def test_check_needs_tracelint_which_is_not_ported(aot_eager):
-    """Intended divergence: to_static(check=True) runs the reference's
-    tracelint (analysis/), which the port does not have."""
-    with pytest.raises(NotImplementedError, match="tracelint"):
-        jit.to_static(lambda x: x, check=True)
-    assert jit.to_static(lambda x: x + 1, check=False)(torch.ones(1)) == 2
-
-
 def test_static_function_saves_as_its_layer(aot_eager, tmp_path):
     lin = torch.nn.Linear(4, 2)
     st = jit.to_static(lin)

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Chaos drills of the port's serving tier (paddle_tpu_torch.serving).
+"""Chaos drills of the port's serving tier (paddle_tpu_torch.serving) and
+of its persistent compile cache (paddle_tpu_torch.jit.compile_cache).
 
     python tools/torch_chaos_check.py --serving [--device cpu] [-v]
     python tools/torch_chaos_check.py --router [--device cpu] [-v]
     python tools/torch_chaos_check.py --router --proc [--device cpu] [-v]
+    python tools/torch_chaos_check.py --cold-start [--device cpu] [-v]
 
 Counterpart: the --serving, --router and --router --proc drills of
 `tools/chaos_check.py`, on the same tiny GPT (vocab 64, hidden 32, 2
@@ -28,6 +30,14 @@ generator seeded with 0; each drill prints one OK / FAILED line and exits
   worker wedged by the `_wedge` hook (stops beating, ignores SIGTERM),
   which only the KILL escalation clears.  No orphan process after any
   phase.
+* --cold-start (`tools/chaos_check.py --cold-start`'s counterpart): the
+  tiny GPT under `to_static` trains with the store, is killed (SIGKILL)
+  after 4 of its 8 steps and a checkpoint, and restarts in a fresh
+  process whose Inductor and Triton caches start empty: 0 Inductor
+  compiles, a persistent cache hit, losses and weights that continue
+  the uninterrupted run's (equal bits on the CPU); then one entry is
+  damaged and the next restart quarantines it, recompiles silently and
+  republishes.
 
 The drill functions are the one copy of the drills: the tool,
 `tests/test_torch_serving_tier.py` and `chip_smoke.py` (router_drill, at
@@ -49,6 +59,7 @@ import argparse
 import hashlib
 import os
 import signal
+import subprocess
 import sys
 import time
 import types
@@ -734,6 +745,192 @@ def run_router_proc(spec, prompts, refs, expect_digest,
             "seconds": elapsed}
 
 
+# ============================================================= --cold-start
+COLD_N_STEPS = 8    # optimizer steps of the cold-start drill
+COLD_KILL_AT = 4    # the trainer is killed after this many
+# losses and weights of the restarted trainer against the uninterrupted
+# one: equal bits on the CPU; on the card within this gap relative to
+# the largest element of the tensor (the embedding backward sums with
+# atomics, so two runs of one program differ in the last bits)
+COLD_CUDA_RTOL = 1e-5
+
+
+def _cold_trainer(device):
+    """The drill's trainer: the tiny GPT from seed 0 under `to_static`
+    (Inductor), Momentum(0.05, 0.9), and COLD_N_STEPS seeded batches."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.optimizer import Momentum
+    model = _tiny_model(device).train()
+    opt = Momentum(learning_rate=0.05, momentum=0.9,
+                   parameters=model.parameters())
+    rs = np.random.RandomState(3)
+    batches = [tuple(torch.from_numpy(rs.randint(0, 64, (2, 16))).to(device)
+                     for _ in range(2)) for _ in range(COLD_N_STEPS)]
+    return model, opt, jit.to_static(model), batches
+
+
+def run_cold_worker(phase, cache_dir, root, device, out=None):
+    """One trainer process of the cold-start drill.  "ref": no store,
+    COLD_N_STEPS steps uninterrupted; "cold": the store, COLD_KILL_AT
+    steps, a checkpoint, then the process SIGKILLs itself; "warm": the
+    store, the newest checkpoint restored, then the steps up to
+    COLD_N_STEPS.  Prints one JSON line (the losses by step, the store's
+    stats, Inductor's FX-graph cache counters, the tracker's compiles and
+    causes) and writes the final weights to ROOT/weights_PHASE.npz."""
+    import json
+    from torch._dynamo.utils import counters
+    from paddle_tpu_torch.jit import compile_cache as cc
+    from paddle_tpu_torch.observability import compile_tracker as ct
+    from paddle_tpu_torch.resilience.manager import CheckpointManager
+    from paddle_tpu_torch.text import gpt_loss_fn
+    out = out if out is not None else sys.stdout
+    cc.configure(None if phase == "ref" else cache_dir)
+    model, opt, st, batches = _cold_trainer(device)
+    mgr = CheckpointManager(os.path.join(root, "ckpt"), max_to_keep=2)
+    start, stop = 0, COLD_KILL_AT if phase == "cold" else COLD_N_STEPS
+    if phase == "warm":
+        start = mgr.restore(model=model, optimizer=opt)["step"]
+    losses = {}
+    for step in range(start, stop):
+        ids, labels = batches[step]
+        loss = gpt_loss_fn(st, ids, labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses[str(step + 1)] = loss.item()
+    if phase == "cold":
+        mgr.save(stop, model=model, optimizer=opt)
+    np.savez(os.path.join(root, f"weights_{phase}.npz"),
+             **{n: p.detach().cpu().double().numpy()
+                for n, p in model.named_parameters()})
+    print(json.dumps({
+        "phase": phase, "start": start, "losses": losses,
+        "stats": cc.stats(),
+        "fxgraph": {k: v for k, v in counters["inductor"].items()
+                    if k.startswith("fxgraph_cache")},
+        "compiles": ct.compile_count(st._label),
+        "causes": [e.cause for e in ct.events(st._label)]}),
+        file=out, flush=True)
+    if phase == "cold":     # the crash: no clean shutdown, no flush
+        os.kill(os.getpid(), signal.SIGKILL)
+    return 0
+
+
+def _spawn_cold_worker(phase, cache_dir, root, device, inductor_dir):
+    """run_cold_worker in a fresh interpreter with Inductor's (and
+    Triton's) caches under `inductor_dir`: (exit code, report or None,
+    stderr's tail)."""
+    import json
+    env = dict(os.environ, TORCHINDUCTOR_CACHE_DIR=inductor_dir,
+               TRITON_CACHE_DIR=os.path.join(inductor_dir, "triton"))
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--cold-start-worker",
+         phase, "--cache-dir", cache_dir, "--ckpt-root", root,
+         "--device", device], capture_output=True, text=True, timeout=900,
+        env=env)
+    report = None
+    for line in reversed(proc.stdout.splitlines()):
+        if line.startswith("{"):
+            report = json.loads(line)
+            break
+    return proc.returncode, report, proc.stderr[-3000:]
+
+
+def run_cold_start(device="cuda", out=None, verbose=False):
+    """The cold-start drill (`tools/chaos_check.py --cold-start`'s
+    counterpart): an uninterrupted reference trainer; a cold trainer on
+    an empty store, killed (SIGKILL) after COLD_KILL_AT steps and a
+    checkpoint; a restarted trainer on the warm store, with caches of
+    Inductor's own that start empty, which must compile nothing (0
+    FX-graph cache misses, a store hit, the tracker's "persistent cache
+    hit") and continue the reference's losses and weights; then one
+    entry damaged (`chaos.corrupt_cache_entry`), and the next restart
+    must quarantine it, recompile silently, republish, and land on the
+    same losses.  Returns {"failures": [...], reports by phase}."""
+    import tempfile
+    from paddle_tpu_torch.resilience import chaos
+    out = out if out is not None else sys.stdout
+    tmp = tempfile.mkdtemp(prefix="torch_cold_start_")
+    cache_dir = os.path.join(tmp, "store")
+    failures, reports = [], {}
+    exact = torch.device(device).type == "cpu"
+
+    def gap(a, b):
+        """max |a - b| over max |b| (0 where both are zero)."""
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        scale = np.abs(b).max()
+        err = np.abs(a - b).max()
+        return err / scale if scale else float(err > 0)
+
+    def close(a, b):
+        return np.array_equal(np.asarray(a), np.asarray(b)) if exact \
+            else gap(a, b) <= COLD_CUDA_RTOL
+
+    def spawn(phase, tag, inductor):
+        rc, rep, err = _spawn_cold_worker(
+            phase, cache_dir, tmp, device, os.path.join(tmp, inductor))
+        reports[tag] = rep
+        if verbose:
+            print(f"{tag}: rc {rc} {rep}", file=out)
+        want = -signal.SIGKILL if phase == "cold" else 0
+        if rc != want or rep is None:
+            failures.append(f"{tag}: exit {rc} (want {want}), report "
+                            f"{rep is not None}: {err}")
+        return rep or {"losses": {}, "stats": {}, "fxgraph": {}}
+
+    def continues(tag, rep, phase_file):
+        for step, loss in rep["losses"].items():
+            if not close(loss, ref["losses"][step]):
+                failures.append(f"{tag}: loss at step {step} {loss!r} vs "
+                                f"the uninterrupted run's "
+                                f"{ref['losses'][step]!r}")
+        got = np.load(os.path.join(tmp, phase_file))
+        want = np.load(os.path.join(tmp, "weights_ref.npz"))
+        off = {n: gap(got[n], want[n]) for n in want.files
+               if not close(got[n], want[n])}
+        if off:
+            failures.append(f"{tag}: final weights off the "
+                            f"uninterrupted run's (max |gap| / max |w|): "
+                            f"{sorted(off.items(), key=lambda i: -i[1])[:3]}")
+
+    try:
+        ref = spawn("ref", "reference", "inductor_a")
+        cold = spawn("cold", "cold", "inductor_a")
+        if cold["stats"].get("puts", 0) < 1:
+            failures.append(f"cold: nothing published {cold['stats']}")
+        for step, loss in cold["losses"].items():
+            if not close(loss, ref["losses"].get(step)):
+                failures.append(f"cold: loss at step {step} off the "
+                                f"reference's")
+        warm = spawn("warm", "warm", "inductor_b")
+        s = warm["stats"]
+        if warm.get("start") != COLD_KILL_AT:
+            failures.append(f"warm: restored step {warm.get('start')}")
+        if warm["fxgraph"].get("fxgraph_cache_miss", 0) or \
+                warm.get("compiles") != 0 or s.get("hits", 0) < 1 or \
+                s.get("misses", 0) or \
+                "persistent cache hit" not in warm.get("causes", []):
+            failures.append(f"warm: compiled on a warm store: {warm}")
+        continues("warm", warm, "weights_warm.npz")
+        victim = chaos.corrupt_cache_entry(cache_dir, mode="flip")
+        healed = spawn("warm", "after corruption", "inductor_c")
+        s = healed["stats"]
+        if (s.get("quarantined"), s.get("hits")) != (1, 0) or \
+                not healed["fxgraph"].get("fxgraph_cache_miss") or \
+                s.get("puts", 0) < 1:
+            failures.append(f"after corruption: want 1 quarantined, a "
+                            f"recompile and a republish: {healed}")
+        if not os.path.isdir(os.path.join(cache_dir, "quarantine")) or \
+                not os.path.exists(victim):
+            failures.append("after corruption: no quarantined file, or "
+                            "the entry not republished")
+        continues("after corruption", healed, "weights_warm.npz")
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"failures": failures, **reports}
+
+
 # ==================================================================== CLI
 def _tiny_model(device):
     from paddle_tpu_torch.text import GPTConfig, GPTForCausalLM
@@ -753,15 +950,37 @@ def main(argv=None, out=None):
                     help="with --router: the worker-process drill")
     ap.add_argument("--device", default="cuda",
                     help="where the model runs (default cuda)")
+    ap.add_argument("--cold-start", action="store_true",
+                    help="the persistent compile cache's restart drill")
+    ap.add_argument("--cold-start-worker", default=None,
+                    choices=("ref", "cold", "warm"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--cache-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--ckpt-root", default=None, help=argparse.SUPPRESS)
     ap.add_argument("-v", "--verbose", action="store_true",
                     help="print each drill's result dict")
     args = ap.parse_args(argv)
-    if not (args.serving or args.router):
-        ap.error("pick --serving, --router or --router --proc")
+    if not (args.serving or args.router or args.cold_start
+            or args.cold_start_worker):
+        ap.error("pick --serving, --router, --router --proc or "
+                 "--cold-start")
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         print("torch_chaos_check: no CUDA device (pass --device cpu)",
               file=sys.stderr)
         return 1
+    if args.cold_start_worker:
+        return run_cold_worker(args.cold_start_worker, args.cache_dir,
+                               args.ckpt_root, args.device, out)
+    if args.cold_start:
+        res = run_cold_start(args.device, out, args.verbose)
+        match = "bit for bit" if args.device == "cpu" else \
+            f"within {COLD_CUDA_RTOL} of each tensor's largest element"
+        return _report("--cold-start", res["failures"], (
+            f"trainer killed after {COLD_KILL_AT} steps, restarted on the "
+            f"warm store: 0 Inductor compiles, a persistent cache hit, "
+            f"losses and weights continuing the uninterrupted run "
+            f"({match}); a damaged entry quarantined, recompiled and "
+            f"republished"), out)
     model = _tiny_model(args.device)
     reference = port_reference(model)
     if args.router and args.proc:
