@@ -50,6 +50,16 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    dO with one element moved must read a nonzero error),
                    and each float32 case's kernel and plain gradients
                    against a float64 plain backward;
+3a. tensor_api   — every public function of the port's tensor_api,
+                   linalg, fft and signal on the card, from the case
+                   table the CPU tests read (tests/
+                   torch_tensor_api_cases.py): each result on the card
+                   and within its stated tolerance of the same function
+                   on the CPU over the same inputs (TF32 off; the
+                   decompositions by their invariants), random functions
+                   by shape, dtype, range and seed determinism, as many
+                   functions run as there are public names; the
+                   functions that synchronised with the host printed;
 4. serve         — GPT-3 1.3B (full width, 12 of its 24 layers:
                    SERVE_LAYERS, bf16, random weights
                    from a seed) served by LLMEngine: 16 requests, 32 greedy
@@ -89,7 +99,7 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    ready event reports all of them loaded, it serves
                    through them alone, and its start prints beside r0's;
 5c. router_drill — `tools/torch_chaos_check.py --router --proc` at that
-                   width, 6 layers (ROUTER_DRILL_LAYERS), in float32:
+                   width, 4 layers (ROUTER_DRILL_LAYERS), in float32:
                    r0 SIGKILLed mid-stream 3x
                    (evictions / respawns / aborts 3 / 2 / 1), a dropped
                    frame, a wedged worker hang-evicted and KILLed; every
@@ -103,7 +113,21 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    loss series); each flash kernel must have launched 24
                    times a step, all three on the sm90 kernels, and sdpa
                    must have taken its plain path no time; then
-                   a profile of 2 steps;
+                   check_numerics: TrainSteps with the flag off and on
+                   in turns of 3 steps (off, on, on, off; the flagged
+                   p50 beside the unflagged: the check's cost a step),
+                   the check's device time alone, and a step whose loss
+                   is multiplied by
+                   NaN raises FloatingPointError naming `loss`, every
+                   parameter bit-equal to its value before it; then a
+                   profile of 2 steps through the port's
+                   profiler.Profiler (a RecordEvent a step, counted),
+                   its busy ms a step within 10 % of 2 more steps under
+                   a bare torch.profiler window, and
+                   profiler.program_stats of one forward and backward
+                   within 0.85-1.15 of the model flops, the flash
+                   operators' registered formulas giving the attention
+                   term;
 6a. fleet        — the distributed slice at world size 1 over NCCL:
                    `fleet.build_train_step` (dp 1, mp 1, sharding_stage
                    2) trains train's GPT-3 1.3B from the same weights and
@@ -135,7 +159,8 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    by LLMEngine with the serve phase's request mix:
                    tokens/s, decode step, TTFT, paged launches, and the
                    served tokens against a dense float32 forward;
-10. generate_e2e — Mistral width at 2 layers, float32, window 64: the
+10. generate_e2e — Mistral width at 2 layers, float32, window 64, 16
+                   new tokens a row (32 before PR 21): the
                    captured `jit_generate`, eager and bucketed
                    `generate`, speculative greedy and `jit_beam_search`
                    on the card token for token against the CPU (the
@@ -333,7 +358,7 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    loader-wait share; then loader.worker_kill@2#1 kills
                    worker 1 at its second batch: it is respawned and every
                    batch arrives once, in the sampler's order;
-34. to_static_train — GPT-3 1.3B at full width (6 of its 24 layers:
+34. to_static_train — GPT-3 1.3B at full width (2 of its 24 layers:
                    Inductor's compile grows with the depth), seq 1024,
                    batch 4, pure bf16, Adafactor, as train builds it,
                    through jit.to_static (full_graph, Inductor), each step
@@ -359,7 +384,7 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    AOTAutograd cache's hits beside them), a store hit for
                    each graph (forward and backward) and 0 misses, 0
                    tracker compiles and a "persistent cache hit" event,
-                   the sm90 forward, dK/dV and dQ 6 x 3 times each inside
+                   the sm90 forward, dK/dV and dQ 2 x 3 times each inside
                    the loaded graphs, no plain sdpa, the first loss equal
                    to 34's in every bit and the others within
                    TO_STATIC_LOSS_TOL; the warm wall from to_static to
@@ -400,7 +425,7 @@ the killed workers' lost with them); the sm80 forward, dK/dV and dQ
 launch on none of them (asserted, `on_main_paths: false`).  The paged
 kernel's launches are serve's, serve_aot's, serve_aot_e2e's,
 serve_llama's, the workers' of 5b-5c, moe_serve's and moe_e2e's.
-The phases run in this order: 1, 1a's start, 2, 3, 5, 6-7, 8, 9, 10,
+The phases run in this order: 1, 1a's start, 2, 3, 3a, 5, 6-7, 8, 9, 10,
 13-22, 24-34, 34a, 35, 36 (beside 1a's compiles), 1a's wait, 4, 4a,
 5a, 5b, 5c, 23,
 11, 12.  Each phase prints one JSON line.  Then a phase_seconds line
@@ -1960,6 +1985,116 @@ def phase_flash_kernels():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------- tensor_api
+TENSOR_API_BUDGET_S = 15.0
+
+
+def _on_card(out):
+    """Every tensor of a result on the card (None when it holds none)."""
+    if isinstance(out, (list, tuple)):
+        flags = [f for f in (_on_card(o) for o in out) if f is not None]
+        return all(flags) if flags else None
+    if isinstance(out, torch.Tensor):
+        return out.device.type == "cuda"
+    return None
+
+
+def phase_tensor_api():
+    """Every public function of the port's `tensor_api`, `linalg`, `fft`
+    and `signal` on the card, from the case table the CPU tests read
+    (`tests/torch_tensor_api_cases.py`): each case runs on the CPU and
+    on the card over the same seeded float32 inputs, TF32 off; every
+    tensor result lies on the card and agrees with the CPU's within the
+    case's card tolerance (invariants for the decompositions); a random
+    function holds its shapes, dtypes and ranges on the card and gives
+    the same draws after the same seed; the functions run are every
+    public name.  Printed, with no gate: the functions that synchronised
+    with the host (`torch.cuda.set_sync_debug_mode("warn")`)."""
+    import warnings
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import torch_tensor_api_cases as TC
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import device as tdevice
+    modules = {m: getattr(P, m) for m in ("tensor_api", "linalg", "fft",
+                                          "signal")}
+    public = {(m, n) for m, mod in modules.items() for n in mod.__all__}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    place = tdevice._current_place[0]
+    ran, synced, failures, case_s = set(), [], [], {}
+    t_phase = time.perf_counter()
+
+    def inputs(args, kw, device):
+        conv = (lambda a: torch.from_numpy(np.array(a)).to(device))
+        return TC.build(args, conv), TC.build(kw, conv)
+
+    def call(case, built, device):
+        P.set_device("cpu" if device == "cpu" else "gpu:0")
+        return getattr(modules[case.module], case.name)(*built[0],
+                                                        **built[1])
+
+    try:
+        for case in TC.CASES:
+            t_case = time.perf_counter()
+            args, kw = case.inputs()
+            ran.add((case.module, case.name))
+            on_card = inputs(args, kw, "cuda")
+            if case.random:
+                P.seed(7)
+            torch.cuda.synchronize()
+            # only the call is watched: the inputs' copies to the card
+            # are made before it
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    card = call(case, on_card, "cuda")
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            if case.random:
+                P.seed(7)
+                again = call(case, inputs(args, kw, "cuda"), "cuda")
+            if any("synchroniz" in str(w.message) for w in caught):
+                synced.append(case.id)
+            if _on_card(card) is False:
+                failures.append(f"{case.id}: a result off the card")
+            got = TC.to_numpy(card)
+            if case.random:
+                problems = case.check(got)
+                same = TC.mismatch(TC.to_numpy(again), got, 0.0)
+                failures += [f"{case.id}: {p}" for p in problems]
+                if same is not None:
+                    failures.append(f"{case.id}: another draw after the "
+                                    f"same seed ({same})")
+                continue
+            want = TC.to_numpy(call(case, inputs(args, kw, "cpu"), "cpu"))
+            if case.post is not None:
+                got, want = case.post(got), case.post(want)
+            err = TC.mismatch(got, want, case.card_tol)
+            if err is not None:
+                failures.append(f"{case.id}: {err}")
+            case_s[case.id] = time.perf_counter() - t_case
+    finally:
+        tdevice._current_place[0] = place
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "tensor_api", "cases": len(TC.CASES),
+          "functions_run": len(ran), "public_names": len(public),
+          "by_module": {m: len(mod.__all__) for m, mod in modules.items()},
+          "host_syncs": synced, "functions_that_synced": len(synced),
+          "slowest_cases_s": sorted(case_s.items(), key=lambda kv: -kv[1])[:8],
+          "failures": failures, "phase_seconds": seconds})
+    assert not failures, failures
+    assert ran == public, sorted(public ^ ran)
+    if seconds > TENSOR_API_BUDGET_S:
+        print(f"tensor_api: {seconds:.1f} s, past its {TENSOR_API_BUDGET_S}"
+              f" s budget", file=sys.stderr)
+
+
 # -------------------------------------------------------------- training
 def train_flops(n_params, cfg, batch, seq):
     """Model flops of one training step: 6 * N * tokens for the weights
@@ -2031,30 +2166,154 @@ def phase_train(steps=10, warmup=3, batch=4, seq=1024):
     assert counts["fwd_sm90"] == counts["dkv_sm90"] == counts["dq_sm90"] \
         == want, f"sm90 launches {counts}, want {want} of each kernel"
     assert plain_calls == 0, f"sdpa took its plain path {plain_calls} times"
-    phase_train_profile(step, ids, labels, p50)
+    train_check_numerics(model, opt, ids, labels, p50)
+    phase_train_profile(step, ids, labels, p50, cfg, batch, seq)
     del step, opt, model
     torch.cuda.empty_cache()
     return counts, losses
 
 
+def train_check_numerics(model, opt, ids, labels, p50_s, steps=3):
+    """C10 on GPT-3 1.3B: TrainSteps with `check_numerics` off and on
+    (one bool vector of the loss and every gradient read on the host a
+    step) in turns of `steps` steps (off, on, on, off), each step ended
+    by `.item()`, the flagged p50 beside the unflagged one and the
+    train phase's p50; the check alone on this model's gradients
+    (`finite_flags` between CUDA events, and the host's wall to its
+    read; 5 calls); then one step
+    whose loss is multiplied by NaN must raise FloatingPointError
+    naming `loss`, with every parameter bit-equal to its value before
+    the step and the gradients dropped."""
+    from paddle_tpu_torch.framework import debugging, flags
+    from paddle_tpu_torch.jit import train_step
+    from paddle_tpu_torch.text import gpt_loss_fn
+
+    def poisoned(m, *batch):
+        return gpt_loss_fn(m, *batch) * float("nan")
+
+    def turn(step):
+        out = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            step(ids, labels).item()
+            out.append(time.perf_counter() - t0)
+        return out
+
+    times = {False: [], True: []}
+    try:
+        # each step reads the flag on its first call: plain's off,
+        # checked's on
+        plain = train_step(model, gpt_loss_fn, opt)
+        checked = train_step(model, gpt_loss_fn, opt)
+        for on in (False, True, True, False):
+            flags.set_flags({"check_numerics": on})
+            times[on] += turn(checked if on else plain)
+        assert (plain._check_numerics, checked._check_numerics) == \
+            (False, True)
+        # the check's time alone on this model's gradients: CUDA events
+        # around finite_flags (the card idle before), and the host's
+        # wall to its read
+        loss = gpt_loss_fn(model, ids, labels)
+        loss.backward()
+        grads = [p.grad for p in model.parameters()]
+        check_ms, read_ms = [], []
+        for _ in range(5):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a.record()
+            flags_vec = debugging.finite_flags(loss, grads)
+            b.record()
+            flags_vec.tolist()
+            read_ms.append((time.perf_counter() - t0) * 1e3)
+            b.synchronize()
+            check_ms.append(a.elapsed_time(b))
+        del grads, loss, flags_vec
+        for p in model.parameters():
+            p.grad = None
+        before = [p.detach().clone() for p in model.parameters()]
+        flags.set_flags({"check_numerics": True})
+        bad = train_step(model, poisoned, opt)
+        message = None
+        try:
+            bad(ids, labels)
+        except FloatingPointError as e:
+            message = str(e)
+        torch.cuda.synchronize()
+        unchanged = all(torch.equal(a, p.detach())
+                        for a, p in zip(before, model.parameters()))
+        no_grads = all(p.grad is None for p in model.parameters())
+        del before
+    finally:
+        flags.set_flags({"check_numerics": False})
+    on_p50 = float(np.percentile(times[True], 50))
+    off_p50 = float(np.percentile(times[False], 50))
+    emit({"phase": "train_check_numerics", "steps_a_turn": steps,
+          "turns": "off, on, on, off",
+          "checked_step_p50_ms": on_p50 * 1e3,
+          "unchecked_step_p50_ms": off_p50 * 1e3,
+          "check_cost_ms_per_step": (on_p50 - off_p50) * 1e3,
+          "train_phase_step_p50_ms": p50_s * 1e3,
+          "checked_step_ms": [t * 1e3 for t in times[True]],
+          "unchecked_step_ms": [t * 1e3 for t in times[False]],
+          "finite_flags_event_ms": check_ms,
+          "finite_flags_to_host_read_ms": read_ms,
+          "poisoned_step_error": message[:160] if message else None,
+          "parameters_bit_equal": unchanged, "grads_dropped": no_grads})
+    assert message is not None, "the poisoned step did not raise"
+    assert message.startswith("check_numerics: non-finite values at step ") \
+        and " in: loss, " in message, message
+    assert unchanged, "a parameter moved in the poisoned step"
+    assert no_grads, "the poisoned step left gradients"
+
+
 GEMM_TAGS = ("nvjet", "gemm", "cutlass", "xmma")   # cuBLAS kernel names
 
 
-def phase_train_profile(step, ids, labels, step_p50_s, steps=2):
-    """Where a training step's time goes: `steps` steps under
-    torch.profiler; the busy share is taken against the unprofiled step
-    p50 (the profiler's own host cost stretches the wall time).  Device
-    time is also split by class: cuBLAS GEMMs, the flash kernels, and
-    everything else (optimizer, LayerNorm, GELU, loss, casts, copies)."""
+def phase_train_profile(step, ids, labels, step_p50_s, cfg, batch, seq,
+                        steps=2):
+    """Where a training step's time goes: `steps` steps under the port's
+    `profiler.Profiler` (a torch.profiler window over CPU and CUDA
+    activity, its Chrome trace written into a temporary directory), each
+    step inside a `RecordEvent`; the busy share is taken against the
+    unprofiled step p50 (the profiler's own host cost stretches the wall
+    time).  Device time is also split by class: cuBLAS GEMMs, the flash
+    kernels, and everything else (optimizer, LayerNorm, GELU, loss,
+    casts, copies).  Gates: one RecordEvent a step (the Profiler's table
+    and the torch trace's annotations); the busy ms a step within 10 % of
+    the same steps under a bare torch.profiler.profile; and
+    `program_stats` of one forward and backward of the GPT loss within
+    0.85-1.15 of `train_flops`, and the flash operators' own flops (their
+    registered formulas, counted on one layer's attention at the training
+    shape, forward and backward) equal to 12 * batch * hidden * seq
+    (seq + 1) / 2, the causal pairs counted here in closed form (a
+    layer's share of `train_flops`'s attention term, which takes seq^2 /
+    2 pairs)."""
+    import tempfile
     from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+    from paddle_tpu_torch import profiler as pprof
+    from paddle_tpu_torch.ops.flash_attention import flash_fwd_op
+    from paddle_tpu_torch.text import gpt_loss_fn
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with tempfile.TemporaryDirectory(prefix="train_profile_") as log_dir:
+        p = pprof.Profiler(log_dir=log_dir)
+        p.start()
         t0 = time.perf_counter()
         for _ in range(steps):
-            step(ids, labels)
+            with pprof.RecordEvent("train_step"):
+                step(ids, labels)
+            p.step(num_samples=batch * seq)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        p.stop()
+        trace_bytes = sum(os.path.getsize(f) for f in p.trace_files)
+    prof = p.torch_profile
+    summary_line = p.summary().splitlines()[0]
+    recorded = pprof._event_stats["train_step"][0]
+    annotated = sum(1 for e in prof.events() if e.name == "train_step"
+                    and e.device_type == torch.autograd.DeviceType.CPU)
     events, by_name, busy = device_time(prof)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     flash = {k: sum(us for name, us in by_name.items()
@@ -2067,17 +2326,58 @@ def phase_train_profile(step, ids, labels, step_p50_s, steps=2):
     classes = {"gemm": gemm / steps / 1e3, "flash": sum(flash.values()),
                "other": (sum(by_name.values()) - gemm) / steps / 1e3
                - sum(flash.values())}
+    # the same steps under a bare torch.profiler window
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as bare:
+        for _ in range(steps):
+            step(ids, labels)
+        torch.cuda.synchronize()
+    bare_busy_ms = device_time(bare)[2] / steps / 1e3
+    # FLOPs of one forward and backward against the model count, and the
+    # flash operators' registered formulas on one layer's attention
+    model = step.model
+    n_params = sum(q.numel() for q in model.parameters())
+    want = train_flops(n_params, cfg, batch, seq)
+    stats = pprof.program_stats(
+        lambda: gpt_loss_fn(model, ids, labels).backward())
+    for q in model.parameters():
+        q.grad = None
+    heads, hd = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    q = torch.randn(batch, seq, heads, hd, device="cuda",
+                    dtype=torch.bfloat16, requires_grad=True)
+    with FlopCounterMode(display=False) as counter:
+        flash_fwd_op(q, q, q, None, True, hd ** -0.5, 0)[0].sum().backward()
+    by_op = {str(k): v for k, v in counter.get_flop_counts()["Global"]
+             .items()}
+    flash_flops = sum(v for k, v in by_op.items() if "flash_" in k)
+    # forward 4 * B * hidden * pairs a layer, backward twice that; row r
+    # of a causal square attends to r + 1 keys
+    attention = 12 * batch * cfg.hidden_size * (seq * (seq + 1) // 2)
     emit({"phase": "train_profile", "steps": steps, "device_events": events,
+          "profiler_summary": summary_line,
+          "record_events": recorded, "annotations_in_trace": annotated,
+          "chrome_trace_bytes": trace_bytes,
           "profiled_wall_ms_per_step": wall_us / steps / 1e3,
           "unprofiled_step_p50_ms": step_p50_s * 1e3,
           "device_busy_ms_per_step": busy_ms,
+          "bare_profiler_busy_ms_per_step": bare_busy_ms,
+          "busy_vs_bare": busy_ms / bare_busy_ms,
           "device_busy_share": busy_ms / (step_p50_s * 1e3),
           "device_busy_share_of_profiled_wall": busy / wall_us,
           "flash_kernel_ms_per_step": flash,
           "flash_share_of_busy": sum(flash.values()) / busy_ms,
           "kernel_class_ms_per_step": classes,
+          "program_stats_flops": stats["flops"], "train_flops": want,
+          "program_stats_over_train_flops": stats["flops"] / want,
+          "flash_operator_flops_a_layer": flash_flops,
+          "attention_flops_a_layer_expected": attention,
           "top_device_ms_per_step": [[name[:90], us / steps / 1e3]
                                      for name, us in top]})
+    assert recorded == steps and annotated == steps, (recorded, annotated)
+    assert abs(busy_ms / bare_busy_ms - 1) <= 0.10, (busy_ms, bare_busy_ms)
+    assert 0.85 <= stats["flops"] / want <= 1.15, (stats, want)
+    assert flash_flops == attention, (flash_flops, attention)
 
 
 FLEET_STEPS = 10
@@ -2860,7 +3160,7 @@ def phase_serve_llama():
     return counts
 
 
-def phase_generate_e2e(batch=2, prompt=128, new=32):
+def phase_generate_e2e(batch=2, prompt=128, new=16):
     """Mistral width at 2 layers in float32 with a window of 64 (so that
     the band bites): each decode path on the card against the same on the
     CPU, token for token, and the captured step against the eager loop
@@ -3336,7 +3636,7 @@ def phase_weight_only(batch=4, prompt=512, new=64, layers=None):
 LORA_LAYERS = 4
 WEIGHT_ONLY_LAYERS = 4
 GENERATE_LAYERS = 4
-ROUTER_DRILL_LAYERS = 6
+ROUTER_DRILL_LAYERS = 4
 
 
 # ResNet-50 model flops a training image: 4.09 GFLOP a forward at 224 x
@@ -6350,15 +6650,17 @@ def phase_hapi_resnet(batch=256, steps=12, warmup=3, workers=8,
 # to_static_train: GPT-3 1.3B at full width, cut to this many of its 24
 # layers for Inductor's compile time (the program a layer compiles grows
 # with the depth Dynamo unrolls)
-TO_STATIC_LAYERS = 6
+TO_STATIC_LAYERS = 2
 # to_static_train's gates on the compiled run against the eager copy.
 # Losses: sound runs differ by under 3e-4 (Inductor keeps fused
 # intermediates in float32 where eager rounds each op to bf16), while the
-# eager loss falls about 3e-3 a step, so a compiled model that does not
-# learn falls outside 2e-3 from its second step on.  Gradients of the
-# first step (the same weights and batch on both sides): each leaf's
-# |gc - ge| / |ge|, where a gradient left out gives 1 on its part of a
-# leaf.  The parameters' changes are not compared: in pure bf16 an
+# eager loss falls about 3e-3 a step at 6 layers and 2.2e-3 at 2, so a
+# compiled model that does not learn falls outside 2e-3 from its second
+# step on.  Gradients of the first step (the same weights and batch on
+# both sides): each leaf's |gc - ge| / |ge|, where a gradient left out
+# gives 1 on its part of a leaf; sound runs stay under 0.015 at 2 and 6
+# layers, a zeroed dQ reads about 0.5 on the first qkv weight (`tools/
+# torch_compile_probe.py --broken`).  The parameters' changes are not compared: in pure bf16 an
 # Adafactor step (lr x the leaf's rms, about 2e-6 on a weight) moves only
 # elements near zero, so which of them round onward decides that gap.
 TO_STATIC_LOSS_TOL = 2e-3
@@ -6983,6 +7285,7 @@ def run_phases(started):
     then the serving phases and ernie_infer, then the timings."""
     timed("kernels", phase_kernels)
     timed("flash_kernels", phase_flash_kernels)
+    timed("tensor_api", phase_tensor_api)
     timed("e2e", phase_e2e)
     paths = {}
     paths["train"], train_losses = timed("train", phase_train)

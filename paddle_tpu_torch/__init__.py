@@ -39,7 +39,12 @@ Place API (`dtypes`, `device`), `to_tensor`, `create_parameter`,
 `jit.to_static` over `torch.compile` with dy2static control flow, the
 static Program / Executor (`enable_static`, `static`), the public
 autograd API (`grad`, `autograd`), `Tensor` (torch's own), `parameter`,
-and the `base` / `fluid` aliases.
+and the `base` / `fluid` aliases; and the tensor functions: the
+top-level functions of `tensor_api` (`zeros`, `arange`, `matmul`,
+`concat`, `where`, `topk`, `unique`, `einsum`, ...), `linalg`, `fft`,
+`signal`, the `check_numerics` flag of the training steps
+(`framework.debugging`), the metrics exports and `profiler` over
+torch.profiler.
 """
 import sys as _sys
 
@@ -63,6 +68,11 @@ from .framework.static_graph import (disable_static,  # noqa: F401
                                      enable_static)
 from .autograd import grad  # noqa: F401
 from .tensor import Tensor, parameter  # noqa: F401
+from .tensor_api import *  # noqa: F401,F403,E402
+# the names bound above stay the same objects (tensor_api re-exports them)
+from .api import to_tensor  # noqa: F401,E402
+from .dtypes import finfo, iinfo  # noqa: F401,E402
+from .framework import checkpoint, seed  # noqa: F401,E402
 
 __version__ = "0.1.0"
 
@@ -91,7 +101,7 @@ _LAZY = {name: (f"paddle_tpu_torch.{name}", None) for name in (
     "amp", "callbacks", "device", "distributed", "dtypes", "framework",
     "hapi", "inference", "io", "jit", "metric", "nn", "observability",
     "ops", "optimizer", "regularizer", "resilience", "serving", "static",
-    "text", "vision")}
+    "text", "vision", "linalg", "fft", "signal", "profiler", "tensor_api")}
 _LAZY["DataParallel"] = ("paddle_tpu_torch.distributed", "DataParallel")
 _LAZY["Model"] = ("paddle_tpu_torch.hapi", "Model")
 _LAZY["save"] = ("paddle_tpu_torch.jit", "save")

@@ -12,7 +12,8 @@ Python floats become the default dtype (float32), other dtypes stay
 see `dtypes`), and `stop_gradient=False` is `requires_grad=True`.
 
 `flops` counts the forward's floating-point operations with
-`torch.utils.flop_counter.FlopCounterMode`: matrix products and
+`profiler.program_stats` (`torch.utils.flop_counter.FlopCounterMode`,
+as the reference's `flops` asks its `program_stats`): matrix products and
 convolutions, 2 a multiply-add.  The reference asks XLA's cost analysis,
 which also counts elementwise operations (activations, norms, adds) and
 leaves a convolution's padded taps out, so the two differ by what those
@@ -64,7 +65,7 @@ def flops(net, input_size, custom_ops=None, print_detail=False):
     """The forward's flops on a float32 zero input of `input_size` (as
     given, the batch included), on the network's device, in eval mode
     (each sublayer's mode is restored after)."""
-    from torch.utils.flop_counter import FlopCounterMode
+    from .profiler import program_stats
     modes = [(m, m.training) for m in net.modules()]
     param = next(iter(net.parameters()), None)
     device = param.device if param is not None else resolve_device(None)
@@ -72,9 +73,8 @@ def flops(net, input_size, custom_ops=None, print_detail=False):
     try:
         x = torch.zeros(tuple(input_size), dtype=torch.float32,
                         device=device)
-        with torch.no_grad(), FlopCounterMode(display=False) as counter:
-            net(x)
-        total = int(counter.get_total_flops())
+        with torch.no_grad():
+            total = program_stats(net, x)["flops"]
     finally:
         for m, mode in modes:
             m.training = mode

@@ -41,7 +41,12 @@ down anyway.
 
 Accounting: every delivered call adds one to
 `collective_calls_total{op, axis}` and its payload bytes to
-`collective_bytes_total{op, axis}` in `observability.metrics`.
+`collective_bytes_total{op, axis}` in `observability.metrics`.  While
+telemetry is on (`observability.enable()` installs `_TELEMETRY`), each
+delivered call is also timed on the host and recorded as the JAX
+package records it (`paddle_tpu/distributed/collective.py:182-220`):
+`comms_calls_total{op, axis}`, `comms_bytes_total{op, axis}`, the
+`comms_seconds{op}` histogram and a "comms" trace span.
 """
 from __future__ import annotations
 
@@ -109,6 +114,11 @@ def policy_from_env():
             "PADDLE_TPU_COLLECTIVE_BACKOFF", "0.5")))
 
 
+# the telemetry sink (`observability._CommsTelemetry`) while telemetry
+# is on; None costs a call one global load and a None check
+_TELEMETRY = None
+
+
 def _registry():
     from ..observability import metrics
     return metrics.registry()
@@ -166,9 +176,12 @@ def _accounted(payload_arg):
             axis = bound.arguments.get("axis_name") or _axis_name(
                 bound.arguments.get("group"))
             pol = _POLICY
+            tel = _TELEMETRY
             if pol is None and _chaos._PLAN is None:
+                t0 = time.perf_counter()
                 out = fn(*args, **kwargs)
-                _account(op, axis, bound.arguments.get(payload_arg))
+                _account(op, axis, bound.arguments.get(payload_arg), tel,
+                         t0)
                 return out
             timeout = pol.timeout if pol is not None else None
             retries = pol.retries if pol is not None else 0
@@ -196,11 +209,13 @@ def _accounted(payload_arg):
                                     f"PADDLE_TPU_COLLECTIVE_TIMEOUT or "
                                     f"configure_collectives to exercise "
                                     f"the watchdog path)", RuntimeWarning)
+                    t0 = time.perf_counter()
                     out = _run_with_deadline(
                         lambda: fn(*args, **kwargs), timeout, hang_s)
                     # the delivered attempt only: an abandoned one that
                     # finishes late is not counted twice
-                    _account(op, axis, bound.arguments.get(payload_arg))
+                    _account(op, axis, bound.arguments.get(payload_arg),
+                             tel, t0)
                     return out
                 except (CollectiveTimeout, RuntimeError) as e:
                     reg = _registry()
@@ -225,11 +240,13 @@ def _accounted(payload_arg):
     return deco
 
 
-def _account(op, axis, payload):
+def _account(op, axis, payload, tel=None, t0=None):
     reg = _registry()
+    nbytes = _nbytes(payload)
     reg.counter("collective_calls_total", op=op, axis=axis).inc()
-    reg.counter("collective_bytes_total", op=op, axis=axis).inc(
-        _nbytes(payload))
+    reg.counter("collective_bytes_total", op=op, axis=axis).inc(nbytes)
+    if tel is not None:
+        tel.record(op, nbytes, axis, t0, time.perf_counter() - t0)
 
 
 class ReduceOp:

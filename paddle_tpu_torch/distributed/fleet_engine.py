@@ -35,13 +35,19 @@ the optimizer's own `state_dict` ("step", "{param}/{slot}",
 "LR_Scheduler"), so a state crosses between degrees and into a plain
 `TrainStep`.  `pp_degree` > 1, ZeRO stage 3 and the nonfinite guard
 raise NotImplementedError (ROADMAP.md A11).  With dp 1 and mp 1 the step
-is `TrainStep`'s, op for op.
+is `TrainStep`'s, op for op.  `check_numerics` checks the gradients
+after their reduction and before the clip and the update, as
+`TrainStep` does; the flags are combined over the world with a MIN
+all-reduce, so every rank raises the same error (the JAX step checks
+its global arrays).
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
+from ..framework import debugging as _dbg
+from ..jit.train_step import check_step
 from ..nn.clip import ClipGradByGlobalNorm, ClipGradByNorm
 from ..optimizer.optimizer import _LOW
 from . import mesh as mesh_mod
@@ -75,6 +81,7 @@ class DistributedTrainStep:
         self.optimizer = optimizer
         self.strategy = strategy
         self.batch_axis = batch_axis
+        self._check_numerics = None      # read on the first call
         hc = strategy.hybrid_configs if strategy is not None else {}
         self.sharding_stage = int(hc.get("sharding_stage", 0) or 0)
         if int(hc.get("sharding_degree", 1) or 1) > 1 and \
@@ -217,6 +224,12 @@ class DistributedTrainStep:
         loss.backward()
         self._reduce_grads()
         opt._step_count += 1
+        if self._check_numerics is None:
+            self._check_numerics = _dbg.enabled()
+        if self._check_numerics:
+            world = dist.group.WORLD if dist.is_initialized() and \
+                dist.get_world_size() > 1 else None
+            check_step(self.model, loss, opt._step_count, group=world)
         lr = opt.get_lr()
         self._clip()
         opt.update(lr, opt._step_count)

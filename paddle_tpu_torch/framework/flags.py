@@ -1,10 +1,12 @@
 """Global config flags (counterpart: `paddle_tpu/framework/flags.py`;
 reference: paddle/phi/core/flags + FLAGS_* env vars).
 
-The same store with the same keys and environment variables.  The port
-reads none of them yet: `check_numerics` has no checker in the port, and
-`matmul_precision` is the JAX package's TPU matmul setting (torch's own
-is `torch.set_float32_matmul_precision`).
+The same store with the same keys and environment variables.
+`check_numerics` is read by `framework.debugging` and, on their first
+call, by `jit.TrainStep` and the fleet's `DistributedTrainStep`;
+`matmul_precision` is the JAX package's TPU matmul setting, which the
+port does not read (torch's own is
+`torch.set_float32_matmul_precision`).
 """
 from __future__ import annotations
 

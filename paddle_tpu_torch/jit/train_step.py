@@ -26,11 +26,23 @@ the verdict and may roll back through its CheckpointManager.  The
 chaos site `step.nonfinite` poisons the batch before the forward
 (`resilience.chaos.poison_batch`).  The persistent compile cache of the
 JAX step has no counterpart in an eager step.
+
+`check_numerics` (`framework.debugging`; the flag is read on the first
+call, as the JAX step reads it when it is built): after the backward
+the loss and every gradient are checked on the device and read once on
+the host; a non-finite one raises FloatingPointError naming it, with
+the step number, before the clip and the update, so the parameters and
+the optimizer's slots are as they were; the step counter has advanced,
+as the JAX step's has, and the gradients are dropped.  The JAX step has
+already replaced its optimizer state with the step's outputs when it
+raises (its slots then hold the bad step's moments): the intended
+divergence of ROADMAP.md C.
 """
 from __future__ import annotations
 
 import torch
 
+from ..framework import debugging as _dbg
 from ..resilience import chaos as _chaos
 from ..resilience import guard as _guard
 
@@ -52,6 +64,7 @@ class TrainStep:
         optimizer._name_after(model)
         self._params = [p for p in model.parameters() if p.requires_grad]
         self._guard = guard if guard is not None else _guard.env_guard()
+        self._check_numerics = None      # read on the first call
 
     @property
     def step_count(self):
@@ -71,6 +84,10 @@ class TrainStep:
             loss = _chaos.poison_loss(loss)
         loss.backward()
         opt._step_count += 1
+        if self._check_numerics is None:
+            self._check_numerics = _dbg.enabled()
+        if self._check_numerics:
+            check_step(self.model, loss, opt._step_count)
         lr = opt.get_lr()
         ok = saved = None
         if guard is not None:
@@ -122,6 +139,27 @@ class TrainStep:
         slots were already loaded in place, so the next call uses them."""
         if step is not None:
             self.optimizer._step_count = int(step)
+
+
+def check_step(model, loss, step, group=None):
+    """`check_numerics` after the backward: raise FloatingPointError
+    naming the loss and the parameters (`named_parameters` names) whose
+    values are not finite, the gradients dropped first.  Under
+    torch.distributed the flags are combined over `group` first (a MIN
+    all-reduce), so every rank raises alike."""
+    named = list(model.named_parameters())
+    flags = _dbg.finite_flags(loss, [p.grad for _, p in named])
+    if group is not None:
+        import torch.distributed as dist
+        f = flags.to(torch.int32)
+        dist.all_reduce(f, op=dist.ReduceOp.MIN, group=group)
+        flags = f.bool()
+    ok = flags.tolist()                  # the step's one host read
+    if all(ok):
+        return
+    for _, p in named:
+        p.grad = None
+    _dbg.raise_on_nonfinite(ok, [n for n, _ in named], step)
 
 
 def train_step(model, loss_fn, optimizer, donate=True, guard=None):

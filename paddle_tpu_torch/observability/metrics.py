@@ -1,13 +1,16 @@
 """Metrics registry: counters, gauges and histograms with reservoir
-percentiles, and `snapshot()`.
+percentiles, export-time collectors, and the exports: `snapshot()`,
+JSON lines (`to_jsonl`, one metric a line, sorted keys) and the
+Prometheus text format (`to_prometheus`, histograms as summaries with
+the 0.5 / 0.9 / 0.99 quantiles, `_count` and `_sum`).
 
 Counterpart: `paddle_tpu/observability/metrics.py`, copied in behaviour
-for what the serving engine, pool and scheduler use (the port imports
-nothing of the JAX package).  Left out for now: collectors and the
-JSON-lines / Prometheus exports.
+(the port imports nothing of the JAX package): the same metrics give
+the same text in both.
 """
 from __future__ import annotations
 
+import json
 import math
 import random
 import threading
@@ -27,6 +30,10 @@ class Counter:
     def inc(self, n=1):
         with _VAL_LOCK:
             self._v += n
+
+    def _set_total(self, v):
+        """Collector hook: overwrite with a total kept elsewhere."""
+        self._v = v
 
     @property
     def value(self):
@@ -127,6 +134,7 @@ class MetricsRegistry:
     def __init__(self):
         self._metrics = {}
         self._lock = threading.RLock()
+        self._collectors = []
 
     def _get(self, cls, name, labels, **kwargs):
         key = (name, tuple(sorted(labels.items())))
@@ -149,8 +157,29 @@ class MetricsRegistry:
     def histogram(self, name, reservoir=1024, **labels) -> Histogram:
         return self._get(Histogram, name, labels, reservoir=reservoir)
 
+    # ----------------------------------------------------------- collectors
+    def add_collector(self, fn):
+        """fn(registry) runs before every export, writing values kept
+        outside the registry into it."""
+        with self._lock:
+            if fn not in self._collectors:
+                self._collectors.append(fn)
+        return fn
+
+    def remove_collector(self, fn):
+        with self._lock:
+            if fn in self._collectors:
+                self._collectors.remove(fn)
+
+    def collect(self):
+        for fn in list(self._collectors):
+            fn(self)
+
+    # -------------------------------------------------------------- exports
     def snapshot(self):
-        """[{name, type, labels, ...values}], sorted by name and labels."""
+        """[{name, type, labels, ...values}], sorted by name and labels;
+        the collectors run first."""
+        self.collect()
         with self._lock:
             items = sorted(self._metrics.items())
         out = []
@@ -160,9 +189,58 @@ class MetricsRegistry:
             out.append(rec)
         return out
 
+    def to_jsonl(self) -> str:
+        return "\n".join(json.dumps(rec, sort_keys=True)
+                         for rec in self.snapshot())
+
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition; histograms export as summaries."""
+        lines = []
+        typed = set()
+        for rec in self.snapshot():
+            name, kind, labels = rec["name"], rec["type"], rec["labels"]
+            if kind == "histogram":
+                if name not in typed:
+                    lines.append(f"# TYPE {name} summary")
+                    typed.add(name)
+                for q, key in (("0.5", "p50"), ("0.9", "p90"),
+                               ("0.99", "p99")):
+                    if rec.get(key) is not None:
+                        lines.append(f"{name}"
+                                     f"{_labels(labels, quantile=q)} "
+                                     f"{_num(rec[key])}")
+                lines.append(f"{name}_count{_labels(labels)} {rec['count']}")
+                lines.append(f"{name}_sum{_labels(labels)} "
+                             f"{_num(rec['sum'])}")
+            else:
+                if name not in typed:
+                    lines.append(f"# TYPE {name} {kind}")
+                    typed.add(name)
+                lines.append(f"{name}{_labels(labels)} {_num(rec['value'])}")
+        return "\n".join(lines) + ("\n" if lines else "")
+
     def reset(self):
         with self._lock:
             self._metrics.clear()
+
+
+def _esc(v):
+    return str(v).replace("\\", r"\\").replace('"', r"\"").replace(
+        "\n", r"\n")
+
+
+def _labels(labels, **extra):
+    all_labels = dict(labels, **extra)
+    if not all_labels:
+        return ""
+    inner = ",".join(f'{k}="{_esc(v)}"'
+                     for k, v in sorted(all_labels.items()))
+    return "{" + inner + "}"
+
+
+def _num(v):
+    v = float(v)
+    return repr(int(v)) if v.is_integer() and abs(v) < 2**53 else repr(v)
 
 
 _default = MetricsRegistry()

@@ -807,3 +807,48 @@ def supports(q_shape, k_shape, mask, dtype, v_shape=None, is_causal=False):
     if Lq < 1 or Lk < 1:
         return False
     return True
+
+
+# ------------------------------------------------------------ flop formulas
+def attended_pairs(lq, lk, is_causal, window):
+    """The (query, key) pairs a causal / window layout leaves visible
+    (bottom-right causal, `off = Lk - Lq`; the window keeps cols in
+    (r + off - window, r + off]); every pair without causal.  A mask is
+    data and moves no work of the kernels, so it does not count."""
+    if not is_causal:
+        return lq * lk
+    rows = torch.arange(lq, dtype=torch.int64)
+    hi = (rows + (lk - lq)).clamp(max=lk - 1)
+    lo = (rows + (lk - lq) - window + 1).clamp(min=0) if window \
+        else torch.zeros_like(rows)
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
+def _register_flop_formulas():
+    """FLOP formulas of the two operators for
+    `torch.utils.flop_counter.FlopCounterMode` (`api.flops`,
+    `profiler.program_stats`), which counts no custom operator without
+    one: the forward's two products (S = Q K^T, O = P V) at 2 flops a
+    multiply-add over the visible pairs, the backward's four (dV, dP,
+    dQ, dK), twice the forward's, as SDPA's formulas count them (the
+    kernels' recomputation of S is not model work)."""
+    from torch.utils.flop_counter import register_flop_formula
+
+    def forward_flops(q_shape, k_shape, is_causal, window):
+        B, Lq, H, D = q_shape
+        return 4 * B * H * D * attended_pairs(Lq, k_shape[1], is_causal,
+                                              window)
+
+    @register_flop_formula(torch.ops.paddle_tpu_torch.flash_fwd)
+    def _fwd(q_shape, k_shape, v_shape, mask_shape, is_causal, scale,
+             window, *args, out_shape=None, **kwargs):
+        return forward_flops(q_shape, k_shape, is_causal, window)
+
+    @register_flop_formula(torch.ops.paddle_tpu_torch.flash_bwd)
+    def _bwd(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape,
+             mask_shape, is_causal, scale, window, *args, out_shape=None,
+             **kwargs):
+        return 2 * forward_flops(q_shape, k_shape, is_causal, window)
+
+
+_register_flop_formulas()

@@ -232,3 +232,27 @@ def _paged_decode_op_cuda(q, k_pool, v_pool, tables, lens, scale):
 @paged_decode_op.register_fake
 def _paged_decode_op_fake(q, k_pool, v_pool, tables, lens, scale):
     return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+def _register_flop_formula():
+    """The operator's FLOP formula for
+    `torch.utils.flop_counter.FlopCounterMode`: Q K^T and P V over each
+    row's `lens` tokens, 2 flops a multiply-add, every head.  `lens` is
+    read from the tensor (a host read); a traced call (fake `lens`)
+    counts the table's whole width instead."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.paddle_tpu_torch.paged_decode,
+                           get_raw=True)
+    def _flops(q, k_pool, v_pool, tables, lens, scale, *args, out_val=None,
+               **kwargs):
+        B, _, H, D = q.shape
+        if isinstance(lens, FakeTensor):
+            tokens = B * tables.shape[1] * k_pool.shape[1]
+        else:
+            tokens = int(lens.sum())
+        return 4 * H * D * tokens
+
+
+_register_flop_formula()

@@ -9,7 +9,8 @@ and neither does a serving worker process after it has served, nor a
 rank the distributed launcher started after its collectives, nor a
 DataLoader worker process (`test_torch_io.py`); and the port's entry
 points raise, rather than run on the CPU, when no device is named and
-there is no CUDA device.
+there is no CUDA device (the top-level creation and random functions
+and `fft.fftfreq` / `rfftfreq` among them).
 """
 import ast
 import os
@@ -202,7 +203,10 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.analysis.cli, paddle_tpu_torch.analysis.core, "
             "paddle_tpu_torch.analysis.registry_audit, "
             "paddle_tpu_torch.analysis.rules, "
-            "paddle_tpu_torch.analysis.taint\n"
+            "paddle_tpu_torch.analysis.taint, paddle_tpu_torch.tensor_api, "
+            "paddle_tpu_torch.linalg, paddle_tpu_torch.fft, "
+            "paddle_tpu_torch.signal, paddle_tpu_torch.profiler, "
+            "paddle_tpu_torch.framework.debugging\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN | {'transformers'})!r})\n"
             "assert not bad, bad\n")
@@ -230,6 +234,22 @@ def test_entry_points_raise_without_a_device(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BlockPool(num_layers=1, num_blocks=4, block_size=4, num_kv_heads=2,
                   head_dim=8)
+    # the creation and random functions of the top level
+    P = paddle_tpu_torch
+    makers = {"zeros": ([2],), "ones": ([2],), "full": ([2], 1.0),
+              "empty": ([2],), "arange": (3,), "linspace": (0, 1, 3),
+              "logspace": (0, 1, 3), "eye": (2,), "rand": ([2],),
+              "randn": ([2],), "uniform": ([2],), "normal": (0.0, 1.0, [2]),
+              "randint": (0, 5, [2]), "randperm": (4,),
+              "tril_indices": (3,), "triu_indices": (3,)}
+    for name, args in makers.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            getattr(P, name)(*args)
+        assert getattr(P, name)(*args, device="cpu").device.type == "cpu"
+    for fn in (P.fft.fftfreq, P.fft.rfftfreq):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(4)
+        assert fn(4, device="cpu").device.type == "cpu"
     # naming the CPU is the way to run there
     assert next(GPTForCausalLM(cfg, device="cpu").parameters()).device \
         == torch.device("cpu")

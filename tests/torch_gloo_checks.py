@@ -324,3 +324,42 @@ def sync_batch_norm(seed):
     (out * proj).sum().backward()
     return {"out": out.detach().numpy(), "grad": mine.grad.numpy(),
             "mean": bn._mean.numpy(), "variance": bn._variance.numpy()}
+
+
+# ---------------------------------------------------------- check_numerics
+def check_numerics():
+    """dp 2: one good step, then a step in which rank 1 alone feeds NaN
+    rows: every rank raises FloatingPointError with the same message
+    (the flags are combined over the ranks) and keeps its parameters."""
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.framework import flags
+    flags.set_flags({"check_numerics": True})
+    _init({"dp_degree": 2})
+    torch.manual_seed(0)
+    model = tnn.Sequential(tnn.Linear(4, 4, device="cpu"))
+    opt = O.SGD(learning_rate=0.1, parameters=model.parameters())
+    step = fleet.build_train_step(
+        model, lambda m, x: (m(x) ** 2).mean() * x.sum(), opt)
+    x = torch.arange(16, dtype=torch.float32).reshape(4, 4) / 16
+    step(x)
+    before = [p.detach().clone() for p in model.parameters()]
+    bad = x.clone()
+    bad[2:] = float("nan")            # rank 1's rows
+    try:
+        step(bad)
+    except FloatingPointError as e:
+        message = str(e)
+    else:
+        raise AssertionError("no FloatingPointError")
+    mine = torch.tensor([ord(c) for c in message.ljust(120)],
+                        dtype=torch.int32)
+    theirs = mine.clone()
+    C.broadcast(theirs, src=0)
+    unchanged = all(torch.equal(a, b)
+                    for a, b in zip(before, model.parameters()))
+    flags.set_flags({"check_numerics": False})
+    reset()
+    return {"message": np.asarray(message),
+            "unchanged": np.asarray([unchanged]),
+            "same_message": np.asarray([torch.equal(mine, theirs)])}
