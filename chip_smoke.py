@@ -60,7 +60,7 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    by shape, dtype, range and seed determinism, as many
                    functions run as there are public names; the
                    functions that synchronised with the host printed;
-4. serve         — GPT-3 1.3B (full width, 12 of its 24 layers:
+4. serve         — GPT-3 1.3B (full width, 6 of its 24 layers:
                    SERVE_LAYERS, bf16, random weights
                    from a seed) served by LLMEngine: 16 requests, 32 greedy
                    tokens each; every request must finish, the pool must be
@@ -77,7 +77,7 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    engine and served: tokens/s, decode step, TTFT, peak
                    memory beside serve's, a profile of AOT decode steps;
                    every call through a package, paged launches (called
-                   back from the packages) = steps x 12, no plain sdpa,
+                   back from the packages) = steps x 6, no plain sdpa,
                    no leak, bf16 tokens within MARGIN_TOL of a float32
                    forward's maximum;
 5. e2e           — the same width at 2 layers in float32: the engine's
@@ -91,7 +91,7 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    processes (ProcReplica, each its own CUDA context),
                    GPT-3 1.3B bf16: tokens/s and the router's TTFT beside
                    serve's, each worker's decode steps, paged launches
-                   (= steps x 12), plain sdpa calls (0), peak memory,
+                   (= steps x 6), plain sdpa calls (0), peak memory,
                    build, first-step and spawn-to-ready seconds; every
                    request finishes, no leak, no orphan, the workers'
                    probe logits equal the parent's bit for bit; worker
@@ -217,6 +217,39 @@ It builds the port's CUDA kernels from `paddle_tpu_torch/csrc/` into
                    then 3 steps with batch norm in train mode, card
                    against CPU (logits, losses, parameters, running
                    statistics);
+18a. mobilenet_train — MobileNetV3-Large (Howard et al. 2019, Table 1),
+                   1,000 classes, 224 x 224, batch 256, pure bf16
+                   (amp.decorate(master_weight=False)), Momentum(0.1,
+                   0.9), TrainStep under NonfiniteGuard, cuDNN's
+                   autotuner on: images/s, step p50/p99, MFU (3 x
+                   program_stats of a forward), peak memory, losses (the
+                   first within 2 of ln 1000); a step on a batch with a
+                   NaN skipped with every parameter and buffer bit-equal
+                   (C11: the verdict on bf16 gradients); the verdict's
+                   device ms beside the fused float32 check;
+18b. vision_e2e  — one builder of each zoo family at its published
+                   resolution (LeNet 28, InceptionV3 299, the rest 224),
+                   an eval forward at batch 2 in float32 (TF32 off), card
+                   against CPU within VISION_E2E_TOL; then 3 training
+                   steps of mobilenet_v3_small(scale=0.5), judged as
+                   resnet_e2e judges;
+18c. vision_ops  — every detection op at its users' sizes, card against
+                   CPU in float32, with its ms a call: roi_align (Faster
+                   R-CNN R50-FPN's box head, forward and backward),
+                   roi_pool (Fast R-CNN VGG16), psroi_pool (R-FCN),
+                   deform_conv2d (DCNv2, ResNet-50 stage 4, forward and
+                   backward), nms (2,000 boxes; 80 classes over 1,000,
+                   top_k 100), generate_proposals (an RPN at stride 16
+                   over 800 x 1344, 6,000 -> 1,000) and
+                   distribute_fpn_proposals of its proposals, box_coder
+                   (1,000 priors), yolo_box and yolo_loss (forward and
+                   backward) on YOLOv3-608's three heads;
+18d. quantization — MobileNetV3-Large in float32 at batch 64: QAT for 3
+                   steps then convert, PTQ over 4 calibration batches
+                   then convert; each converted model's top-1 agreement
+                   and largest logit gap against its fake-quant model;
+                   the classifier's Int8Linear int32 products bit-equal
+                   card and CPU;
 19. bert         — BERT-base fine-tuned as bench.py::run_bert runs it
                    (BertConfig(), 2 classes, AdamW(2e-5), AMP O2 bf16
                    without master weights, TrainStep, batch 32, seq 128):
@@ -426,7 +459,8 @@ launch on none of them (asserted, `on_main_paths: false`).  The paged
 kernel's launches are serve's, serve_aot's, serve_aot_e2e's,
 serve_llama's, the workers' of 5b-5c, moe_serve's and moe_e2e's.
 The phases run in this order: 1, 1a's start, 2, 3, 3a, 5, 6-7, 8, 9, 10,
-13-22, 24-34, 34a, 35, 36 (beside 1a's compiles), 1a's wait, 4, 4a,
+13-18, 18a-18d, 19-22, 24-34, 34a, 35, 36 (beside 1a's compiles), 1a's
+wait, 4, 4a,
 5a, 5b, 5c, 23,
 11, 12.  Each phase prints one JSON line.  Then a phase_seconds line
 (each phase's wall seconds, the build and the wait for the compiles
@@ -846,11 +880,11 @@ def phase_e2e():
 # ---------------------------------------------------------- AOT serving
 # serve's engine settings: the inventory is the decode program and the
 # prefill buckets 32, 64, 128, 256 and 512 of the default ladder
-# serve, serve_aot and serve_router (compared with one another) run 12 of
-# GPT-3 1.3B's 24 layers at full width: the depth sets serve_aot's
-# compile, the longest job of aot_compile (407.8 s at 24 layers on a slow
-# host, PR 17)
-SERVE_LAYERS = 12
+# serve, serve_aot and serve_router (compared with one another) run 6 of
+# GPT-3 1.3B's 24 layers at full width (12 until the vision phases took
+# their time): the depth sets serve_aot's compile, the longest job of
+# aot_compile
+SERVE_LAYERS = 6
 SERVE_ENGINE = dict(num_blocks=2048, block_size=16, max_running=16,
                     prefill_chunk=512)
 # a package holds no weights: each must be under this share of them
@@ -3794,6 +3828,593 @@ def phase_resnet_e2e(steps=3, batch=8, image=64):
                      rec[fmt]["cpu_float32_vs_float64"])
         for k, floor in floors.items():
             assert card[k] <= max(floor, 4 * cpu[k]), (fmt, k, card, cpu)
+
+
+# ------------------------------------------------- the vision zoo, slice 16
+def event_ms(fn, iters=5, warmup=1):
+    """Mean ms of fn() over `iters` calls between two CUDA events (host
+    syncs inside fn included), after `warmup` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def no_dropout(model):
+    """Dropout off (card and CPU runs draw no masks); returns model."""
+    from paddle_tpu_torch.nn import Dropout
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    return model
+
+
+def phase_mobilenet_train(batch=256, steps=10, warmup=3):
+    """MobileNetV3-Large (Howard et al. 2019, Table 1; the reference's
+    `mobilenet_v3_large(scale=1.0)`), 1,000 classes, 224 x 224, batch
+    256, trained in pure bf16 (`amp.decorate(master_weight=False)`) with
+    Momentum(0.1, 0.9) and cross entropy through `TrainStep(...,
+    guard=NonfiniteGuard())`, cuDNN's autotuner on: 3 warm-up and 10
+    timed steps (images/s, step p50/p99, peak memory, MFU = 3 x one
+    forward's FLOPs from `profiler.program_stats` x images/s / 989e12).
+    Gates: the first loss within 2 of ln 1000, every loss finite.  Then
+    a step on the batch with one NaN: the guard skips it, every
+    parameter and buffer bit-equal (C11: the verdict on bf16
+    gradients).  Then the verdict's ms between CUDA events on these
+    gradients (`guard.all_finite`: bf16 through `grad_flags`, one
+    multi-tensor norm), and on float32 copies of them (the fused
+    `_amp_foreach_non_finite_check_and_unscale_`, which takes no bf16 on
+    the card) beside `grad_flags` on the same copies."""
+    from paddle_tpu_torch import amp, profiler
+    from paddle_tpu_torch.framework import debugging
+    from paddle_tpu_torch.jit import train_step
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.resilience import NonfiniteGuard
+    from paddle_tpu_torch.resilience import guard as rguard
+    from paddle_tpu_torch.vision.models import mobilenet_v3_large
+
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    model = mobilenet_v3_large(num_classes=1000, device="cuda",
+                               generator=torch.Generator("cuda")
+                               .manual_seed(0))
+    opt = Momentum(learning_rate=0.1, momentum=0.9,
+                   parameters=model.parameters())
+    model, opt = amp.decorate(models=model, optimizers=opt,
+                              dtype="bfloat16", master_weight=False)
+    guard = NonfiniteGuard()
+    step = train_step(model, ce_loss, opt, guard=guard)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(batch, 3, 224, 224, generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    y = torch.randint(0, 1000, (batch,), generator=g, device="cuda")
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(warmup + steps):
+        t0 = time.perf_counter()
+        losses.append(step(x, y).item())
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    timed = np.array(times[warmup:])
+    ips = steps * batch / float(timed.sum())
+    fwd_flops = profiler.program_stats(lambda: model(x))["flops"]
+    # the poisoned step: a NaN in the batch makes the loss and every
+    # gradient NaN; the guard must skip it on bf16 gradients
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    bad = x.clone()
+    bad[0, 0, 0, 0] = float("nan")
+    skipped_before = guard.total_skipped
+    poisoned = step(bad, y).item()
+    skipped = guard.total_skipped - skipped_before
+    unchanged = all(torch.equal(state[k], v)
+                    for k, v in model.state_dict().items())
+    # the verdict's device time on this model's gradients
+    loss = ce_loss(model, x, y)
+    loss.backward()
+    grads = [p.grad for p in model.parameters()]
+    f32 = [gr.float() for gr in grads]
+    verdict_ms = {
+        "all_finite_bf16": event_ms(lambda: rguard.all_finite(loss, grads),
+                                    iters=20),
+        "all_finite_fp32": event_ms(lambda: rguard.all_finite(loss, f32),
+                                    iters=20)}
+    verdict_ms["grad_flags_fp32"] = event_ms(
+        lambda: debugging.grad_flags(f32, loss.device), iters=20)
+    grad_bytes = sum(gr.numel() * gr.element_size() for gr in grads)
+    model.zero_grad(set_to_none=True)
+    torch.backends.cudnn.benchmark = bench
+    rec = {"phase": "mobilenet_train", "model": "mobilenet_v3_large",
+           "scale": 1.0, "classes": 1000, "image": 224, "batch": batch,
+           "dtype": "bfloat16", "amp": "O2, master_weight=False",
+           "optimizer": "Momentum(0.1, 0.9)", "guard": "NonfiniteGuard",
+           "params": sum(p.numel() for p in model.parameters()),
+           "warmup_steps": warmup, "timed_steps": steps,
+           "images_per_s": ips,
+           "step_p50_ms": float(np.percentile(timed, 50)) * 1e3,
+           "step_p99_ms": float(np.percentile(timed, 99)) * 1e3,
+           "step_ms": [t * 1e3 for t in times],
+           "forward_flops_per_image": fwd_flops / batch,
+           "mfu": 3 * fwd_flops / batch * ips / BF16_FLOPS,
+           "mfu_formula": "3 x program_stats(forward) / batch x images/s "
+                          "/ 989e12",
+           "peak_memory_gib": peak, "losses": losses,
+           "poisoned_loss": poisoned, "poisoned_skipped": skipped,
+           "poisoned_state_bit_equal": unchanged,
+           "grad_bytes": grad_bytes, "verdict_ms": verdict_ms,
+           "card": card_name_power()}
+    emit(rec)
+    del step, opt, model, x, bad, grads, f32, loss
+    release()
+    assert all(np.isfinite(losses)), losses
+    assert abs(losses[0] - np.log(1000)) < 2.0, losses[0]
+    assert not np.isfinite(poisoned) and skipped == 1 and unchanged, rec
+
+
+# (builder, kwargs, input shape) of vision_e2e's eval forwards: one
+# builder of each family at its published resolution
+VISION_E2E_MODELS = [
+    ("LeNet", {}, (1, 28, 28)), ("alexnet", {}, (3, 224, 224)),
+    ("vgg11", {}, (3, 224, 224)), ("squeezenet1_1", {}, (3, 224, 224)),
+    ("mobilenet_v1", {}, (3, 224, 224)), ("mobilenet_v2", {}, (3, 224, 224)),
+    ("mobilenet_v3_small", {}, (3, 224, 224)),
+    ("shufflenet_v2_x1_0", {}, (3, 224, 224)),
+    ("densenet121", {}, (3, 224, 224)), ("googlenet", {}, (3, 224, 224)),
+    ("resnext50_32x4d", {}, (3, 224, 224)),
+    ("inception_v3", {}, (3, 299, 299))]
+# eval logits, card against CPU (float32 both, TF32 off): relative to
+# the largest CPU logit; cuDNN and oneDNN sum in other orders
+VISION_E2E_TOL = 1e-4
+
+
+def phase_vision_e2e(batch=2, steps=3, train_batch=8, image=64):
+    """The zoo card against the port's CPU path, float32 with TF32 off:
+    an eval forward at batch 2 of one builder of each family at its
+    published resolution (`VISION_E2E_MODELS`; the weights drawn on the
+    card from a seed and copied to the CPU), logits within
+    VISION_E2E_TOL of the largest CPU logit (GoogLeNet's three heads
+    each); then 3 training steps of `mobilenet_v3_small(scale=0.5)` (10
+    classes, batch 8 at 64 x 64, dropout off, Momentum(0.01, 0.9)),
+    judged as resnet_e2e judges: card and CPU float32 each against a
+    CPU float64 run (logits, losses, parameters, running statistics),
+    the card's error within 4x the CPU float32's or under the floor."""
+    import copy
+
+    import paddle_tpu_torch.vision.models as zoo
+    from paddle_tpu_torch.jit import train_step
+    from paddle_tpu_torch.optimizer import Momentum
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(7)
+    rec = {"phase": "vision_e2e", "dtype": "float32", "tf32": False,
+           "batch": batch, "tol": VISION_E2E_TOL, "forwards": {}}
+    for i, (name, kw, shape) in enumerate(VISION_E2E_MODELS):
+        card = getattr(zoo, name)(device="cuda", **kw, generator=torch
+                                  .Generator("cuda").manual_seed(i))
+        cpu = getattr(zoo, name)(device="cpu", **kw)
+        cpu.load_state_dict(card.state_dict())
+        x = torch.from_numpy(rng.standard_normal((batch,) + shape)
+                             .astype(np.float32))
+        with torch.no_grad():
+            got = card.eval()(x.cuda())
+            want = cpu.eval()(x)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        errs = [float((a.cpu() - b).abs().max() / b.abs().max())
+                for a, b in zip(got, want)]
+        rec["forwards"][name] = {
+            "input": list((batch,) + shape), "heads": len(got),
+            "params": sum(p.numel() for p in card.parameters()),
+            "logit_scale": float(want[0].abs().max()),
+            "rel_err": max(errs), "finite": all(
+                bool(torch.isfinite(a).all()) for a in got)}
+        del card, cpu, got, want
+    release()
+    # 3 training steps, judged against a CPU float64 run
+    x = rng.standard_normal((train_batch, 3, image, image)).astype(
+        np.float32)
+    xf = torch.from_numpy(x)
+    y = torch.from_numpy(rng.integers(0, 10, train_batch))
+    floors = {"logits": 1e-4, "losses": 1e-4, "params": 1e-3,
+              "running_stats": 1e-3}
+    card = no_dropout(zoo.mobilenet_v3_small(
+        scale=0.5, num_classes=10, device="cuda",
+        generator=torch.Generator("cuda").manual_seed(20)))
+    cpu = no_dropout(zoo.mobilenet_v3_small(scale=0.5, num_classes=10,
+                                            device="cpu"))
+    cpu.load_state_dict(card.state_dict())
+    ref = copy.deepcopy(cpu).double()
+    init = {n: p.detach().double().clone() for n, p in ref.named_parameters()}
+    runs = {"card": (card, "cuda", torch.float32),
+            "cpu": (cpu, "cpu", torch.float32),
+            "ref": (ref, "cpu", torch.float64)}
+    out = {}
+    for name, (model, dev, dt) in runs.items():
+        with torch.no_grad():
+            logits = model.eval()(xf.to(dev, dt)).double().cpu()
+        model.train()
+        step = train_step(model, ce_loss,
+                          Momentum(learning_rate=0.01, momentum=0.9,
+                                   parameters=model.parameters()))
+        losses = [step(xf.to(dev, dt), y.to(dev)).item()
+                  for _ in range(steps)]
+        out[name] = (logits, losses,
+                     {n: p.detach().double().cpu()
+                      for n, p in model.named_parameters()},
+                     {n: b.double().cpu() for n, b in model.named_buffers()})
+    rl, rloss, rp, rb = out["ref"]
+    moved = sum(float((rp[n] - init[n]).square().sum()) for n in rp)
+    errs = {}
+    for name in ("card", "cpu"):
+        lg, ls, ps, bs = out[name]
+        errs[name] = {
+            "logits": float((lg - rl).abs().max() / rl.abs().max()),
+            "losses": max(abs(a - b) / abs(b) for a, b in zip(ls, rloss)),
+            "params": (sum(float((ps[n] - rp[n]).square().sum())
+                           for n in rp) / moved) ** 0.5,
+            "running_stats": max(float((bs[n] - b).abs().max()
+                                       / b.abs().max().clamp(min=1e-6))
+                                 for n, b in rb.items())}
+    rec["train"] = {"model": "mobilenet_v3_small(scale=0.5), 10 classes",
+                    "batch": train_batch, "image": image, "steps": steps,
+                    "optimizer": "Momentum(0.01, 0.9)", "dropout": "off",
+                    "floors": floors,
+                    "rule": "card error <= max(floor, 4 x CPU float32 "
+                            "error), both against CPU float64",
+                    "card_losses": out["card"][1],
+                    "cpu_losses": out["cpu"][1], "ref_losses": rloss,
+                    "card_vs_float64": errs["card"],
+                    "cpu_float32_vs_float64": errs["cpu"]}
+    emit(rec)
+    del card, cpu, ref, runs, out
+    release()
+    for name, f in rec["forwards"].items():
+        assert f["finite"] and f["rel_err"] <= VISION_E2E_TOL, (name, f)
+    for k, floor in floors.items():
+        assert errs["card"][k] <= max(floor, 4 * errs["cpu"][k]), (
+            k, errs)
+
+
+# card against CPU, float32 with TF32 off: values relative to the largest
+# CPU value; the gradients, summed by atomics on the card, a little wider.
+# The ops divide by a number correctly rounded (`vision.ops._div`): CUDA
+# divides a tensor by a Python number as a product with its reciprocal,
+# which moved roi_pool's bin edges (0.96 of the largest value) and
+# roi_align's samples (2.6e-5) on an H100 before the ops divided so
+VISION_OPS_TOL = 1e-5
+VISION_OPS_GRAD_TOL = 1e-4
+COCO_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326]
+YOLO_HEADS = [(19, [6, 7, 8], 32), (38, [3, 4, 5], 16), (76, [0, 1, 2], 8)]
+
+
+def rand_boxes(rng, n, w, h, lo=8.0, hi=0.4):
+    """n boxes (x1, y1, x2, y2) inside w x h, sides lo .. hi x the side."""
+    x1 = rng.uniform(0, w - lo, n)
+    y1 = rng.uniform(0, h - lo, n)
+    x2 = np.minimum(x1 + rng.uniform(lo, hi * w, n), w)
+    y2 = np.minimum(y1 + rng.uniform(lo, hi * h, n), h)
+    return np.stack([x1, y1, x2, y2], 1).astype(np.float32)
+
+
+def rpn_anchors(H, W, stride=16, sizes=(32, 64, 128, 256, 512),
+                ratios=(0.5, 1.0, 2.0)):
+    """[H, W, 15, 4] anchors of a stride-16 RPN, 5 sizes x 3 ratios."""
+    cy, cx = np.meshgrid((np.arange(H) + 0.5) * stride,
+                         (np.arange(W) + 0.5) * stride, indexing="ij")
+    wh = np.array([(s * np.sqrt(1 / r), s * np.sqrt(r)) for s in sizes
+                   for r in ratios])
+    half = wh / 2
+    return np.stack([cx[..., None] - half[:, 0], cy[..., None] - half[:, 1],
+                     cx[..., None] + half[:, 0], cy[..., None] + half[:, 1]],
+                    -1).astype(np.float32)
+
+
+def phase_vision_ops():
+    """Each detection op at a size its users run, card against the
+    port's CPU path in float32 (TF32 off), with its ms a call between
+    CUDA events (host reads inside included): roi_align at Faster R-CNN
+    R50-FPN's box head (P2 of an 800 x 1344 batch, 512 RoIs an image,
+    forward and backward), roi_pool at Fast R-CNN VGG16's conv5,
+    psroi_pool at R-FCN's, deform_conv2d at DCNv2 on ResNet-50's stage 4
+    (forward and backward), nms over 2,000 boxes and per class over 80
+    classes, generate_proposals at an RPN's P4 with
+    distribute_fpn_proposals of its proposals, box_coder over 1,000
+    priors, yolo_box and yolo_loss (forward and backward) on YOLOv3-608's
+    three heads.  Values within VISION_OPS_TOL (gradients
+    VISION_OPS_GRAD_TOL) of the largest CPU value; index outputs equal."""
+    from paddle_tpu_torch.vision import ops as V
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(11)
+    res = {}
+
+    def rel(a, b):
+        b = b.detach().double().cpu()
+        return float((a.detach().double().cpu() - b).abs().max()
+                     / b.abs().max().clamp(min=1e-30))
+
+    def both(fn, arrays, grad=(), seed=0):
+        """fn on the card and on the CPU over the same arrays, those at
+        the indices `grad` differentiated through sum(out * w): (card
+        out, CPU out, each gradient's error, ms forward, ms forward and
+        backward)."""
+        outs, grads = {}, {}
+
+        def inputs(dev):
+            return [torch.tensor(a, device=dev, requires_grad=i in grad)
+                    for i, a in enumerate(arrays)]
+        for dev in ("cuda", "cpu"):
+            ts = inputs(dev)
+            o = fn(*ts)
+            if grad:
+                w = torch.from_numpy(np.random.default_rng(seed)
+                                     .standard_normal(o.shape)
+                                     .astype(np.float32)).to(dev)
+                (o * w).sum().backward()
+                grads[dev] = [ts[i].grad for i in grad]
+            outs[dev] = o.detach()
+        cuda_in = inputs("cuda")
+        ms = event_ms(lambda: fn(*cuda_in))
+        ms_bwd = None
+        if grad:
+            w = torch.ones_like(outs["cuda"])
+            ms_bwd = event_ms(lambda: (fn(*cuda_in) * w).sum().backward())
+        gerr = [rel(a, b) for a, b in zip(grads.get("cuda", []),
+                                          grads.get("cpu", []))]
+        return outs["cuda"], outs["cpu"], gerr, ms, ms_bwd
+
+    # roi_align: Faster R-CNN R50-FPN's box head on P2
+    x = rng.standard_normal((2, 256, 200, 336)).astype(np.float32)
+    boxes = rand_boxes(rng, 1024, 1344, 800)
+    num = np.array([512, 512], np.int32)
+    c, p, gerr, ms, msb = both(
+        lambda a, b, n: V.roi_align(a, b, n, 7, 0.25, 2, True),
+        [x, boxes, num], grad=(0,))
+    res["roi_align"] = {"x": list(x.shape), "rois": 1024, "output": [7, 7],
+                        "spatial_scale": 0.25, "sampling_ratio": 2,
+                        "aligned": True, "rel_err": rel(c, p),
+                        "grad_rel_err": gerr, "ms": ms,
+                        "fwd_bwd_ms": msb}
+    # roi_pool: Fast R-CNN VGG16's conv5
+    x = rng.standard_normal((2, 512, 38, 50)).astype(np.float32)
+    boxes = rand_boxes(rng, 256, 800, 600, lo=16)
+    num = np.array([128, 128], np.int32)
+    c, p, _, ms, _ = both(lambda a, b, n: V.roi_pool(a, b, n, 7, 1 / 16),
+                          [x, boxes, num])
+    res["roi_pool"] = {"x": list(x.shape), "rois": 256, "output": [7, 7],
+                       "spatial_scale": 1 / 16, "rel_err": rel(c, p),
+                       "ms": ms}
+    # psroi_pool: R-FCN (21 classes x 7 x 7 score maps)
+    x = rng.standard_normal((2, 1029, 38, 50)).astype(np.float32)
+    boxes = rand_boxes(rng, 600, 800, 600, lo=16)
+    num = np.array([300, 300], np.int32)
+    c, p, _, ms, _ = both(lambda a, b, n: V.psroi_pool(a, b, n, 7, 1 / 16),
+                          [x, boxes, num])
+    res["psroi_pool"] = {"x": list(x.shape), "rois": 600, "output": [7, 7],
+                         "rel_err": rel(c, p), "ms": ms}
+    # deform_conv2d: DCNv2 in ResNet-50's stage 4
+    x = rng.standard_normal((2, 256, 50, 84)).astype(np.float32)
+    off = rng.standard_normal((2, 18, 50, 84)).astype(np.float32)
+    mask = rng.uniform(0, 1, (2, 9, 50, 84)).astype(np.float32)
+    wgt = (rng.standard_normal((256, 256, 3, 3)) * 0.03).astype(np.float32)
+    c, p, gerr, ms, msb = both(
+        lambda a, o, w, m: V.deform_conv2d(a, o, w, padding=1, mask=m),
+        [x, off, wgt, mask], grad=(0, 1, 2, 3))
+    res["deform_conv2d"] = {"x": list(x.shape), "out_channels": 256,
+                            "kernel": 3, "mask": True, "rel_err": rel(c, p),
+                            "grad_rel_err": gerr, "ms": ms,
+                            "fwd_bwd_ms": msb}
+    # nms: 2,000 boxes at 0.7, then 80 classes over 1,000 boxes
+    boxes = rand_boxes(rng, 2000, 1344, 800)
+    scores = rng.uniform(0, 1, 2000).astype(np.float32)
+    kc = V.nms(torch.from_numpy(boxes).cuda(),
+               torch.from_numpy(scores).cuda(), 0.7)
+    kp = V.nms(torch.from_numpy(boxes), torch.from_numpy(scores), 0.7)
+    bc, sc = torch.from_numpy(boxes).cuda(), torch.from_numpy(scores).cuda()
+    res["nms"] = {"boxes": 2000, "iou_threshold": 0.7, "kept": len(kc),
+                  "equal": torch.equal(kc.cpu(), kp),
+                  "ms": event_ms(lambda: V.nms(bc, sc, 0.7))}
+    boxes, scores = boxes[:1000], scores[:1000]
+    cls = rng.integers(0, 80, 1000)
+    kw = dict(iou_threshold=0.5, categories=list(range(80)), top_k=100)
+    kc = V.nms(torch.from_numpy(boxes).cuda(),
+               torch.from_numpy(scores).cuda(),
+               category_idxs=torch.from_numpy(cls).cuda(), **kw)
+    kp = V.nms(torch.from_numpy(boxes), torch.from_numpy(scores),
+               category_idxs=torch.from_numpy(cls), **kw)
+    cc = torch.from_numpy(cls).cuda()
+    res["nms_per_class"] = {
+        "boxes": 1000, "classes": 80, "iou_threshold": 0.5, "top_k": 100,
+        "kept": len(kc), "equal": torch.equal(kc.cpu(), kp),
+        "ms": event_ms(lambda: V.nms(bc[:1000], sc[:1000],
+                                     category_idxs=cc, **kw))}
+    # generate_proposals: an RPN over a stride-16 map of an 800 x 1344
+    # image, then the FPN levels of its proposals
+    H, W = 50, 84
+    arrays = [rng.standard_normal((2, 15, H, W)).astype(np.float32),
+              (rng.standard_normal((2, 60, H, W)) * 0.2).astype(np.float32),
+              np.array([[800, 1344], [800, 1344]], np.float32),
+              rpn_anchors(H, W), np.ones((H, W, 15, 4), np.float32)]
+    gp = dict(pre_nms_top_n=6000, post_nms_top_n=1000, nms_thresh=0.7,
+              min_size=0.0)
+    outs = {dev: V.generate_proposals(
+        *[torch.from_numpy(a).to(dev) for a in arrays], **gp)
+        for dev in ("cuda", "cpu")}
+    (rc, sc_, nc), (rp, sp, np_) = outs["cuda"], outs["cpu"]
+    card_in = [torch.from_numpy(a).cuda() for a in arrays]
+    res["generate_proposals"] = {
+        "scores": [2, 15, H, W], **gp, "rois_num": nc.tolist(),
+        "nums_equal": torch.equal(nc.cpu(), np_),
+        "rel_err": rel(rc, rp) if torch.equal(nc.cpu(), np_) else None,
+        "ms": event_ms(lambda: V.generate_proposals(*card_in, **gp),
+                       iters=3)}
+    lv = {dev: V.distribute_fpn_proposals(outs[dev][0], 2, 5, 4, 224)
+          for dev in ("cuda", "cpu")}
+    res["distribute_fpn_proposals"] = {
+        "rois": int(rc.shape[0]), "levels": [2, 5], "refer_level": 4,
+        "refer_scale": 224,
+        "per_level": [int(n) for n in lv["cuda"][2]],
+        "equal": all(torch.equal(a.cpu(), b) for a, b in
+                     zip(lv["cuda"][2], lv["cpu"][2]))
+        and torch.equal(lv["cuda"][1].cpu(), lv["cpu"][1]),
+        "ms": event_ms(lambda: V.distribute_fpn_proposals(rc, 2, 5, 4, 224))}
+    # box_coder: 1,000 priors, encode 1,000 targets then decode
+    pri = rand_boxes(rng, 1000, 1.0, 1.0, lo=0.02)
+    tgt = rand_boxes(rng, 1000, 1.0, 1.0, lo=0.02)
+    var = np.array([0.1, 0.1, 0.2, 0.2], np.float32)
+
+    def coder(a, t, v):
+        enc = V.box_coder(a, v, t)
+        return V.box_coder(a, v, enc, "decode_center_size", axis=1)
+    c, p, _, ms, _ = both(coder, [pri, tgt, var])
+    res["box_coder"] = {"priors": 1000, "targets": 1000,
+                        "rel_err": rel(c, p), "ms": ms,
+                        "roundtrip_err": float((c.cpu()[torch.arange(1000),
+                                                       torch.arange(1000)]
+                                                - torch.from_numpy(tgt))
+                                               .abs().max())}
+    # YOLOv3-608's three heads: yolo_box, then yolo_loss with its backward
+    gt = np.zeros((8, 50, 4), np.float32)
+    gt[..., :2] = rng.uniform(0.05, 0.95, (8, 50, 2))
+    gt[..., 2:] = rng.uniform(0.02, 0.4, (8, 50, 2))
+    label = rng.integers(0, 80, (8, 50)).astype(np.int32)
+    img = np.full((8, 2), 608, np.int32)
+    for size, mask_, down in YOLO_HEADS:
+        x = (rng.standard_normal((8, 255, size, size)) * 0.5).astype(
+            np.float32)
+        c, p, _, ms, _ = both(
+            lambda a, i: torch.cat(V.yolo_box(a, i, COCO_ANCHORS[
+                2 * mask_[0]:2 * mask_[-1] + 2], 80, 0.01, down), -1),
+            [x, img])
+        res[f"yolo_box_{size}"] = {"x": list(x.shape), "rel_err": rel(c, p),
+                                   "ms": ms}
+        c, p, gerr, ms, msb = both(
+            lambda a, g_, l_: V.yolo_loss(a, g_, l_, COCO_ANCHORS, mask_,
+                                          80, 0.7, down),
+            [x, gt, label], grad=(0,))
+        res[f"yolo_loss_{size}"] = {"x": list(x.shape), "gt_boxes": 50,
+                                    "ignore_thresh": 0.7,
+                                    "rel_err": rel(c, p),
+                                    "grad_rel_err": gerr, "ms": ms,
+                                    "fwd_bwd_ms": msb}
+    emit({"phase": "vision_ops", "dtype": "float32", "tf32": False,
+          "tol": VISION_OPS_TOL, "grad_tol": VISION_OPS_GRAD_TOL,
+          "ms": "CUDA events, mean of 5 calls after one (3 for "
+                "generate_proposals), host reads included",
+          "ops": res, "card": card_name_power()})
+    release()
+    for name, r in res.items():
+        for k in ("equal", "nums_equal"):
+            assert r.get(k, True), (name, r)
+        if "rel_err" in r:
+            assert r["rel_err"] is not None and \
+                r["rel_err"] <= VISION_OPS_TOL, (name, r)
+        for e in r.get("grad_rel_err", []):
+            assert e <= VISION_OPS_GRAD_TOL, (name, r)
+
+
+def phase_quantization(batch=64, qat_steps=3, calib=4):
+    """MobileNetV3-Large in float32 at batch 64 (224 x 224, 1,000
+    classes): QAT (`QAT().quantize`, every conv and linear fake-quantized,
+    Momentum(0.01, 0.9)) for 3 steps, then `convert` (the classifier's
+    two linears to `Int8Linear`, the convs' weights folded); PTQ (`PTQ()`
+    observers) over 4 calibration batches, then `convert`.  Each
+    converted model against its fake-quant model in eval: top-1
+    agreement and the largest logit gap (printed); the classifier's
+    first `Int8Linear` int32 product on the card bit-equal to the CPU's
+    on the same int8 inputs, and its output within 1e-5 of the CPU's."""
+    import copy
+
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch.jit import train_step
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import mobilenet_v3_large
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(3)
+    float_model = mobilenet_v3_large(num_classes=1000, device="cuda",
+                                     generator=g)
+    xs = [torch.randn(batch, 3, 224, 224, generator=g, device="cuda")
+          for _ in range(calib + 1)]
+    y = torch.randint(0, 1000, (batch,), generator=g, device="cuda")
+    rec = {"phase": "quantization", "model": "mobilenet_v3_large",
+           "dtype": "float32", "batch": batch}
+
+    def judge(fq, conv, name, x):
+        with torch.no_grad():
+            a = fq.eval()(x).float()
+            b = conv.eval()(x).float()
+        return {"top1_agreement": float((a.argmax(1) == b.argmax(1))
+                                        .float().mean()),
+                "max_logit_gap": float((a - b).abs().max()),
+                "logit_scale": float(a.abs().max()),
+                "finite": bool(torch.isfinite(b).all()),
+                "int8_linears": sum(isinstance(m, Q.Int8Linear)
+                                    for m in conv.modules())}
+
+    qat = Q.QAT()
+    qmodel = qat.quantize(copy.deepcopy(float_model))
+    step = train_step(qmodel, ce_loss,
+                      Momentum(learning_rate=0.01, momentum=0.9,
+                               parameters=qmodel.parameters()))
+    losses = [step(xs[0], y).item() for _ in range(qat_steps)]
+    conv = qat.convert(qmodel, inplace=False)
+    rec["qat"] = {"steps": qat_steps, "losses": losses,
+                  **judge(qmodel, conv, "qat", xs[0])}
+    ptq = Q.PTQ()
+    pmodel = ptq.quantize(copy.deepcopy(float_model)).eval()
+    with torch.no_grad():
+        for x in xs[1:]:
+            pmodel(x)
+    pconv = ptq.convert(pmodel, inplace=False)
+    rec["ptq"] = {"calibration_batches": calib,
+                  **judge(pmodel, pconv, "ptq", xs[0])}
+    # the classifier's first Int8Linear, card against CPU
+    lin = pconv.classifier[0]
+    feats = {}
+
+    def keep_input(module, args):
+        feats.setdefault("x", args[0].detach())
+    hook = lin.register_forward_pre_hook(keep_input)
+    with torch.no_grad():
+        out = pconv(xs[0])
+    hook.remove()
+    xq = torch.clamp(torch.round(feats["x"] / lin.act_scale * 127.0),
+                     -127, 127).to(torch.int8)
+    acc_card = Q.int8_matmul(xq, lin.w_int8)
+    acc_cpu = Q.int8_matmul(xq.cpu(), lin.w_int8.cpu())
+    lin_cpu = copy.deepcopy(lin).cpu()
+    with torch.no_grad():
+        y_card, y_cpu = lin(feats["x"]), lin_cpu(feats["x"].cpu())
+    rec["int8_linear"] = {
+        "shape": [list(xq.shape), list(lin.w_int8.shape)],
+        "int32_bit_equal": torch.equal(acc_card.cpu(), acc_cpu),
+        "int32_max": int(acc_card.abs().max()),
+        "out_rel_err": float((y_card.cpu() - y_cpu).abs().max()
+                             / y_cpu.abs().max()),
+        "ms": event_ms(lambda: lin(feats["x"]), iters=20),
+        "int_mm_ms": event_ms(lambda: Q.int8_matmul(xq, lin.w_int8),
+                              iters=20)}
+    rec["card"] = card_name_power()
+    emit(rec)
+    del float_model, qmodel, conv, pmodel, pconv, step, xs, out
+    release()
+    assert all(np.isfinite(losses)), losses
+    for k in ("qat", "ptq"):
+        assert rec[k]["finite"] and rec[k]["int8_linears"] == 2, rec[k]
+    assert rec["int8_linear"]["int32_bit_equal"], rec["int8_linear"]
+    assert rec["int8_linear"]["out_rel_err"] <= 1e-5, rec["int8_linear"]
 
 
 # ------------------------------------------------------- BERT and ERNIE
@@ -7304,6 +7925,10 @@ def run_phases(started):
                        layers=WEIGHT_ONLY_LAYERS))
     timed("resnet", phase_resnet)
     timed("resnet_e2e", phase_resnet_e2e)
+    timed("mobilenet_train", phase_mobilenet_train)
+    timed("vision_e2e", phase_vision_e2e)
+    timed("vision_ops", phase_vision_ops)
+    timed("quantization", phase_quantization)
     paths.update(timed("bert", phase_bert))
     paths["bert_e2e"] = timed("bert_e2e", phase_bert_e2e)
     paths["bert_fp32_train"], fp32_p50, fp32_busy = timed(

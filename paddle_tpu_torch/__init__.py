@@ -101,7 +101,8 @@ _LAZY = {name: (f"paddle_tpu_torch.{name}", None) for name in (
     "amp", "callbacks", "device", "distributed", "dtypes", "framework",
     "hapi", "inference", "io", "jit", "metric", "nn", "observability",
     "ops", "optimizer", "regularizer", "resilience", "serving", "static",
-    "text", "vision", "linalg", "fft", "signal", "profiler", "tensor_api")}
+    "text", "vision", "linalg", "fft", "signal", "profiler", "tensor_api",
+    "quantization")}
 _LAZY["DataParallel"] = ("paddle_tpu_torch.distributed", "DataParallel")
 _LAZY["Model"] = ("paddle_tpu_torch.hapi", "Model")
 _LAZY["save"] = ("paddle_tpu_torch.jit", "save")

@@ -14,14 +14,17 @@ this iteration.
 
 Where the JAX package reads every grad's finiteness back to the host
 (one wait per parameter, `:48-53`), `unscale_` here checks and unscales
-all the grads of one device and dtype in one fused PyTorch call and
-waits for the device once.  Grads that are None are left alone.  The
+all the grads of one device and dtype together (see `_unscale_grads`)
+and waits for the device once.  Grads that are None are left alone.  The
 JAX scaler's telemetry (a skipped-step counter and a scale gauge) is not
 ported.
 """
 from __future__ import annotations
 
 import torch
+
+from ..framework import debugging as _debugging
+from ..resilience import guard as _guard
 
 
 class GradScaler:
@@ -59,16 +62,23 @@ class GradScaler:
     @torch.no_grad()
     def _unscale_grads(self, optimizer):
         """Divide every grad of `optimizer` by the scale in place; True if
-        any grad held an inf or a NaN (before the division)."""
-        groups = {}
-        for p in optimizer._parameters:
-            if p.grad is not None:
-                groups.setdefault((p.grad.device, p.grad.dtype),
-                                  []).append(p.grad)
+        any grad held an inf or a NaN (before the division).  The grads
+        of each device and dtype go together: float32 and float16 through
+        the fused `_amp_foreach_non_finite_check_and_unscale_`, bfloat16
+        (a bf16 model, or `amp.decorate(dtype="bfloat16")`), which that
+        kernel does not take on CUDA, judged by
+        `framework.debugging.grad_flags` and divided by one
+        `_foreach_mul_`."""
         found = {}
-        for (device, _), grads in groups.items():
+        for (device, dtype), grads in _guard._groups(
+                [p.grad for p in optimizer._parameters]).items():
             if device not in found:
                 found[device] = torch.zeros(1, device=device)
+            if dtype == torch.bfloat16:
+                bad = ~_debugging.grad_flags(grads, device).all()
+                found[device] += bad.to(torch.float32)
+                torch._foreach_mul_(grads, 1.0 / self._scale)
+                continue
             inv = torch.full((1,), 1.0 / self._scale, device=device)
             torch._amp_foreach_non_finite_check_and_unscale_(
                 grads, found[device], inv)

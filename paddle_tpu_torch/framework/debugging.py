@@ -23,15 +23,15 @@ def enabled() -> bool:
 
 
 @torch.no_grad()
-def finite_flags(loss, grads):
-    """[1 + len(grads)] bool vector on the loss's device: the loss
-    all-finite, then each gradient (None counts as finite).  Each run of
-    consecutive gradients of one device and dtype goes through one
-    multi-tensor infinity norm (`torch._foreach_norm`), which is NaN or
-    inf exactly when a tensor holds a NaN or an inf, and one stack: a
-    few launches for a whole model, whatever its number of tensors."""
-    device = loss.device
-    out = [torch.isfinite(loss.detach().float()).all().reshape(1)]
+def grad_flags(grads, device):
+    """[len(grads)] bool vector on `device`: each gradient all-finite
+    (None counts as finite).  Each run of consecutive gradients of one
+    device and dtype goes through one multi-tensor infinity norm
+    (`torch._foreach_norm`), which is NaN or inf exactly when a tensor
+    holds a NaN or an inf, and one stack: a few launches for a whole
+    model, whatever its number of tensors, in every floating dtype the
+    card has (bfloat16 included)."""
+    out = []
     run, key = [], None
 
     def flush():
@@ -56,7 +56,16 @@ def finite_flags(loss, grads):
     flush()
     if nones:
         out.append(torch.ones(nones, dtype=torch.bool, device=device))
-    return torch.cat(out)
+    return torch.cat(out) if out else torch.ones(0, dtype=torch.bool,
+                                                 device=device)
+
+
+@torch.no_grad()
+def finite_flags(loss, grads):
+    """[1 + len(grads)] bool vector on the loss's device: the loss
+    all-finite, then each gradient (`grad_flags`)."""
+    return torch.cat([torch.isfinite(loss.detach().float()).all().reshape(1),
+                      grad_flags(grads, loss.device)])
 
 
 def raise_on_nonfinite(flags_arr, names, step):

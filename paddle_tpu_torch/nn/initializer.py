@@ -36,11 +36,16 @@ def _view(t):
 def _fill_float32(t, draw):
     """Fill `t`'s reference view with `draw(tmp)` made in float32 on its
     device, rounded once to its dtype (as the JAX initializers draw in
-    float32 and cast)."""
+    float32 and cast).  A marked weight takes `tmp.t()` whole, which
+    copies by blocks, where a copy into its transposed view goes element
+    by element."""
     v = _view(t)
     tmp = torch.empty(v.shape, dtype=torch.float32, device=v.device)
     draw(tmp)
-    v.copy_(tmp)
+    if v is t:
+        t.copy_(tmp)
+    else:
+        t.copy_(tmp.t())
     return t
 
 

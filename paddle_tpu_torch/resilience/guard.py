@@ -22,6 +22,7 @@ import warnings
 
 import torch
 
+from ..framework import debugging as _debugging
 from ..framework import random as _random
 from ..observability import metrics as _metrics
 
@@ -31,22 +32,38 @@ def all_finite(loss, grads):
     """A 0-dim bool tensor on the loss's device: True when the loss and
     every gradient (None skipped) hold finite values only.  No host
     wait.  The JAX package sums g * 0 over every tensor; here the
-    gradients of each device and dtype go through one fused finiteness
-    check (`_amp_foreach_non_finite_check_and_unscale_` with a scale of
-    1, which leaves every value as it is), the verdict the same."""
-    found = torch.zeros(1, dtype=torch.float32, device=loss.device)
+    gradients of each device and dtype are judged together, the verdict
+    the same: float32 and float16 groups by the fused
+    `_amp_foreach_non_finite_check_and_unscale_` (with a scale of 1,
+    which leaves every value as it is), bfloat16 groups, which that
+    kernel does not take on CUDA, by `framework.debugging.grad_flags`
+    (one multi-tensor infinity norm and one stack; its Python pass over
+    the tensors makes it the slower of the two: 0.81 ms against 0.27 ms
+    for this function over MobileNetV3-Large's float32 gradients on an
+    H100: PERF.md)."""
+    device = loss.device
+    ok = torch.isfinite(loss.detach().float()).all()
+    found = torch.zeros(1, dtype=torch.float32, device=device)
+    for (dev, dtype), gs in _groups(grads).items():
+        if dtype == torch.bfloat16:
+            ok = ok & _debugging.grad_flags(gs, device).all()
+            continue
+        f = found if dev == device else torch.zeros(1, dtype=torch.float32,
+                                                    device=dev)
+        torch._amp_foreach_non_finite_check_and_unscale_(
+            gs, f, torch.ones(1, dtype=torch.float32, device=dev))
+        if f is not found:
+            found += f.to(device)
+    return ok.logical_and(found[0] == 0)
+
+
+def _groups(grads):
+    """{(device, dtype): [gradient, ...]} of the gradients not None."""
     groups = {}
     for g in grads:
         if g is not None:
             groups.setdefault((g.device, g.dtype), []).append(g)
-    for (device, _), gs in groups.items():
-        f = found if device == found.device else \
-            torch.zeros(1, dtype=torch.float32, device=device)
-        torch._amp_foreach_non_finite_check_and_unscale_(
-            gs, f, torch.ones(1, dtype=torch.float32, device=device))
-        if f is not found:
-            found += f.to(found.device)
-    return torch.isfinite(loss.detach().float()).logical_and(found[0] == 0)
+    return groups
 
 
 @torch.no_grad()

@@ -1,4 +1,4 @@
-"""ResNet family (counterpart: `paddle_tpu/vision/models/resnet.py:16-185`).
+"""ResNet family (counterpart: `paddle_tpu/vision/models/resnet.py:16-199`).
 
 The same module tree and names as the JAX package (`conv1.weight`,
 `layer1.0.bn1._mean`, `layer2.0.downsample.0.weight`, `fc.weight`, ...),
@@ -27,6 +27,7 @@ from ...device import resolve_device
 from ...nn.conv import Conv2D
 from ...nn.norm import BatchNorm2D
 from ...nn.pooling import AdaptiveAvgPool2D, MaxPool2D
+from ._builder import no_pretrained
 
 
 def _mk_norm(norm_layer, num_features, kw):
@@ -104,7 +105,7 @@ class ResNet(nn.Module):
     with 0); batch norms start at unit scale, zero shift."""
 
     LAYERS = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],
-              101: [3, 4, 23, 3]}
+              101: [3, 4, 23, 3], 152: [3, 8, 36, 3]}
 
     def __init__(self, block, depth=50, width=64, num_classes=1000,
                  with_pool=True, groups=1, s2d_stem=False,
@@ -184,8 +185,7 @@ class ResNet(nn.Module):
 
 
 def _resnet(block, depth, pretrained=False, **kwargs):
-    if pretrained:
-        raise NotImplementedError("no pretrained weights are shipped")
+    no_pretrained(pretrained)
     return ResNet(block, depth, **kwargs)
 
 
@@ -203,3 +203,16 @@ def resnet50(pretrained=False, **kwargs):
 
 def resnet101(pretrained=False, **kwargs):
     return _resnet(BottleneckBlock, 101, pretrained, **kwargs)
+
+
+def resnet152(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 152, pretrained, **kwargs)
+
+
+def wide_resnet50_2(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 50, pretrained, width=128, **kwargs)
+
+
+def resnext50_32x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 50, pretrained, groups=32, width=4,
+                   **kwargs)

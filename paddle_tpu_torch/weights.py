@@ -3,22 +3,28 @@
 `load_paddle_tpu_state(model, arrays)` takes the `{name: np.ndarray}`
 that a `paddle_tpu` model's `state_dict()` gives (each value through
 `np.asarray`) and copies it into the port's model of the same
-architecture (GPT, GPT-MoE, LLaMA, Mistral, Qwen2, ResNet, BERT, ERNIE,
-the incubate package's fused layers, and any of them wrapped by LoRA or
-converted to weight-only), name for name.  The JAX
-package keeps a Linear weight as [in, out] (`paddle_tpu/nn/common.py::
-Linear`); `torch.nn.Linear` keeps [out, in], so those weights (every
-projection, LLaMA's untied `lm_head`, a ResNet's `fc`, BERT's and
-ERNIE's `*_proj`, `linear1` / `linear2`, `pooler` and `classifier`, and the
-`*.base.weight` of a LoRA layer) are transposed on the way.  The rest
-keeps its layout: embeddings, norm weights and biases, a routed
-block's stacked experts (`mlp.gate_weight` [d, E], `mlp.w1` [E, d, f],
-`mlp.w2` [E, f, d] and their biases), the fused layers' raw [in, out]
-weights (`qkv_weight`, `linear_weight`, `linear1_weight`, ...), OIHW conv
-weights, batch-norm running statistics, LoRA's `lora_A` [in, r] and
-`lora_B` [r, out] (the port keeps the JAX layout for them), and a
+architecture (GPT, GPT-MoE, LLaMA, Mistral, Qwen2, BERT, ERNIE, every
+family of the vision zoo (ResNet, LeNet, AlexNet, VGG, SqueezeNet,
+MobileNet v1 / v2 / v3, ShuffleNetV2, DenseNet, GoogLeNet, InceptionV3),
+`vision.ops.DeformConv2D`, the incubate package's fused layers, and any
+of them wrapped by LoRA, converted to weight-only, or quantized by
+`quantization.QAT` / `PTQ` before or after `convert`), name for name.
+The JAX package keeps a Linear weight as [in, out] (`paddle_tpu/nn/
+common.py::Linear`); `torch.nn.Linear` keeps [out, in], so those weights
+(every projection, LLaMA's untied `lm_head`, a vision model's `fc`,
+`classifier` and aux heads, BERT's and ERNIE's `*_proj`, `linear1` /
+`linear2`, `pooler` and `classifier`, the `*.base.weight` of a LoRA
+layer and the `*.inner.weight` of a `QuantedLinear`) are transposed on
+the way.  The rest keeps its layout: embeddings, norm weights and
+biases, a routed block's stacked experts (`mlp.gate_weight` [d, E],
+`mlp.w1` [E, d, f], `mlp.w2` [E, f, d] and their biases), the fused
+layers' raw [in, out] weights (`qkv_weight`, `linear_weight`,
+`linear1_weight`, ...), OIHW conv weights, batch-norm running
+statistics, the quanters' and observers' scales, LoRA's `lora_A` [in,
+r] and `lora_B` [r, out] (the port keeps the JAX layout for them), a
 weight-only layer's int8 `quant_weight` [in, out] and `weight_scale`,
-which are copied bit for bit.
+and an `Int8Linear`'s int8 `w_int8` [in, out], `w_scale` and
+`act_scale`, which are copied bit for bit.
 
 A tensor-parallel model (`distributed.parallel_layers`) takes the same
 dense arrays: each parallel layer keeps its rank's piece, split along the

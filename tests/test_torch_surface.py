@@ -30,8 +30,8 @@ QUEUE_ITEMS = {"A11", "A13a", "A13b", "jax"}
 # (module, queue item): names not ported yet
 LEFT_OUT = {
     ("__init__.py", "A13b"): (
-        "audio distribution geometric hub onnx quantization sparse "
-        "sysconfig utils version"
+        "audio distribution geometric hub onnx sparse sysconfig utils "
+        "version"
     ),
     # JAX's own 64-bit switch: the port keeps torch's real 64-bit types
     ("__init__.py", "jax"): "enable_x64 x64_enabled",
@@ -79,21 +79,6 @@ LEFT_OUT = {
     ),
     ("text/decode.py", "jax"): (
         "jit_generate(seed_key) speculative_generate(seed_key)"
-    ),
-    ("vision/__init__.py", "A13b"): "ops",
-    ("vision/models/__init__.py", "A13b"): (
-        "AlexNet DenseNet GoogLeNet InceptionV3 LeNet MobileNetV1 "
-        "MobileNetV2 MobileNetV3Large MobileNetV3Small ShuffleNetV2 "
-        "SqueezeNet VGG alexnet densenet121 densenet161 densenet169 "
-        "densenet201 densenet264 googlenet inception_v3 mobilenet_v1 "
-        "mobilenet_v2 mobilenet_v3_large mobilenet_v3_small resnet152 "
-        "resnext50_32x4d shufflenet_v2_swish shufflenet_v2_x0_25 "
-        "shufflenet_v2_x0_33 shufflenet_v2_x0_5 shufflenet_v2_x1_0 "
-        "shufflenet_v2_x1_5 shufflenet_v2_x2_0 squeezenet1_0 "
-        "squeezenet1_1 vgg11 vgg13 vgg16 vgg19 wide_resnet50_2"
-    ),
-    ("vision/models/resnet.py", "A13b"): (
-        "resnet152 resnext50_32x4d wide_resnet50_2"
     ),
 }
 
